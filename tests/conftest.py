@@ -9,6 +9,11 @@ import jax
 import jax.numpy as jnp
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card (skips where there is none)")
+
+
 @pytest.fixture(scope="session")
 def xmc_small():
     """Separable-ish power-law XMC problem, solved in seconds on CPU."""
