@@ -3,12 +3,13 @@
 
     python3 chip_smoke.py [--seed 0]      # from the root of a checkout
 
-Drives the port's serving path at the full width of Wiki10-31K
-(L = 30,938 labels, D = 101,938 features; Extreme Classification
-Repository, DiSMEC paper Table 1) with 128 x 128 blocks at 5% block
-density, weights drawn from the seed:
+Drives the port's serving and training paths at the full width of
+Wiki10-31K (L = 30,938 labels, D = 101,938 features, N = 14,146 training
+documents; Extreme Classification Repository, DiSMEC paper Table 1).
+Serving uses 128 x 128 blocks at 5% block density, weights drawn from the
+seed:
 
-  1. build   — both CUDA kernels with nvcc for sm_90a (register and
+  1. build   — all four CUDA kernels with nvcc for sm_90a (register and
                shared-memory lines of `-Xptxas -v` printed);
   2. setup   — the card's name and power limit; TF32 off for matmul and
                cuDNN, so every plain version runs in full fp32;
@@ -25,10 +26,33 @@ density, weights drawn from the seed:
                run, and the served ids must equal the plain path's ids on
                every row whose k-th/(k+1)-th margin is decisive.
 
-The second-last lines are the kernels' JSON summary and the card's name
-and power limit from nvidia-smi; the last line is
-`{"ok": true, "device": {...}}`. Any failure exits non-zero before it.
-Without a CUDA card, or outside a checkout, it exits non-zero at once.
+Then training, on the port's synthetic power-law data at Wiki10-31K width
+(N = 14,146, D = 101,938; 2 of Wiki10-31K's 31 batches of 1,024 labels):
+
+  5. train data    — `make_xmc_dataset` (the JAX package's generator,
+                     copied) from the seed: 2,048 labels, beta = 0.9, 512
+                     held-out rows; X_train is 5.77 GB of dense fp32;
+  6. train kernels — the hinge kernel (at W = 0 and at a random W) and the
+                     HVP kernel (at a random V, with the hinge kernel's
+                     mask) against their plain versions at (1,024, 14,146,
+                     101,938), two launches bit-identical, timed like 3;
+  7. TRON          — batched TRON on the kernel ops against the plain ops
+                     at (256, 4,096, 16,384): per-label Newton and CG
+                     counts equal on >= 99% of labels, f within 1e-4;
+  8. train         — `fit(X, Y, spec, dir)` on the card with the kernel
+                     ops, max_newton = 10 and max_cg = 20, label_batch
+                     1,024: a complete two-batch checkpoint; the hinge and
+                     HVP launch counts must be > 0 in that run;
+  9. serve trained — `CheckpointHandle.open(dir).engine()` on `bsr` over
+                     the 512 held-out rows: P@1 and P@5, the served ids
+                     equal to the plain path's on every decisive row, and
+                     both serving kernels launched.
+
+The lines before the last are the kernels' JSON summary (all four
+kernels), the training run's JSON summary and the card's name and power
+limit from nvidia-smi; the last line is `{"ok": true, "device": {...}}`.
+Any failure exits non-zero before it. Without a CUDA card, or outside a
+checkout, it exits non-zero at once.
 """
 
 from __future__ import annotations
@@ -58,6 +82,13 @@ REQUEST_ROWS = (1, 64, 1, 64, 300, 1, 7, 64, 1, 33)
 ZERO_REQUEST = 5                                # this one is a row of zeros
 BSR_N = (1, 32, 256)
 HEADLINE_N = 32                                 # a typical micro-batch
+# Training: Wiki10-31K's N and D, 2 of its 31 label batches.
+TRAIN_N, TRAIN_LABELS, TEST_N = 14_146, 2_048, 512
+TRAIN_BATCH = 1_024
+TRAIN_BETA = 0.9                                # wiki31k_like
+MAX_NEWTON, MAX_CG = 10, 20                     # Algorithm 1 uses 50 and 40
+TRON_SHAPE = (256, 4_096, 16_384)               # (L, N, D) of phase 7
+SERVE_CHUNK = 64                                # held-out rows per request
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
@@ -261,7 +292,7 @@ def check_topk(scores, flush) -> dict:
                 bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
 
 
-def plain_topk(model, x: np.ndarray):
+def plain_topk(model, x: np.ndarray, n_labels: int = N_LABELS):
     """The plain path: plain BSR predict, padding masked, stable sort."""
     from repro_torch.kernels.bsr_predict import ref as bsr_ref
     from repro_torch.kernels.topk import ref as topk_ref
@@ -270,7 +301,7 @@ def plain_topk(model, x: np.ndarray):
                                  (0, Dp - x.shape[1]))
     s = bsr_ref.bsr_predict(xp, model.blocks, model.block_rows,
                             model.block_cols, Lp // model.block_shape[0])
-    s[:, N_LABELS:] = topk_ref.NEG_INF
+    s[:, n_labels:] = topk_ref.NEG_INF
     v, i = topk_ref.topk(s, K + 1)
     return v.cpu().numpy(), i.cpu().numpy()
 
@@ -369,6 +400,304 @@ def serve(ckpt: str, requests, margin_tol: float) -> dict:
                 request_64_ms=split)
 
 
+def train_magnitudes(W, X, S, act, C):
+    """Per element, the sums over absolute values of the terms the hinge
+    kernel adds: m = |W| |X|^T bounds a score's rounding, so f's terms are
+    bounded by act (|z| + m)^2 and grad's by 2|W| + 2C (act (m + |S|)) |X|."""
+    m = W.abs() @ X.abs().T
+    z = 1.0 - S * (W @ X.T)
+    f_mag = (W * W).sum(-1) + C * (act * (z.abs() + m) ** 2).sum(-1)
+    g_mag = 2.0 * W.abs() + 2.0 * C * ((act * (m + S.abs())) @ X.abs())
+    return f_mag, g_mag, z
+
+
+def within(diff: torch.Tensor, mag: torch.Tensor) -> bool:
+    """|diff| <= 1e-5 * mag in every element (an exact zero where the
+    magnitude is zero)."""
+    return bool((diff.abs() <= 1e-5 * mag).all())
+
+
+def share(diff: torch.Tensor, mag: torch.Tensor) -> float:
+    """The largest |diff| / mag over the elements with mag > 0."""
+    return float((diff.abs() / mag.clamp_min(1e-30)).max())
+
+
+def check_train_kernels(X, S, gen, flush) -> dict:
+    """Hinge and HVP kernels against their plain versions at the trainer's
+    shape (L, N, D) = (1,024, 14,146, 101,938), with times."""
+    from repro_torch.kernels.hinge import ops as hinge_ops
+    from repro_torch.kernels.hinge import ref as hinge_ref
+    from repro_torch.kernels.hvp import ops as hvp_ops
+    from repro_torch.kernels.hvp import ref as hvp_ref
+    C = 1.0
+    L, (N, D) = S.shape[0], X.shape
+    print("   tolerance: f, grad and Hv within 1e-5 of the same sums over "
+          "absolute values, per element, because both sides sum the same "
+          "fp32 products in another order (FFMA in the kernels, fp32 GEMM "
+          "with TF32 off in the plain versions); act identical wherever "
+          "|z| > 1e-5, where no such rounding can flip it; two launches "
+          "identical bit for bit (no atomics, fixed order)")
+    out = {}
+    W_rand = torch.randn((L, D), device="cuda", generator=gen)
+    for tag, W in (("W=0", torch.zeros((L, D), device="cuda")),
+                   ("W~N(0,1)", W_rand)):
+        f, g, act = hinge_ops.hinge_obj_grad_cuda(W, X, S, C)
+        f_p, g_p, act_p = hinge_ref.objective_grad_act(W, X, S, C)
+        f_mag, g_mag, z = train_magnitudes(W, X, S,
+                                           torch.maximum(act, act_p), C)
+        again = hinge_ops.hinge_obj_grad_cuda(W, X, S, C)
+        torch.cuda.synchronize()
+        decided = z.abs() > 1e-5
+        n_flip = int((act != act_p).sum())
+        _need(torch.equal(act[decided], act_p[decided]),
+              f"hinge act differs where |z| > 1e-5 ({tag})")
+        f_err, g_err = share(f - f_p, f_mag), share(g - g_p, g_mag)
+        _need(within(f - f_p, f_mag) and within(g - g_p, g_mag),
+              f"hinge kernel disagrees with its plain version ({tag}): "
+              f"f {f_err:.2e}, grad {g_err:.2e} of the magnitude")
+        _need(all(torch.equal(a, b) for a, b in zip((f, g, act), again)),
+              f"two hinge launches differ ({tag})")
+        err = max(float((f - f_p).abs().max()), float((g - g_p).abs().max()))
+        print(f"   hinge {tag}: max|kernel-plain| f "
+              f"{float((f - f_p).abs().max()):.3e} grad "
+              f"{float((g - g_p).abs().max()):.3e} (largest share of the "
+              f"magnitude: f {f_err:.2e}, grad {g_err:.2e}); act flips "
+              f"{n_flip} of {act.numel()} (|z| <= 1e-5 there); active "
+              f"{float(act.mean()):.4f}; two launches identical",
+              flush=True)
+        out[tag] = err
+        del f_p, g_p, act_p, f_mag, g_mag, z, decided, again
+    W = W_rand
+    f, g, act = hinge_ops.hinge_obj_grad_cuda(W, X, S, C)
+    del f, g
+    V = torch.randn((L, D), device="cuda", generator=gen)
+    hv = hvp_ops.hvp_cuda(V, X, act, C)
+    hv_p = hvp_ref.hessian_vp(V, X, act, C)
+    mag = 2.0 * V.abs() + 2.0 * C * ((act * (V.abs() @ X.abs().T))
+                                     @ X.abs())
+    again = hvp_ops.hvp_cuda(V, X, act, C)
+    torch.cuda.synchronize()
+    hv_err = share(hv - hv_p, mag)
+    _need(within(hv - hv_p, mag), "HVP kernel disagrees with its plain "
+          f"version: {hv_err:.2e} of the magnitude")
+    _need(torch.equal(hv, again), "two HVP launches differ")
+    out["hvp"] = float((hv - hv_p).abs().max())
+    print(f"   hvp: max|kernel-plain| {out['hvp']:.3e} (largest share of "
+          f"the magnitude {hv_err:.2e}); two launches identical",
+          flush=True)
+    del hv, hv_p, mag, again
+
+    r = act * (W @ X.T - S)
+    u = act * (V @ X.T)
+    n_ops = 2 * 2 * L * N * D                 # two dense contractions each
+    hinge_bytes = 4 * (2 * L * D + N * D + 2 * L * N + L)
+    hvp_bytes = 4 * (2 * L * D + N * D + L * N)
+    times = {}
+    for name, fn, plain, lib, n_bytes in (
+            ("hinge", lambda: hinge_ops.hinge_obj_grad_cuda(W, X, S, C),
+             lambda: hinge_ref.objective_grad_act(W, X, S, C),
+             lambda: (W @ X.T, r @ X), hinge_bytes),
+            ("hvp", lambda: hvp_ops.hvp_cuda(V, X, act, C),
+             lambda: hvp_ref.hessian_vp(V, X, act, C),
+             lambda: (V @ X.T, u @ X), hvp_bytes)):
+        ms = cuda_ms(fn, 3, flush)
+        plain_ms = cuda_ms(plain, 3, flush)
+        lib_ms = cuda_ms(lib, 3, flush)
+        b_ms, b_by = bound(n_bytes, n_ops)
+        times[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                           bound_ms=b_ms, bound_by=b_by,
+                           tflops=n_ops / ms / 1e9)
+        print(f"   {name} ({L}, {N}, {D}): kernel {ms:.3f} ms "
+              f"({n_ops / ms / 1e9:.1f} TFLOP/s)  plain {plain_ms:.3f} ms  "
+              f"two torch.matmul {lib_ms:.3f} ms  bound {b_ms:.3f} ms "
+              f"({b_by}, {n_ops / 1e12:.2f} TFLOP, {n_bytes / 1e9:.2f} GB)",
+              flush=True)
+    return dict(err=out, times=times, shape=(L, N, D))
+
+
+def check_tron(X, Y) -> dict:
+    """Batched TRON on the kernel ops ("pallas") against the plain ops
+    ("jnp") on the card, at TRON_SHAPE: the same per-label counters on
+    >= 99% of labels and f within 1e-4 relative."""
+    from repro_torch.core.dismec import DiSMECConfig, train_label_batch
+    L, N, D = TRON_SHAPE
+    Xs = X[:N, :D].contiguous()
+    S = (2.0 * torch.from_numpy(Y[:N, :L].T.astype(np.float32)) - 1.0).cuda()
+    res, secs = {}, {}
+    for kind in ("jnp", "pallas"):
+        cfg = DiSMECConfig(C=1.0, eps=0.01, max_newton=MAX_NEWTON,
+                           max_cg=MAX_CG, ops=kind)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res[kind] = train_label_batch(Xs, S, cfg)
+        torch.cuda.synchronize()
+        secs[kind] = time.perf_counter() - t0
+    a, b = res["pallas"], res["jnp"]
+    same = (a.n_newton == b.n_newton) & (a.n_cg == b.n_cg)
+    n_diff = int((~same).sum())
+    f_rel = float(((a.f - b.f).abs() / b.f.abs()).max())
+    print(f"   ({L}, {N}, {D}), max_newton {MAX_NEWTON}, max_cg {MAX_CG}: "
+          f"counters differ on {n_diff} of {L} labels; max |f - f_plain| / "
+          f"|f_plain| {f_rel:.2e}; converged {int(a.converged.sum())} "
+          f"(kernel ops) / {int(b.converged.sum())} (plain ops); Newton "
+          f"steps max {int(a.n_newton.max())}, CG steps max "
+          f"{int(a.n_cg.max())}; {secs['pallas']:.2f} s on the kernel ops, "
+          f"{secs['jnp']:.2f} s on the plain ops", flush=True)
+    _need(n_diff <= 0.01 * L, f"TRON counters differ on {n_diff} labels")
+    _need(f_rel <= 1e-4, f"TRON objectives differ by {f_rel:.2e}")
+    return dict(shape=TRON_SHAPE, labels_differing=n_diff, f_rel=f_rel,
+                kernel_s=secs["pallas"], plain_s=secs["jnp"])
+
+
+@contextlib.contextmanager
+def fit_spans():
+    """Time the stages of `fit` from outside: each batch's solve on the
+    card (synchronised), its BSR pack, its shard write and the finalize,
+    as (stage, start, end) on the host clock. The stages are wrapped where
+    train/xmc.py looks them up and restored afterwards."""
+    from repro_torch.checkpoint import io
+    from repro_torch.train import xmc
+    spans = []
+
+    def timed(name, fn, sync=False):
+        def wrapper(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            if sync:
+                torch.cuda.synchronize()
+            spans.append((name, t0, time.perf_counter()))
+            return out
+        return wrapper
+
+    saved = (xmc.make_batch_solver, xmc.to_block_sparse,
+             io.BlockSparseWriter.write_batch,
+             io.BlockSparseWriter.try_finalize)
+    xmc.make_batch_solver = lambda *a, **k: timed(
+        "solve", saved[0](*a, **k), sync=True)
+    xmc.to_block_sparse = timed("pack", saved[1])
+    io.BlockSparseWriter.write_batch = timed("write", saved[2])
+    io.BlockSparseWriter.try_finalize = timed("finalize", saved[3])
+    try:
+        yield spans
+    finally:
+        (xmc.make_batch_solver, xmc.to_block_sparse,
+         io.BlockSparseWriter.write_batch,
+         io.BlockSparseWriter.try_finalize) = saved
+
+
+def train(data, ckpt: str, kernel_ms: dict) -> dict:
+    """The training path, with the launch counts of all four kernels set
+    to 0 just before it: `fit` on the card with the kernel ops."""
+    from repro_torch.kernels.bsr_predict import ops as bsr_ops
+    from repro_torch.kernels.hinge import ops as hinge_ops
+    from repro_torch.kernels.hvp import ops as hvp_ops
+    from repro_torch.kernels.topk import ops as topk_ops
+    from repro_torch.specs import ScheduleSpec, ServeSpec, SolverSpec
+    from repro_torch.xmc_api import XMCSpec, fit
+    spec = XMCSpec(solver=SolverSpec(C=1.0, delta=0.01, eps=0.01,
+                                     max_newton=MAX_NEWTON, max_cg=MAX_CG,
+                                     ops="pallas"),
+                   schedule=ScheduleSpec(label_batch=TRAIN_BATCH),
+                   serve=ServeSpec(backend="bsr", k=K))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in (hinge_ops.hinge_obj_grad_cuda, hvp_ops.hvp_cuda,
+               bsr_ops.bsr_predict_cuda, topk_ops.blocked_topk_cuda):
+        fn.launches = 0
+    marks = []
+    with fit_spans() as spans:
+        t0 = time.perf_counter()
+        handle = fit(data.X_train, data.Y_train, spec, ckpt,
+                     on_batch=lambda b, n: marks.append(
+                         (b, time.perf_counter() - t0)))
+        wall = time.perf_counter() - t0
+    launches = {"hinge_obj_grad": hinge_ops.hinge_obj_grad_cuda.launches,
+                "hvp": hvp_ops.hvp_cuda.launches}
+    peak = torch.cuda.max_memory_allocated()
+    res = handle.result
+    _need(res.complete and res.solved == [0, 1],
+          f"fit did not complete: {res}")
+    _need(all(v > 0 for v in launches.values()),
+          f"a training kernel never launched: {launches}")
+    shards = res.manifest["shards"]
+    n_blocks = sum(e["n_blocks"] for e in shards.values())
+    nnz = sum(e["nnz"] for e in shards.values())
+    share = {k: launches[k] * kernel_ms[k.split("_")[0]] / 1e3 / wall
+             for k in launches}
+    print(f"   fit wall {wall:.1f} s; batch written at "
+          f"{[round(t, 1) for _, t in marks]} s after the start; launches "
+          f"{launches}; kernel share of the wall (launches x per-launch ms "
+          f"/ wall): hinge {share['hinge_obj_grad']:.3f}, hvp "
+          f"{share['hvp']:.3f}; max_memory_allocated "
+          f"{peak / 2**30:.2f} GiB; checkpoint {n_blocks} blocks, nnz "
+          f"{nnz} ({nnz / (TRAIN_LABELS * N_FEATURES):.4f} of the weights)",
+          flush=True)
+    stages = [dict(stage=n, start_s=a - t0, end_s=b - t0)
+              for n, a, b in sorted(spans, key=lambda x: x[1])]
+    first_solve = min(st["start_s"] for st in stages if st["stage"] ==
+                      "solve")
+    print(f"   stages (s from the start of fit): before the first solve "
+          f"(data fingerprint, X to the card) 0.0-{first_solve:.2f}; " +
+          "; ".join(f"{st['stage']} {st['start_s']:.2f}-{st['end_s']:.2f}"
+                    for st in stages), flush=True)
+    kernel_s = sum(launches[k] * kernel_ms[k.split("_")[0]] / 1e3
+                   for k in launches)
+    solve_s = sum(st["end_s"] - st["start_s"] for st in stages
+                  if st["stage"] == "solve")
+    print(f"   solves {solve_s:.2f} s, of which hinge + HVP launches "
+          f"{kernel_s:.2f} s and the rest of TRON (elementwise updates, "
+          f"one bool read per CG and Newton step) {solve_s - kernel_s:.2f}"
+          f" s", flush=True)
+    return dict(wall_s=wall, batch_done_s=[t for _, t in marks],
+                launches=launches, kernel_share=share,
+                peak_gib=peak / 2**30, n_blocks=n_blocks, nnz=nnz,
+                stages=stages, solve_s=solve_s, kernel_s=kernel_s)
+
+
+def serve_trained(ckpt: str, data, margin_tol: float) -> dict:
+    """The PR 11 engine over the trained checkpoint, with the serving
+    kernels' counts set to 0 just before it: P@1, P@5 and the served ids
+    against the plain path on the 512 held-out rows."""
+    from repro_torch.kernels.bsr_predict import ops as bsr_ops
+    from repro_torch.kernels.topk import ops as topk_ops
+    from repro_torch.xmc_api import CheckpointHandle
+    bsr_ops.bsr_predict_cuda.launches = 0
+    topk_ops.blocked_topk_cuda.launches = 0
+    handle = CheckpointHandle.open(ckpt)
+    _need(handle.spec.serve.backend == "bsr",
+          f"trained checkpoint serves on {handle.spec.serve.backend}")
+    engine = handle.engine()
+    X, Y = data.X_test, data.Y_test
+    requests = [X[i:i + SERVE_CHUNK] for i in range(0, len(X), SERVE_CHUNK)]
+    t0 = time.perf_counter()
+    results = engine.serve(requests)
+    t_serve = time.perf_counter() - t0
+    launches = {"bsr_predict": bsr_ops.bsr_predict_cuda.launches,
+                "blocked_topk": topk_ops.blocked_topk_cuda.launches}
+    _need(all(v > 0 for v in launches.values()),
+          f"a serving kernel never launched: {launches}")
+    labels = np.concatenate([r.labels for r in results])
+    _need(labels.shape == (len(X), K) and labels.min() >= 0
+          and labels.max() < TRAIN_LABELS, "malformed served labels")
+    hits = np.take_along_axis(Y, labels, axis=1)
+    p1, p5 = float(hits[:, 0].mean()), float(hits.mean())
+    model = engine.backend.model
+    decisive = agree = 0
+    for x, res in zip(requests, results):
+        v, ids = plain_topk(model, x, TRAIN_LABELS)
+        rows = (v[:, K - 1] - v[:, K]) > margin_tol
+        decisive += int(rows.sum())
+        agree += int((res.labels[rows] == ids[rows, :K]).all(axis=1).sum())
+    print(f"   {len(X)} held-out rows in {len(requests)} requests "
+          f"({t_serve:.2f} s): P@1 {p1:.4f}  P@5 {p5:.4f}; served ids == "
+          f"plain ids on {agree}/{decisive} decisive rows (margin > "
+          f"{margin_tol:.1e}); launches {launches}", flush=True)
+    _need(decisive > 0 and agree == decisive,
+          "served ids of the trained model differ from the plain path")
+    return dict(p_at_1=p1, p_at_5=p5, agree=agree, decisive=decisive,
+                launches=launches)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -446,6 +775,43 @@ def main() -> None:
             requests[ZERO_REQUEST][:] = 0.0
             err = max(r["max_abs_err"] for r in bsr["sweep"])
             served = serve(ckpt, requests, max(1e-7, 10 * err))
+        del model, requests
+
+    from repro_torch.data.xmc import make_xmc_dataset
+    with phase("train data: Wiki10-31K width"):
+        data = make_xmc_dataset(n_train=TRAIN_N, n_test=TEST_N,
+                                n_features=N_FEATURES,
+                                n_labels=TRAIN_LABELS, beta=TRAIN_BETA,
+                                seed=args.seed, name="wiki10_31k_width")
+        st = data.stats()
+        print(f"   X_train {data.X_train.shape} "
+              f"({data.X_train.nbytes / 1e9:.2f} GB fp32), feature density "
+              f"{st['feat_density']:.2e}, labels per row {st['ALpP']:.2f}, "
+              f"rows per label {st['APpL']:.2f}, tail labels (<= 5 rows) "
+              f"{st['tail_leq5']:.3f}", flush=True)
+
+    with phase("train kernels vs plain versions (1,024, 14,146, 101,938)"):
+        flush = torch.empty(64 * 2**20, device="cuda")       # 256 MB
+        gen = torch.Generator(device="cuda").manual_seed(args.seed)
+        Xd = torch.from_numpy(data.X_train).cuda()
+        Sd = (2.0 * torch.from_numpy(
+            data.Y_train[:, :TRAIN_BATCH].T.astype(np.float32))
+            - 1.0).cuda().contiguous()
+        train_k = check_train_kernels(Xd, Sd, gen, flush)
+        del Sd, flush
+        torch.cuda.empty_cache()
+
+    with phase("TRON: kernel ops vs plain ops on the card"):
+        tron = check_tron(Xd, data.Y_train)
+        del Xd
+        torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(dir=build_dir) as ckpt:
+        with phase("train: fit(X, Y, spec, dir) on the card"):
+            trained = train(data, ckpt, {k: v["ms"] for k, v in
+                                         train_k["times"].items()})
+        with phase("serve trained: CheckpointHandle.open(dir).engine()"):
+            served_t = serve_trained(ckpt, data, max(1e-7, 10 * err))
 
     head = next(r for r in bsr["sweep"] if r["n"] == HEADLINE_N)
     kernels = [
@@ -467,10 +833,26 @@ def main() -> None:
              library="torch.topk(scores, 5).values",
              at=f"({topk['n']}, {topk['L']}) k={K}"),
     ]
+    at = "(L, N, D) = ({}, {}, {})".format(*train_k["shape"])
+    for name, key, src, replaces, err_key in (
+            ("hinge_obj_grad", "hinge", "hinge.cu",
+             "src/repro/kernels/hinge/kernel.py:52", "W~N(0,1)"),
+            ("hvp", "hvp", "hvp.cu", "src/repro/kernels/hvp/kernel.py:34",
+             "hvp")):
+        t = train_k["times"][key]
+        kernels.append(dict(
+            name=name, route="cuda", source=f"src/repro_torch/csrc/{src}",
+            replaces=replaces, launches=trained["launches"][name],
+            max_abs_err=train_k["err"][err_key], ms=t["ms"],
+            plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+            bound_by=t["bound_by"], library_ms=t["library_ms"],
+            library="the two torch.matmul products, TF32 off", at=at))
     print(json.dumps({"kernels": kernels, "serve": {
         k: served[k] for k in ("p50_ms", "p99_ms", "load_s", "warmup_s",
                                "peak_mib", "agree", "decisive",
                                "request_64_ms")}}))
+    print(json.dumps({"train": {**trained, "tron": tron,
+                                "serve_trained": served_t}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

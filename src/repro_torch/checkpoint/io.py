@@ -14,14 +14,22 @@ Both layouts carry a generation counter: every fresh write records
 `generation = <prior generation> + 1`, visible to readers once the artifact
 is servable. The npz keys, index keys and JSON layout are the JAX
 package's, so a checkpoint written by either package serves from the
-other. The streaming writer and its lease table belong to the training
-half of the port.
+other.
+
+`BlockSparseWriter` appends the multi-shard layout as the trainer
+(train/xmc.py) finishes each label batch: the shard file first, then an
+atomic rewrite of the manifest (v2, with a batch-lease table so several
+trainer processes can drain one label-batch queue under an `flock`'d
+manifest lock). `label_range_reader` maps a checkpoint's shards back to
+label ranges, the read path of warm starts.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import time
+from contextlib import contextmanager
 from typing import Optional
 
 import numpy as np
@@ -29,10 +37,21 @@ import torch
 
 from repro_torch.device import resolve_device, to_numpy
 
+try:
+    import fcntl
+except ImportError:                  # non-POSIX: no inter-process exclusion
+    fcntl = None
+
 BSR_ARRAYS = "bsr_arrays.npz"
 BSR_INDEX = "bsr_index.json"
 BSR_MANIFEST = "bsr_manifest.json"
+BSR_MANIFEST_LOCK = "bsr_manifest.lock"
 SHORTLIST_FILE = "shortlist.npz"
+
+#: Stream-manifest schema version. 1 = shards only (pre-lease); 2 adds the
+#: `leases` batch-lease table. Readers accept both; writers emit 2 and
+#: upgrade a resumed v1 manifest in place.
+MANIFEST_VERSION = 2
 
 
 def save_shortlist(directory: str, artifact) -> dict:
@@ -167,6 +186,462 @@ def _check_label_order(label_order, n_labels: int) -> list[int]:
             f"label_order must be a permutation of range({n_labels}); got "
             f"length {len(order)}")
     return order
+
+
+@contextmanager
+def manifest_lock(directory: str):
+    """Exclusive cross-process lock over a stream checkpoint's manifest.
+
+    An `flock` on a sidecar lock file (never on the manifest itself — the
+    manifest is replaced atomically, which would orphan a lock held on the
+    old inode). The kernel drops the lock when the holder dies, so a
+    crashed worker can never wedge the queue; without fcntl (non-POSIX)
+    this degrades to no inter-process exclusion, which is only correct
+    for single-worker use.
+    """
+    fd = os.open(os.path.join(directory, BSR_MANIFEST_LOCK),
+                 os.O_CREAT | os.O_RDWR, 0o644)
+    try:
+        if fcntl is not None:
+            fcntl.flock(fd, fcntl.LOCK_EX)
+        yield
+    finally:
+        try:
+            if fcntl is not None:
+                fcntl.flock(fd, fcntl.LOCK_UN)
+        finally:
+            os.close(fd)
+
+
+class BlockSparseWriter:
+    """Incremental multi-shard BSR checkpoint (the paper's per-batch model
+    files, written as training goes rather than after it).
+
+    One `shard-<batch>.npz` per label batch plus a JSON manifest. Each
+    `write_batch` first writes the shard file, then atomically rewrites the
+    manifest (tmp + rename) — a crash between the two leaves an orphan shard
+    that the next run simply re-solves and overwrites, so the manifest is
+    always the ground truth for what is done. `done_batches` is what a
+    resumed `XMCTrainJob` skips.
+
+    Multi-host layer 1: the manifest also carries a batch-lease table.
+    `claim_next_batch(worker, ttl=...)` atomically hands out the lowest
+    batch that is neither written nor under a live lease;
+    `heartbeat(worker, batches)` keeps long solves alive; the lease is
+    released by the `write_batch` manifest commit (or explicitly by
+    `release_leases` on the error path). Every lease operation — and every
+    manifest mutation — runs as reload-mutate-flush under `manifest_lock`,
+    so N writer processes sharing one directory see one consistent queue.
+    Batches are solved deterministically from the spec + data (which the
+    `solver` fingerprint pins), so the rare double-solve after a lease
+    expires mid-flight just rewrites an identical shard.
+    """
+
+    def __init__(self, directory: str, *, n_labels: int, n_features: int,
+                 block_shape: tuple[int, int], label_batch: int,
+                 n_batches: int, solver: dict | None = None,
+                 meta: dict | None = None, resume: bool = True,
+                 label_order=None, clock=time.time):
+        """`solver` is an opaque dict of whatever determined the solution
+        (hyperparameters, dataset fingerprint): it is stored in the manifest
+        and must match exactly on resume — shards solved under different
+        settings must never be stitched into one 'complete' checkpoint.
+
+        `label_order` (optional) is the pack-time label permutation: packed
+        row j of the checkpoint holds original label `label_order[j]`. It
+        lives in the identity-checked manifest header, so a resume under a
+        different (or no) permutation is rejected — shards packed in
+        different label orders must never be stitched together.
+
+        `clock` is the lease table's time source (seconds, `time.time`
+        semantics). Injected so lease-expiry logic is testable without
+        real wall-clock sleeps; production callers never pass it.
+        """
+        self.directory = directory
+        self._clock = clock
+        os.makedirs(directory, exist_ok=True)
+        self._path = os.path.join(directory, BSR_MANIFEST)
+        # Sample the prior generation before anything is removed: a fresh
+        # start over an old checkpoint (either layout) must publish a
+        # strictly larger generation once it finalizes.
+        prior_gen = _prior_generation(directory)
+        # A single-shard artifact in the same directory would shadow the
+        # stream on load (load_block_sparse prefers BSR_INDEX): refuse to
+        # write behind it unless the caller explicitly starts fresh.
+        index_path = os.path.join(directory, BSR_INDEX)
+        if os.path.exists(index_path):
+            if resume:
+                raise ValueError(
+                    f"{directory} already holds a single-shard checkpoint "
+                    f"({BSR_INDEX}), which would shadow the streamed one on "
+                    "load; pass resume=False to replace it, or stream into "
+                    "a different directory")
+            os.remove(index_path)
+            try:
+                os.remove(os.path.join(directory, BSR_ARRAYS))
+            except OSError:
+                pass
+        header = {
+            "format": "bsr-stream",
+            "n_labels": int(n_labels), "n_features": int(n_features),
+            "block_shape": [int(b) for b in block_shape],
+            "label_batch": int(label_batch), "n_batches": int(n_batches),
+            "solver": dict(solver or {}),
+        }
+        if label_order is not None:
+            header["label_order"] = _check_label_order(label_order, n_labels)
+        # Creation/validation runs under the manifest lock: co-workers
+        # launched simultaneously must not both observe "no manifest yet"
+        # and race to create it (one creates, the rest resume into it).
+        with manifest_lock(directory):
+            existing = None
+            if os.path.exists(self._path):
+                with open(self._path) as f:
+                    existing = json.load(f)
+            if existing is not None and resume:
+                # `manifest_version` is deliberately not part of the
+                # identity check: a v1 (pre-lease) manifest resumes fine
+                # and is upgraded in place on the next flush.
+                mismatch = {k: (existing.get(k), v) for k, v in header.items()
+                            if existing.get(k) != v}
+                # label_order is identity both ways: a manifest packed under
+                # a permutation must not be resumed without it (absent from
+                # header => not caught by the loop above).
+                if ("label_order" in existing
+                        and "label_order" not in header):
+                    mismatch["label_order"] = (
+                        "<set>", None)
+                if mismatch:
+                    raise ValueError(
+                        f"cannot resume into {directory}: manifest disagrees "
+                        f"on {mismatch}; pass resume=False to start fresh")
+                self.manifest = existing
+                self.manifest.setdefault("leases", {})
+                # Resuming finishes the SAME model — keep its generation
+                # (pre-counter manifests adopt 1, the legacy default).
+                self.manifest.setdefault("generation", 1)
+                self.manifest["manifest_version"] = MANIFEST_VERSION
+                # Meta is creator-wins: a joiner only contributes keys the
+                # manifest does not have yet, and the merge is flushed here
+                # (inside the init lock) so the meta on disk is settled
+                # before any lease/shard flush — co-workers admitted with a
+                # divergent serve section (serving is deliberately not
+                # fingerprinted) can never make meta.xmc_spec depend on
+                # which worker's flush landed last.
+                for k, v in (meta or {}).items():
+                    self.manifest["meta"].setdefault(k, v)
+                self._flush()
+            else:
+                if existing is not None:             # fresh start: drop shards
+                    for s in existing.get("shards", {}).values():
+                        try:
+                            os.remove(os.path.join(directory, s["file"]))
+                        except OSError:
+                            pass
+                self.manifest = {**header,
+                                 "manifest_version": MANIFEST_VERSION,
+                                 "generation": prior_gen + 1,
+                                 "complete": False, "shards": {},
+                                 "leases": {}, "meta": dict(meta or {})}
+                self._flush()
+
+    @property
+    def complete(self) -> bool:
+        return bool(self.manifest.get("complete"))
+
+    @property
+    def done_batches(self) -> set[int]:
+        return {int(b) for b in self.manifest["shards"]}
+
+    def _flush(self) -> None:
+        tmp = self._path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(self.manifest, f, indent=1, sort_keys=True)
+        os.replace(tmp, self._path)
+
+    def _reload(self) -> None:
+        """Adopt the shared mutable state (shards / leases / complete /
+        meta) from disk; the header stays local (identity-checked at
+        construction). Meta comes from disk because it was settled at init
+        time (creator-wins merge) — adopting it keeps later flushes from
+        re-imposing one worker's local view."""
+        if not os.path.exists(self._path):
+            return
+        with open(self._path) as f:
+            disk = json.load(f)
+        self.manifest["shards"] = disk.get("shards", {})
+        self.manifest["leases"] = disk.get("leases", {})
+        self.manifest["complete"] = disk.get("complete", False)
+        self.manifest["meta"] = disk.get("meta", self.manifest.get("meta",
+                                                                   {}))
+        if "shortlist" in disk:          # built by whichever worker finalized
+            self.manifest["shortlist"] = disk["shortlist"]
+
+    @contextmanager
+    def _locked(self, write: bool = True):
+        """One atomic reload-[mutate-flush] cycle under the manifest lock —
+        the unit every manifest operation runs as, so concurrent writer
+        processes never lose each other's updates. `write=False` is the
+        read-only form: backoff polls must not rewrite the manifest on the
+        shared filesystem once per second per idle worker."""
+        with manifest_lock(self.directory):
+            self._reload()
+            yield
+            if write:
+                self._flush()
+
+    def write_batch(self, batch: int, part, *, row_start: int,
+                    n_rows: int) -> None:
+        """Append one solved label batch (append-form `BlockSparseModel`,
+        see `core.pruning.to_block_sparse(row_block_offset=...)`) and
+        release this batch's lease (if any) in the same manifest commit."""
+        from repro_torch.core.pruning import quantize_blocks
+        blocks = to_numpy(part.blocks)
+        blocks_int8, block_scales = quantize_blocks(blocks)
+        fname = f"shard-{batch:05d}.npz"
+        path = os.path.join(self.directory, fname)
+        # tmp + rename: a shard re-solved by a second worker (expired
+        # lease) must replace the file atomically, never interleave with a
+        # concurrent reader. The tmp name keeps the .npz suffix so
+        # np.savez does not append another one.
+        tmp = path + ".tmp.npz"
+        np.savez_compressed(
+            tmp,
+            blocks=blocks,
+            blocks_int8=blocks_int8,
+            block_scales=block_scales,
+            block_rows=to_numpy(part.block_rows),
+            block_cols=to_numpy(part.block_cols),
+            row_ptr=to_numpy(part.row_ptr))
+        os.replace(tmp, path)
+        with self._locked():
+            self.manifest["shards"][str(int(batch))] = {
+                "file": fname, "row_start": int(row_start),
+                "n_rows": int(n_rows), "padded_rows": int(part.shape[0]),
+                "n_blocks": int(blocks.shape[0]),
+                "nnz": int(np.count_nonzero(blocks)),
+                "int8": True,
+            }
+            self.manifest["leases"].pop(str(int(batch)), None)
+
+    def read_batch_dense(self, batch: int) -> np.ndarray:
+        """Densify one already-written shard back to its (n_rows, D) weight
+        rows — the resume path of a materializing caller."""
+        entry = self.manifest["shards"][str(int(batch))]
+        return _densify_shard(self.directory, entry,
+                              self.manifest["block_shape"],
+                              self.manifest["n_features"])
+
+    # -- batch leases (multi-host layer 1) --------------------------------
+
+    def claim_next_batch(self, worker: str, *, ttl: float,
+                         exclude=()) -> Optional[int]:
+        """Atomically claim the lowest batch that is neither written nor
+        under another worker's live lease; None when nothing is claimable
+        right now (queue drained, or every remaining batch is leased by a
+        live co-worker — see `claim_wait_seconds`). A worker's own lease is
+        reclaimed immediately UNLESS the batch is in `exclude` — callers
+        pass the batches they are solving right now, so a restart under
+        the same worker id recovers its stale leases without a claimer
+        being handed a batch it already holds.
+        """
+        if fcntl is None:
+            raise RuntimeError(
+                "multi-worker lease coordination needs POSIX flock "
+                "(fcntl) for atomic manifest claims; this platform has "
+                "none, so cooperative workers would silently corrupt the "
+                "queue — run with workers=1 and no explicit worker id")
+        exclude = {int(b) for b in exclude}
+        with manifest_lock(self.directory):
+            self._reload()
+            now = self._clock()
+            shards, leases = self.manifest["shards"], self.manifest["leases"]
+            for b in range(self.manifest["n_batches"]):
+                s = str(b)
+                if b in exclude or s in shards:
+                    continue
+                lease = leases.get(s)
+                if (lease is not None and lease["worker"] != worker
+                        and now < lease["ts"] + lease["ttl"]):
+                    continue
+                leases[s] = {"worker": worker, "ts": now, "ttl": float(ttl)}
+                self._flush()                    # flush only on a claim
+                return b
+            return None
+
+    def heartbeat(self, worker: str, batches) -> None:
+        """Refresh `worker`'s leases on `batches` (a solve outliving its
+        TTL must not get its batch re-dealt under it)."""
+        batches = [int(b) for b in batches]
+        if not batches:
+            return
+        with manifest_lock(self.directory):
+            self._reload()
+            now = self._clock()
+            touched = False
+            for b in batches:
+                lease = self.manifest["leases"].get(str(b))
+                if lease is not None and lease["worker"] == worker:
+                    lease["ts"] = now
+                    touched = True
+            if touched:
+                self._flush()
+
+    def release_leases(self, worker: str, batches) -> None:
+        """Drop `worker`'s leases on `batches` without writing shards — the
+        error/preemption path, so co-workers reclaim immediately instead of
+        waiting out the TTL."""
+        batches = [int(b) for b in batches]
+        if not batches:
+            return
+        with manifest_lock(self.directory):
+            self._reload()
+            dropped = False
+            for b in batches:
+                lease = self.manifest["leases"].get(str(b))
+                if lease is not None and lease["worker"] == worker:
+                    del self.manifest["leases"][str(b)]
+                    dropped = True
+            if dropped:
+                self._flush()
+
+    def claim_wait_seconds(self) -> Optional[float]:
+        """Seconds until some unwritten batch becomes claimable (0.0 when
+        one already is), or None when every batch is written — the backoff
+        a worker sleeps when `claim_next_batch` returns None but the
+        checkpoint is not finished (a co-worker may yet die mid-batch)."""
+        with self._locked(write=False):
+            now = self._clock()
+            shards, leases = self.manifest["shards"], self.manifest["leases"]
+            waits = []
+            for b in range(self.manifest["n_batches"]):
+                s = str(b)
+                if s in shards:
+                    continue
+                lease = leases.get(s)
+                waits.append(0.0 if lease is None else
+                             max(0.0, lease["ts"] + lease["ttl"] - now))
+            return min(waits) if waits else None
+
+    # -- completion -------------------------------------------------------
+
+    def try_finalize(self) -> Optional[dict]:
+        """Mark the checkpoint servable if every batch is present (clearing
+        the lease table); None while batches are still missing. Idempotent
+        — with cooperative workers, whichever one drains the last batch
+        finalizes, and a second call is a no-op.
+
+        Finalizing also builds the serving shortlist artifact
+        (serve/shortlist.py) from the stitched shards and references it in
+        the manifest — the coarse stage of two-stage scoring, computed once
+        offline like the paper's model files. Deterministic in the shards,
+        so cooperative finalizers (or a re-finalize after a crash between
+        the two flushes) write identical bytes.
+        """
+        with manifest_lock(self.directory):
+            self._reload()
+            missing = (set(range(self.manifest["n_batches"]))
+                       - self.done_batches)
+            if missing:                          # read-only: nothing to flush
+                return None
+            self.manifest["complete"] = True
+            self.manifest["leases"] = {}
+            self._flush()
+            if "shortlist" not in self.manifest:
+                # Stitch via the normal loader (reads the just-flushed
+                # complete manifest from disk) and persist the artifact
+                # before the manifest entry that references it lands.
+                from repro_torch.serve.shortlist import build_shortlist
+                model, _ = load_block_sparse(self.directory,
+                                             device="cpu")
+                self.manifest["shortlist"] = save_shortlist(
+                    self.directory, build_shortlist(model))
+                self._flush()
+            return self.manifest
+
+    def finalize(self) -> dict:
+        """Mark the checkpoint servable (all batches present)."""
+        manifest = self.try_finalize()
+        if manifest is None:
+            missing = (set(range(self.manifest["n_batches"]))
+                       - self.done_batches)
+            raise ValueError(f"cannot finalize: batches {sorted(missing)} "
+                             "missing from manifest")
+        return manifest
+
+
+def _densify_shard(directory: str, entry: dict, block_shape,
+                   n_features: int) -> np.ndarray:
+    """Unpack one stream shard's BSR blocks into its (n_rows, D) rows."""
+    bl, bd = block_shape
+    row_off = entry["row_start"] // bl
+    W = np.zeros((entry["padded_rows"], -(-n_features // bd) * bd),
+                 np.float32)
+    with np.load(os.path.join(directory, entry["file"])) as data:
+        blocks, rows = data["blocks"], data["block_rows"]
+        cols = data["block_cols"]
+    for k in range(blocks.shape[0]):
+        r = int(rows[k]) - row_off
+        c = int(cols[k])
+        W[r * bl:(r + 1) * bl, c * bd:(c + 1) * bd] = blocks[k]
+    return W[:entry["n_rows"], :n_features]
+
+
+def label_range_reader(directory: str):
+    """A `read(start, stop) -> (stop - start, D) float32` view of a
+    block-sparse checkpoint's label rows.
+
+    The warm-start read path (repro_torch.xmc_api.fit(init_from=...)): a prior
+    checkpoint's shards are mapped back to label ranges one training batch
+    at a time. For the streamed multi-shard layout each call densifies
+    only the shards overlapping the range, so the full (L, D) matrix is
+    never materialized; the one-shot single-shard layout (one monolithic
+    block array, no per-range structure) is densified ONCE here and
+    served as cached slices — build the reader once per run, not per
+    batch. Rows past the prior model's label count come back as zeros
+    (a grown label space cold-starts its new labels).
+    """
+    index = load_block_sparse_meta(directory)
+    L, D = index["orig_shape"]
+
+    if index.get("layout") == "stream":
+        manifest = index["manifest"]
+
+        def read(start: int, stop: int) -> np.ndarray:
+            if stop <= start:
+                raise ValueError(f"empty label range [{start}, {stop})")
+            out = np.zeros((stop - start, D), np.float32)
+            for b in sorted(manifest["shards"], key=int):
+                entry = manifest["shards"][b]
+                r0 = entry["row_start"]
+                lo, hi = max(start, r0), min(stop, r0 + entry["n_rows"])
+                if lo >= hi:
+                    continue
+                rows = _densify_shard(directory, entry,
+                                      manifest["block_shape"], D)
+                out[lo - start:hi - start] = rows[lo - r0:hi - r0]
+            return out
+        return read
+
+    model, _ = load_block_sparse(directory, device="cpu")
+    W_full = model.to_dense().numpy()
+
+    def read(start: int, stop: int) -> np.ndarray:
+        if stop <= start:
+            raise ValueError(f"empty label range [{start}, {stop})")
+        out = np.zeros((stop - start, D), np.float32)
+        hi = min(stop, L)
+        if hi > start:
+            out[:hi - start] = W_full[start:hi, :D]
+        return out
+    return read
+
+
+def load_label_range_dense(directory: str, start: int,
+                           stop: int) -> np.ndarray:
+    """One-shot convenience over `label_range_reader` (which see); for
+    repeated ranges build the reader once instead."""
+    return label_range_reader(directory)(start, stop)
 
 
 def has_block_sparse_checkpoint(directory: str) -> bool:

@@ -1,7 +1,8 @@
 """Weights carried across from the JAX package.
 
-The JAX package's `BlockSparseModel` holds jax arrays; handed over as
-numpy, its fields become the port's model on a device:
+The JAX package holds jax arrays; handed over as numpy, they become the
+port's objects on a device: a packed `BlockSparseModel`, a trained
+`DiSMECModel`, a `TronResult`, or a warm start W0. For example
 
     fields = {f: np.asarray(getattr(jax_model, f))
               for f in ("blocks", "block_rows", "block_cols", "row_ptr")}
@@ -12,6 +13,8 @@ numpy, its fields become the port's model on a device:
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -38,3 +41,37 @@ def block_sparse_from_numpy(fields: dict[str, np.ndarray], *, shape,
         row_ptr=put("row_ptr", np.int32), shape=tuple(shape),
         block_shape=tuple(block_shape),
         orig_shape=None if orig_shape is None else tuple(orig_shape))
+
+
+def dismec_model_from_numpy(W: np.ndarray, *, delta: float,
+                            n_labels: Optional[int] = None,
+                            device=None):
+    """The port's `DiSMECModel` from the JAX model's weights, handed over as
+    `np.asarray(jax_model.W)` (copied, on `device`; None: the card)."""
+    from repro_torch.core.dismec import DiSMECModel
+    W = np.asarray(W, np.float32)
+    return DiSMECModel(W=torch.tensor(W, device=resolve_device(device)),
+                       delta=float(delta),
+                       n_labels=int(W.shape[0] if n_labels is None
+                                    else n_labels))
+
+
+def tron_result_from_numpy(fields: dict[str, np.ndarray], *, device=None):
+    """The port's `TronResult` from the JAX one's fields (`W`, `f`,
+    `gnorm`, `n_newton`, `n_cg`, `converged`) as numpy arrays, e.g.
+    `{k: np.asarray(v) for k, v in jax_result._asdict().items()}`."""
+    from repro_torch.core.tron import TronResult
+    device = resolve_device(device)
+    dtypes = {"W": np.float32, "f": np.float32, "gnorm": np.float32,
+              "n_newton": np.int32, "n_cg": np.int32, "converged": np.bool_}
+    return TronResult(**{k: torch.tensor(np.asarray(fields[k], dt),
+                                         device=device)
+                         for k, dt in dtypes.items()})
+
+
+def warm_start_from_numpy(W0: np.ndarray, *, device=None) -> torch.Tensor:
+    """A TRON warm start W0 (L, D) from the JAX package's array, as float32
+    on `device` (None: the card): the port's `train_label_batch` and
+    `make_batch_solver(warm=True)` take it as is."""
+    return torch.tensor(np.asarray(W0, np.float32),
+                        device=resolve_device(device))

@@ -11,4 +11,7 @@ for sm_90a with nvcc at first use.
 
   bsr_predict  block-sparse x W^T predict over the packed surviving blocks
   topk         blocked two-stage top-k (per-block candidates + merge)
+  hinge        fused squared-hinge objective, gradient and active mask
+               (TRON's obj_grad)
+  hvp          generalized-Hessian vector product (TRON's CG step)
 """

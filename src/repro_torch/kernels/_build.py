@@ -7,11 +7,12 @@ shared library with a plain C interface:
          -Xcompiler -fPIC -Xptxas -v -o build/kernels/<name>-<hash>.so \
          src/repro_torch/csrc/<name>.cu
 
-`<hash>` covers the source and the flags, so an edited source is rebuilt
-at its next use. `build()` starts one nvcc per missing library, all at
-once, and raises with nvcc's output when any of them fails; its output
-(the `-Xptxas -v` register and shared-memory lines among it) is kept in
-`BUILD_LOGS`. Nothing is built or loaded when this module is imported.
+`<hash>` covers the source, every `csrc/` header it includes (`#include
+"<header>.cuh"`, followed transitively) and the flags, so an edited source
+or header is rebuilt at its next use. `build()` starts one nvcc per
+missing library, all at once, and raises with nvcc's output when any of
+them fails; its output (the `-Xptxas -v` register and shared-memory lines
+among it) is kept in `BUILD_LOGS`. Nothing is built or loaded when this module is imported.
 
 Every C entry point returns `cudaGetLastError()` after its launch, and
 `check` raises when that is not 0: a refused launch never runs, and a
@@ -23,6 +24,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -30,7 +32,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 #: `build/kernels` at the root of the checkout (git-ignored).
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("bsr_predict", "topk")
+KERNELS = ("bsr_predict", "topk", "hinge", "hvp")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -47,10 +49,31 @@ def _nvcc() -> str:
                        f"{CSRC} on a machine with the CUDA toolkit")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def sources(name: str) -> list[Path]:
+    """`csrc/<name>.cu` and the `csrc/` headers it includes, transitively,
+    in a fixed order."""
+    seen: list[Path] = []
+    todo = [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            dep = CSRC / inc.decode()
+            if dep.exists():
+                todo.append(dep)
+    return seen
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names=KERNELS) -> dict[str, Path]:

@@ -1,8 +1,8 @@
 """ScheduleSpec: how the label space is walked and laid out on hardware.
 
-The same fields, validation, normalization and canonical form as the JAX
-package's `ScheduleSpec`. Building a device mesh from it is not here: the
-multi-GPU half of the port owns that.
+The same fields, validation, normalization, canonical form and resume
+fingerprint as the JAX package's `ScheduleSpec`. A mesh (several GPUs)
+is not ported yet: `make_mesh` raises for one (ROADMAP Queue A item 6).
 """
 
 from __future__ import annotations
@@ -77,8 +77,30 @@ class ScheduleSpec(Spec):
             "shards stay block-aligned", UserWarning, stacklevel=2)
         return dataclasses.replace(self, label_batch=rounded)
 
-    # Runtime knobs that never change the solved checkpoint; reset to their
-    # defaults in the manifest-stored form.
+    def make_mesh(self):
+        """The device mesh this spec names: None when unsharded. A mesh
+        over several GPUs is not ported yet."""
+        if self.mesh is None:
+            return None
+        raise NotImplementedError(
+            f"ScheduleSpec(mesh={self.mesh}): sharding over several GPUs is "
+            "not ported yet; see ROADMAP Queue A item 6 (multi-GPU)")
+
+    @classmethod
+    def from_job(cls, job) -> "ScheduleSpec":
+        """Duck-typed: the spec of an `XMCTrainJob`'s fields (`job.mesh` is
+        None or a (data, model) shape)."""
+        mesh = None if job.mesh is None else tuple(int(s) for s in job.mesh)
+        return cls(label_batch=job.cfg.label_batch,
+                   block_shape=tuple(job.block_shape), mesh=mesh,
+                   label_axis=job.label_axis, data_axis=job.data_axis,
+                   shard_data=job.shard_data, balance=job.balance,
+                   overlap=job.overlap, max_inflight=job.max_inflight,
+                   workers=job.workers, lease_ttl=job.lease_ttl)
+
+    # Runtime knobs that never change the solved checkpoint (any buffering
+    # and any worker count write the same bytes): excluded from the resume
+    # fingerprint and reset to their defaults in the manifest-stored form.
     RUNTIME_FIELDS = ("overlap", "max_inflight", "workers", "lease_ttl")
 
     def canonical(self) -> "ScheduleSpec":
@@ -87,3 +109,15 @@ class ScheduleSpec(Spec):
         defaults = {f.name: f.default for f in dataclasses.fields(self)}
         return dataclasses.replace(
             self, **{k: defaults[k] for k in self.RUNTIME_FIELDS})
+
+    def fingerprint(self) -> dict:
+        """Resume-identity subset: everything that can change the solved
+        weights or the shard layout (not RUNTIME_FIELDS). A False
+        `reorder_labels` is dropped, as the JAX package drops it, so the
+        two packages' fingerprints agree."""
+        d = self.to_dict()
+        for k in self.RUNTIME_FIELDS:
+            d.pop(k)
+        if not d.get("reorder_labels"):
+            d.pop("reorder_labels", None)
+        return d
