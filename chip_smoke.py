@@ -9,8 +9,9 @@ documents; Extreme Classification Repository, DiSMEC paper Table 1).
 Serving uses 128 x 128 blocks at 5% block density, weights drawn from the
 seed:
 
-  1. build   — all four CUDA kernels with nvcc for sm_90a (register and
-               shared-memory lines of `-Xptxas -v` printed);
+  1. build   — all four CUDA sources with nvcc for sm_90a, one nvcc each,
+               all at once (register and shared-memory lines of
+               `-Xptxas -v` printed);
   2. setup   — the card's name and power limit; TF32 off for matmul and
                cuDNN, so every plain version runs in full fp32;
   3. kernels — each kernel against its plain PyTorch version at the
@@ -24,7 +25,23 @@ seed:
                .engine()` on the default `bsr` backend serving ragged
                requests; both kernels' launch counts must be > 0 in that
                run, and the served ids must equal the plain path's ids on
-               every row whose k-th/(k+1)-th margin is decisive.
+               every row whose k-th/(k+1)-th margin is decisive;
+  4b. shortlist and int8 kernels — the int8 BSR, gathered BSR, gathered
+               int8 BSR and per-query gathered BSR kernels against their
+               plain versions on the same model (int8 from
+               `quantize_block_sparse`), at the selection the checkpoint's
+               centroid coarse stage gives at the default B = 31 of 242
+               row blocks, n = 1, 32, 256; the gathered kernels at a sorted
+               full selection equal the exhaustive ones and the per-query
+               kernel at n = 1 the shared one, bit for bit; empty row
+               blocks and the sentinel score exact zeros; timed like 3;
+  4c. serve: shortlist, shortlist per-query, shortlist int8, int8 — the
+               same checkpoint and requests through each of those
+               `ServeSpec`s: each configuration's kernel launched in its
+               run, the served ids equal to its plain path's (the same
+               selection, plain versions, a stable sort) on every decisive
+               row, recall@5 against `bsr` and int8-vs-fp32 agreement
+               reported.
 
 Then training, on the port's synthetic power-law data at Wiki10-31K width
 (N = 14,146, D = 101,938; 2 of Wiki10-31K's 31 batches of 1,024 labels):
@@ -41,14 +58,18 @@ Then training, on the port's synthetic power-law data at Wiki10-31K width
                      counts equal on >= 99% of labels, f within 1e-4;
   8. train         — `fit(X, Y, spec, dir)` on the card with the kernel
                      ops, max_newton = 10 and max_cg = 20, label_batch
-                     1,024: a complete two-batch checkpoint; the hinge and
-                     HVP launch counts must be > 0 in that run;
-  9. serve trained — `CheckpointHandle.open(dir).engine()` on `bsr` over
-                     the 512 held-out rows: P@1 and P@5, the served ids
-                     equal to the plain path's on every decisive row, and
-                     both serving kernels launched.
+                     1,024, `shortlist_kind="learned"`: a complete
+                     two-batch checkpoint whose coarse stage is the learned
+                     one, solved on the card; the hinge and HVP launch
+                     counts must be > 0 in that run;
+  9. serve trained — `CheckpointHandle.open(dir).engine()` on `bsr`,
+                     `shortlist` and `shortlist` per query over the 512
+                     held-out rows: P@1 and P@5, recall@5 against `bsr`,
+                     the served ids equal to the plain path's on every
+                     decisive row, and each configuration's kernels
+                     launched.
 
-The lines before the last are the kernels' JSON summary (all four
+The lines before the last are the kernels' JSON summary (all eight
 kernels), the training run's JSON summary and the card's name and power
 limit from nvidia-smi; the last line is `{"ok": true, "device": {...}}`.
 Any failure exits non-zero before it. Without a CUDA card, or outside a
@@ -89,6 +110,18 @@ TRAIN_BETA = 0.9                                # wiki31k_like
 MAX_NEWTON, MAX_CG = 10, 20                     # Algorithm 1 uses 50 and 40
 TRON_SHAPE = (256, 4_096, 16_384)               # (L, N, D) of phase 7
 SERVE_CHUNK = 64                                # held-out rows per request
+# Phase 4c: (label, ServeSpec overrides, the kernel the configuration runs).
+SERVE_CONFIGS = (
+    ("shortlist", dict(backend="shortlist"), "bsr_gather"),
+    ("shortlist per-query", dict(backend="shortlist",
+                                 shortlist_per_query=True), "bsr_gather_pq"),
+    ("shortlist int8", dict(backend="shortlist", int8=True),
+     "bsr_gather_int8"),
+    ("int8", dict(backend="int8"), "bsr_predict_int8"),
+)
+# Phase 9: the trained checkpoint through these.
+TRAINED_CONFIGS = (("bsr", dict(backend="bsr"), "bsr_predict"),) + \
+    SERVE_CONFIGS[:2]
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
@@ -292,18 +325,245 @@ def check_topk(scores, flush) -> dict:
                 bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
 
 
-def plain_topk(model, x: np.ndarray, n_labels: int = N_LABELS):
-    """The plain path: plain BSR predict, padding masked, stable sort."""
+def sparse_bsr(blocks, cols, crow, shape):
+    """`torch.sparse_bsr_tensor` over packed blocks, as the function x ->
+    (A @ x.T).T: the library yardstick of the BSR kernels (built outside
+    the timed region; the port never calls it)."""
+    A = torch.sparse_bsr_tensor(crow, cols, blocks, size=shape,
+                                check_invariants=False)
+    return lambda x: (A @ x.T).T
+
+
+def check_shortlist_int8(model, q, centroids, X, flush) -> dict:
+    """Kernels 4-7 against their plain versions on the serving model, at
+    the selection the checkpoint's centroid coarse stage gives at the
+    default B, at n = 1, 32, 256; the contracts bit for bit; exact zeros
+    for an empty selected row block and for the sentinel; times beside
+    the bound, the plain version and a library call.
+
+    Tolerance: |kernel - plain| <= 1e-5 * (|x| @ |W|^T) per score, with
+    |W| = |q| * scale for int8 blocks, as in `check_bsr`: both sides sum
+    the same fp32 products (int8 widened exactly, each block's partial
+    multiplied by its scale) in another order."""
+    from repro_torch.kernels.bsr_predict import ops as bsr_ops
+    from repro_torch.kernels.bsr_predict import ref as bsr_ref
+    from repro_torch.serve import xmc
+    bl, bd = model.block_shape
+    Lp, Dp = model.shape
+    R = Lp // bl
+    B = -(-R // 8)                                 # the artifact's default
+    nb = model.n_blocks
+    blocks, rows, cols, ptr = (model.blocks, model.block_rows,
+                               model.block_cols, model.row_ptr)
+    qb, qs = q.blocks, q.scales
+    qabs = qb.abs()
+    deq = qb.float() * qs[:, None, None]
+    lib_int8 = sparse_bsr(deq, cols, ptr, (Lp, Dp))
+    full = torch.arange(R, dtype=torch.int32, device="cuda")
+    print(f"   B = {B} of {R} row blocks; tolerance: |kernel - plain| <= "
+          "1e-5 * (|x| @ |W|^T) per score, |W| = |q| * scale for int8, "
+          "because both sum the same fp32 products in another order; the "
+          "contracts bit for bit (torch.equal)")
+    sweeps = {k: [] for k in ("bsr_predict_int8", "bsr_gather",
+                              "bsr_gather_int8", "bsr_gather_pq")}
+    for n in BSR_N:
+        x = torch.nn.functional.pad(torch.from_numpy(X[:n]).cuda(),
+                                    (0, Dp - N_FEATURES)).contiguous()
+        sel = xmc._shortlist_select(x, centroids, B)
+        sel_pq = xmc._shortlist_select_pq(x, centroids, B).contiguous()
+        ids, _ = bsr_ref.selected_blocks(ptr, sel)
+        counts = (ptr[sel.long() + 1] - ptr[sel.long()]).long()
+        crow = torch.cat([counts.new_zeros(1), counts.cumsum(0)]).int()
+        union = torch.unique(bsr_ref.selected_blocks(ptr,
+                                                     sel_pq.reshape(-1))[0])
+        ns, nu = int(ids.numel()), int(union.numel())
+        common = 4 * n * Dp + 4 * (R + 1)          # x, row_ptr
+        cases = {
+            "bsr_predict_int8": (
+                lambda: bsr_ops.bsr_predict_int8_cuda(x, qb, qs, cols, ptr, R),
+                lambda: bsr_ref.bsr_predict_int8(x, qb, qs, rows, cols, R),
+                lambda: bsr_ref.bsr_predict_int8(x.abs(), qabs, qs, rows,
+                                                 cols, R),
+                lib_int8,
+                nb * bl * bd + 8 * nb + common + 4 * n * Lp,
+                bsr_ops.model_flops(model, n)),
+            "bsr_gather": (
+                lambda: bsr_ops.bsr_predict_gather_cuda(x, blocks, cols, ptr,
+                                                        sel),
+                lambda: bsr_ref.bsr_predict_gather(x, blocks, cols, ptr, sel),
+                lambda: bsr_ref.bsr_predict_gather(x.abs(), blocks.abs(),
+                                                   cols, ptr, sel),
+                sparse_bsr(blocks[ids], cols[ids], crow, (B * bl, Dp)),
+                4 * ns * bl * bd + 4 * ns + 4 * B + common + 4 * n * B * bl,
+                bsr_ops.gather_flops(model, n, sel)),
+            "bsr_gather_int8": (
+                lambda: bsr_ops.bsr_predict_gather_int8_cuda(x, qb, qs, cols,
+                                                             ptr, sel),
+                lambda: bsr_ref.bsr_predict_gather_int8(x, qb, qs, cols, ptr,
+                                                        sel),
+                lambda: bsr_ref.bsr_predict_gather_int8(x.abs(), qabs, qs,
+                                                        cols, ptr, sel),
+                sparse_bsr(deq[ids], cols[ids], crow, (B * bl, Dp)),
+                ns * bl * bd + 8 * ns + 4 * B + common + 4 * n * B * bl,
+                bsr_ops.gather_flops(model, n, sel)),
+            "bsr_gather_pq": (
+                lambda: bsr_ops.bsr_predict_gather_pq_cuda(x, blocks, cols,
+                                                           ptr, sel_pq),
+                lambda: bsr_ref.bsr_predict_gather_pq(x, blocks, cols, ptr,
+                                                      sel_pq),
+                lambda: bsr_ref.bsr_predict_gather_pq(x.abs(), blocks.abs(),
+                                                      cols, ptr, sel_pq),
+                None,
+                4 * nu * bl * bd + 4 * nu + 4 * n * B + common
+                + 4 * n * B * bl,
+                bsr_ops.gather_pq_flops(model, sel_pq)),
+        }
+        for name, (kernel, plain, magnitude, lib, n_bytes, n_ops) in \
+                cases.items():
+            got, want, mag = kernel(), plain(), magnitude()
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            _need(bool(torch.isfinite(got).all())
+                  and bool(((got - want).abs() <= 1e-5 * mag).all()),
+                  f"{name} kernel disagrees with its plain version at n={n}:"
+                  f" max |diff| {err:.3e}")
+            del got, want, mag
+            ms = cuda_ms(kernel, 20, flush)
+            plain_ms = cuda_ms(plain, 3 if name == "bsr_gather_pq" else 5,
+                               flush)
+            lib_ms = None if lib is None else cuda_ms(lambda: lib(x), 10,
+                                                      flush)
+            b_ms, b_by = bound(n_bytes, n_ops)
+            sweeps[name].append(dict(
+                n=n, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                blocks_read=nu if name == "bsr_gather_pq" else
+                ns if "gather" in name else nb))
+            lib_txt = ("no library call" if lib_ms is None else
+                       f"sparse BSR {lib_ms:.4f} ms")
+            print(f"   {name} n={n:3d}: max|kernel-plain| {err:.3e}  kernel "
+                  f"{ms:.4f} ms  plain {plain_ms:.4f} ms  {lib_txt}  bound "
+                  f"{b_ms:.4f} ms ({b_by}, {n_bytes / 1e6:.1f} MB, "
+                  f"{n_ops / 1e9:.2f} GFLOP)", flush=True)
+        # Contracts (a), (b) and (c), bit for bit.
+        _need(torch.equal(bsr_ops.bsr_predict_gather_cuda(x, blocks, cols,
+                                                          ptr, full),
+                          bsr_ops.bsr_predict_cuda(x, blocks, cols, ptr, R)),
+              f"(a) gathered at arange(R) != exhaustive at n={n}")
+        _need(torch.equal(bsr_ops.bsr_predict_gather_int8_cuda(
+            x, qb, qs, cols, ptr, full),
+            bsr_ops.bsr_predict_int8_cuda(x, qb, qs, cols, ptr, R)),
+            f"(b) gathered int8 at arange(R) != int8 at n={n}")
+        for i in range(min(n, 4)):
+            xi = x[i:i + 1].contiguous()
+            _need(torch.equal(
+                bsr_ops.bsr_predict_gather_pq_cuda(xi, blocks, cols, ptr,
+                                                   sel_pq[i:i + 1]),
+                bsr_ops.bsr_predict_gather_cuda(xi, blocks, cols, ptr,
+                                                sel_pq[i].contiguous())),
+                f"(c) per-query at n=1 != shared at n=1 (row {i} of {n})")
+        print(f"   n={n:3d}: contracts (a), (b), (c) hold bit for bit; "
+              f"shared selection {ns} blocks, per-query union {nu} blocks",
+              flush=True)
+    # Row block 0 emptied (its packed blocks dropped) and the sentinel.
+    p1 = int(ptr[1])
+    e_ptr = (ptr - p1).clamp_min(0).int()
+    e_sel = torch.tensor([0, 5], dtype=torch.int32, device="cuda")
+    outs = [bsr_ops.bsr_predict_gather_cuda(x, blocks[p1:], cols[p1:], e_ptr,
+                                            e_sel),
+            bsr_ops.bsr_predict_gather_int8_cuda(x, qb[p1:], qs[p1:],
+                                                 cols[p1:], e_ptr, e_sel),
+            bsr_ops.bsr_predict_gather_pq_cuda(
+                x, blocks[p1:], cols[p1:], e_ptr,
+                e_sel.repeat(x.shape[0], 1).contiguous())]
+    ref5 = bsr_ops.bsr_predict_gather_cuda(x, blocks, cols, ptr, e_sel[1:])
+    torch.cuda.synchronize()
+    _need(all(bool((o[:, :bl] == 0).all()) for o in outs)
+          and torch.equal(outs[0][:, bl:], ref5),
+          "an empty selected row block does not score exact zeros")
+    zf = torch.zeros((1, bl, bd), device="cuda")
+    zq = torch.zeros((1, bl, bd), dtype=torch.int8, device="cuda")
+    zs = torch.zeros((1,), device="cuda")
+    zi = torch.zeros((1,), dtype=torch.int32, device="cuda")
+    zp = torch.zeros((R + 1,), dtype=torch.int32, device="cuda")
+    outs = [bsr_ops.bsr_predict_int8_cuda(x, zq, zs, zi, zp, R),
+            bsr_ops.bsr_predict_gather_cuda(x, zf, zi, zp, sel),
+            bsr_ops.bsr_predict_gather_int8_cuda(x, zq, zs, zi, zp, sel),
+            bsr_ops.bsr_predict_gather_pq_cuda(x, zf, zi, zp, sel_pq)]
+    torch.cuda.synchronize()
+    _need(all(bool((o == 0).all()) for o in outs),
+          "the sentinel model does not score exact zeros")
+    print("   an empty selected row block and the sentinel model score "
+          "exact zeros in all four kernels")
+    return dict(B=B, R=R, sweeps=sweeps)
+
+
+def serving_kernels() -> dict:
+    """Every serving kernel's launcher, whose `.launches` counts its
+    launches, by the name the kernels' JSON line gives it."""
+    from repro_torch.kernels.bsr_predict import ops as bsr_ops
+    from repro_torch.kernels.topk import ops as topk_ops
+    return {"bsr_predict": bsr_ops.bsr_predict_cuda,
+            "bsr_predict_int8": bsr_ops.bsr_predict_int8_cuda,
+            "bsr_gather": bsr_ops.bsr_predict_gather_cuda,
+            "bsr_gather_int8": bsr_ops.bsr_predict_gather_int8_cuda,
+            "bsr_gather_pq": bsr_ops.bsr_predict_gather_pq_cuda,
+            "blocked_topk": topk_ops.blocked_topk_cuda}
+
+
+def plain_backend_topk(be, x: torch.Tensor):
+    """The plain path of one padded micro-batch through backend `be`: its
+    own selection (shortlist), the plain versions of its kernels, padding
+    labels masked and a stable sort; (values, ids) with K + 1 columns."""
     from repro_torch.kernels.bsr_predict import ref as bsr_ref
     from repro_torch.kernels.topk import ref as topk_ref
-    Lp, Dp = model.shape
-    xp = torch.nn.functional.pad(torch.from_numpy(x).cuda(),
-                                 (0, Dp - x.shape[1]))
-    s = bsr_ref.bsr_predict(xp, model.blocks, model.block_rows,
-                            model.block_cols, Lp // model.block_shape[0])
-    s[:, n_labels:] = topk_ref.NEG_INF
+    m = be.model
+    bl = m.block_shape[0]
+    Lp, Dp = m.shape
+    xp = torch.nn.functional.pad(x, (0, Dp - x.shape[1]))
+    if be.name == "shortlist":
+        sel = be._select(x)
+        if be.per_query:
+            s = bsr_ref.bsr_predict_gather_pq(xp, m.blocks, m.block_cols,
+                                              m.row_ptr, sel)
+        elif be.int8:
+            q = be.int8_model
+            s = bsr_ref.bsr_predict_gather_int8(xp, q.blocks, q.scales,
+                                                q.block_cols, q.row_ptr, sel)
+        else:
+            s = bsr_ref.bsr_predict_gather(xp, m.blocks, m.block_cols,
+                                           m.row_ptr, sel)
+        label_ids = (sel.long()[..., None] * bl
+                     + torch.arange(bl, device=x.device)).flatten(-2)
+    else:
+        if be.name == "int8":
+            s = bsr_ref.bsr_predict_int8(xp, m.blocks, m.scales, m.block_rows,
+                                         m.block_cols, Lp // bl)
+        else:
+            s = bsr_ref.bsr_predict(xp, m.blocks, m.block_rows, m.block_cols,
+                                    Lp // bl)
+        label_ids = torch.arange(Lp, device=x.device)
+    s = torch.where(label_ids < be.n_labels, s, topk_ref.NEG_INF)
     v, i = topk_ref.topk(s, K + 1)
-    return v.cpu().numpy(), i.cpu().numpy()
+    i = i.long()
+    ids = (label_ids[i] if label_ids.dim() == 1
+           else torch.gather(label_ids, 1, i))
+    return v.cpu().numpy(), ids.cpu().numpy()
+
+
+def plain_engine_topk(engine, x: np.ndarray):
+    """The plain path of one request: the micro-batches the engine's queue
+    makes of it, each through `plain_backend_topk`, un-padded."""
+    from repro_torch.serve.batching import MicroBatchQueue
+    queue = MicroBatchQueue(engine.queue.buckets)
+    queue.submit(x)
+    vs, ids = [], []
+    for mb in queue.drain():
+        v, i = plain_backend_topk(engine.backend,
+                                  torch.from_numpy(mb.x).cuda())
+        vs.append(v[:sum(mb.row_counts)])
+        ids.append(i[:sum(mb.row_counts)])
+    return np.concatenate(vs), np.concatenate(ids)
 
 
 def breakdown(engine, x: np.ndarray, reps: int = 5) -> dict:
@@ -333,21 +593,25 @@ def breakdown(engine, x: np.ndarray, reps: int = 5) -> dict:
     return split
 
 
-def serve(ckpt: str, requests, margin_tol: float) -> dict:
-    """The main path, with both launch counts set to 0 just before it."""
-    from repro_torch.kernels.bsr_predict import ops as bsr_ops
-    from repro_torch.kernels.topk import ops as topk_ops
+def drive(ckpt: str, requests, overrides: dict, kernel: str,
+          margin_tol: float, n_labels: int):
+    """One serving configuration on the main path: every serving launch
+    count set to 0 just before `CheckpointHandle.open(ckpt).engine(spec)`
+    with `overrides` on the checkpoint's ServeSpec, the engine warmed and
+    the requests served one at a time, the counts read just after. Its
+    kernel and the top-k must have launched, and the served ids must equal
+    the plain path's on every row whose k-th/(k+1)-th margin is decisive.
+    Returns (engine, served labels (rows, K), stats)."""
     from repro_torch.xmc_api import CheckpointHandle
+    kernels = serving_kernels()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    bsr_ops.bsr_predict_cuda.launches = 0
-    topk_ops.blocked_topk_cuda.launches = 0
-
+    for fn in kernels.values():
+        fn.launches = 0
     t0 = time.perf_counter()
     handle = CheckpointHandle.open(ckpt)
-    spec = handle.spec.serve
-    _need(spec.backend == "bsr", f"default backend is {spec.backend}")
-    engine = handle.engine(spec.replace(warmup=False))
+    engine = handle.engine(handle.spec.serve.replace(warmup=False,
+                                                     **overrides))
     torch.cuda.synchronize()
     t_load = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -358,46 +622,86 @@ def serve(ckpt: str, requests, margin_tol: float) -> dict:
         t0 = time.perf_counter()
         results.extend(engine.serve([x]))
         wall.append((time.perf_counter() - t0) * 1e3)
-    launches = {"bsr_predict": bsr_ops.bsr_predict_cuda.launches,
-                "blocked_topk": topk_ops.blocked_topk_cuda.launches}
+    launches = {k: fn.launches for k, fn in kernels.items() if fn.launches}
     peak = torch.cuda.max_memory_allocated()
     lat = engine.latency_summary()
-    print(f"   open + load to the card {t_load:.2f} s; warm-up of {n_warm} "
-          f"buckets {t_warm:.2f} s")
-    print(f"   {len(requests)} requests of {list(REQUEST_ROWS)} rows: "
-          f"p50 {lat['p50_ms']:.3f} ms  p99 {lat['p99_ms']:.3f} ms "
-          f"(enqueue to completion); per request "
-          f"{[round(w, 3) for w in wall]} ms")
-    print(f"   max_memory_allocated {peak / 2**20:.1f} MiB; launches in "
-          f"this run {launches}")
-    _need(all(v > 0 for v in launches.values()),
-          f"a kernel of the path never launched: {launches}")
-
-    model = engine.backend.model
+    _need(launches.get(kernel, 0) > 0 and launches.get("blocked_topk", 0) > 0,
+          f"{overrides}: a kernel of the path never launched: {launches}")
     decisive = agree = 0
     for i, (x, res) in enumerate(zip(requests, results)):
         _need(res.labels.shape == (x.shape[0], K)
               and np.isfinite(res.scores).all()
-              and 0 <= res.labels.min() and res.labels.max() < N_LABELS,
-              f"request {i}: malformed result")
-        v, ids = plain_topk(model, x)
-        if i == ZERO_REQUEST:
+              and 0 <= res.labels.min() and res.labels.max() < n_labels,
+              f"{overrides}, request {i}: malformed result")
+        v, ids = plain_engine_topk(engine, x)
+        if not x.any():                           # a row of zeros
             _need(res.labels.tolist() == [list(range(K))]
                   and ids[:, :K].tolist() == [list(range(K))],
-                  f"zero row served {res.labels.tolist()}")
+                  f"{overrides}: zero row served {res.labels.tolist()}")
         rows = (v[:, K - 1] - v[:, K]) > margin_tol
         decisive += int(rows.sum())
         agree += int((res.labels[rows] == ids[rows, :K]).all(axis=1).sum())
-    print(f"   served ids == plain ids on {agree}/{decisive} rows with a "
-          f"decisive margin (> {margin_tol:.1e}) of "
-          f"{sum(REQUEST_ROWS)} rows")
+    n_rows = sum(x.shape[0] for x in requests)
     _need(decisive > 0 and agree == decisive,
-          "served ids differ from the plain path")
-    split = breakdown(engine, requests[REQUEST_ROWS.index(64)])
-    return dict(launches=launches, p50_ms=lat["p50_ms"],
-                p99_ms=lat["p99_ms"], load_s=t_load, warmup_s=t_warm,
-                peak_mib=peak / 2**20, agree=agree, decisive=decisive,
-                request_64_ms=split)
+          f"{overrides}: served ids differ from the plain path on "
+          f"{decisive - agree} of {decisive} decisive rows")
+    frac = float(getattr(engine.backend, "candidate_fraction", 1.0))
+    print(f"   {engine.backend.name} {overrides}: open + load {t_load:.2f} s, "
+          f"warm-up of {n_warm} buckets {t_warm:.2f} s; {len(requests)} "
+          f"requests: p50 {lat['p50_ms']:.3f} ms  p99 {lat['p99_ms']:.3f} ms"
+          f" (enqueue to completion); per request "
+          f"{[round(w, 3) for w in wall]} ms; candidate fraction "
+          f"{frac:.4f}; max_memory_allocated {peak / 2**20:.1f} MiB; "
+          f"launches {launches}; served ids == plain ids on "
+          f"{agree}/{decisive} rows with a decisive margin (> "
+          f"{margin_tol:.1e}) of {n_rows} rows", flush=True)
+    labels = np.concatenate([r.labels for r in results])
+    return engine, labels, dict(
+        launches=launches, p50_ms=lat["p50_ms"], p99_ms=lat["p99_ms"],
+        load_s=t_load, warmup_s=t_warm, peak_mib=peak / 2**20, agree=agree,
+        decisive=decisive, candidate_fraction=frac)
+
+
+def overlap(a: np.ndarray, b: np.ndarray) -> float:
+    """Mean share of each row's K ids of `b` found among those of `a`
+    (recall@K of a against b)."""
+    return float(np.mean([len(set(r) & set(s)) / K for r, s in zip(a, b)]))
+
+
+def serve(ckpt: str, requests, margin_tol: float) -> dict:
+    """The main path on the default `bsr` backend (phase 4)."""
+    from repro_torch.xmc_api import CheckpointHandle
+    _need(CheckpointHandle.open(ckpt).spec.serve.backend == "bsr",
+          "the checkpoint's default backend is not bsr")
+    engine, labels, stats = drive(ckpt, requests, {}, "bsr_predict",
+                                  margin_tol, N_LABELS)
+    stats["request_64_ms"] = breakdown(engine, requests[REQUEST_ROWS.index(64)])
+    return dict(stats, labels=labels)
+
+
+def serve_configs(ckpt: str, requests, margin_tol: float,
+                  bsr_labels: np.ndarray) -> dict:
+    """Phase 4c: each of SERVE_CONFIGS on the main path, its request split,
+    recall@5 against `bsr` and the int8 configurations' agreement with
+    their fp32 counterparts (share of rows with the same K ids in order)."""
+    out, labels = {}, {"bsr": bsr_labels}
+    for name, overrides, kernel in SERVE_CONFIGS:
+        engine, labels[name], stats = drive(ckpt, requests, overrides,
+                                            kernel, margin_tol, N_LABELS)
+        stats["request_64_ms"] = breakdown(
+            engine, requests[REQUEST_ROWS.index(64)])
+        stats["recall_at_5_vs_bsr"] = overlap(labels[name], bsr_labels)
+        if "int8" in name:
+            fp32 = labels[name.replace(" int8", "").replace("int8", "bsr")]
+            stats["same_ids_as_fp32"] = float(
+                (labels[name] == fp32).all(axis=1).mean())
+        print(f"   {name}: recall@5 vs bsr "
+              f"{stats['recall_at_5_vs_bsr']:.4f}" +
+              (f"; same ids as fp32 on {stats['same_ids_as_fp32']:.4f} of "
+               "rows" if "int8" in name else ""), flush=True)
+        out[name] = stats
+        del engine
+    return out
 
 
 def train_magnitudes(W, X, S, act, C):
@@ -552,10 +856,12 @@ def check_tron(X, Y) -> dict:
 @contextlib.contextmanager
 def fit_spans():
     """Time the stages of `fit` from outside: each batch's solve on the
-    card (synchronised), its BSR pack, its shard write and the finalize,
-    as (stage, start, end) on the host clock. The stages are wrapped where
-    train/xmc.py looks them up and restored afterwards."""
+    card (synchronised), its BSR pack, its shard write, the finalize and
+    the learned coarse stage's solve (synchronised), as (stage, start,
+    end) on the host clock. The stages are wrapped where train/xmc.py and
+    xmc_api.py look them up and restored afterwards."""
     from repro_torch.checkpoint import io
+    from repro_torch.serve import shortlist
     from repro_torch.train import xmc
     spans = []
 
@@ -571,38 +877,44 @@ def fit_spans():
 
     saved = (xmc.make_batch_solver, xmc.to_block_sparse,
              io.BlockSparseWriter.write_batch,
-             io.BlockSparseWriter.try_finalize)
+             io.BlockSparseWriter.try_finalize,
+             shortlist.build_learned_shortlist)
     xmc.make_batch_solver = lambda *a, **k: timed(
         "solve", saved[0](*a, **k), sync=True)
     xmc.to_block_sparse = timed("pack", saved[1])
     io.BlockSparseWriter.write_batch = timed("write", saved[2])
     io.BlockSparseWriter.try_finalize = timed("finalize", saved[3])
+    shortlist.build_learned_shortlist = timed("learned coarse stage",
+                                              saved[4], sync=True)
     try:
         yield spans
     finally:
         (xmc.make_batch_solver, xmc.to_block_sparse,
          io.BlockSparseWriter.write_batch,
-         io.BlockSparseWriter.try_finalize) = saved
+         io.BlockSparseWriter.try_finalize,
+         shortlist.build_learned_shortlist) = saved
 
 
 def train(data, ckpt: str, kernel_ms: dict) -> dict:
-    """The training path, with the launch counts of all four kernels set
-    to 0 just before it: `fit` on the card with the kernel ops."""
-    from repro_torch.kernels.bsr_predict import ops as bsr_ops
+    """The training path, with the launch counts of every kernel set to 0
+    just before it: `fit` on the card with the kernel ops, building the
+    learned coarse stage (on the card, with the plain ops, as the JAX
+    package's builder uses its default ops)."""
+    from repro_torch.checkpoint.io import load_shortlist
     from repro_torch.kernels.hinge import ops as hinge_ops
     from repro_torch.kernels.hvp import ops as hvp_ops
-    from repro_torch.kernels.topk import ops as topk_ops
     from repro_torch.specs import ScheduleSpec, ServeSpec, SolverSpec
     from repro_torch.xmc_api import XMCSpec, fit
     spec = XMCSpec(solver=SolverSpec(C=1.0, delta=0.01, eps=0.01,
                                      max_newton=MAX_NEWTON, max_cg=MAX_CG,
                                      ops="pallas"),
                    schedule=ScheduleSpec(label_batch=TRAIN_BATCH),
-                   serve=ServeSpec(backend="bsr", k=K))
+                   serve=ServeSpec(backend="bsr", k=K,
+                                   shortlist_kind="learned"))
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     for fn in (hinge_ops.hinge_obj_grad_cuda, hvp_ops.hvp_cuda,
-               bsr_ops.bsr_predict_cuda, topk_ops.blocked_topk_cuda):
+               *serving_kernels().values()):
         fn.launches = 0
     marks = []
     with fit_spans() as spans:
@@ -617,6 +929,10 @@ def train(data, ckpt: str, kernel_ms: dict) -> dict:
     res = handle.result
     _need(res.complete and res.solved == [0, 1],
           f"fit did not complete: {res}")
+    art = load_shortlist(ckpt)
+    _need(art is not None and art.kind == "learned"
+          and np.isfinite(art.centroids).all(),
+          "fit did not write a learned coarse stage")
     _need(all(v > 0 for v in launches.values()),
           f"a training kernel never launched: {launches}")
     shards = res.manifest["shards"]
@@ -655,47 +971,26 @@ def train(data, ckpt: str, kernel_ms: dict) -> dict:
 
 
 def serve_trained(ckpt: str, data, margin_tol: float) -> dict:
-    """The PR 11 engine over the trained checkpoint, with the serving
-    kernels' counts set to 0 just before it: P@1, P@5 and the served ids
-    against the plain path on the 512 held-out rows."""
-    from repro_torch.kernels.bsr_predict import ops as bsr_ops
-    from repro_torch.kernels.topk import ops as topk_ops
-    from repro_torch.xmc_api import CheckpointHandle
-    bsr_ops.bsr_predict_cuda.launches = 0
-    topk_ops.blocked_topk_cuda.launches = 0
-    handle = CheckpointHandle.open(ckpt)
-    _need(handle.spec.serve.backend == "bsr",
-          f"trained checkpoint serves on {handle.spec.serve.backend}")
-    engine = handle.engine()
+    """The trained checkpoint through each of TRAINED_CONFIGS on the main
+    path (`drive`) over the 512 held-out rows: P@1, P@5, recall@5 against
+    `bsr`, and the served ids against the plain path."""
     X, Y = data.X_test, data.Y_test
     requests = [X[i:i + SERVE_CHUNK] for i in range(0, len(X), SERVE_CHUNK)]
-    t0 = time.perf_counter()
-    results = engine.serve(requests)
-    t_serve = time.perf_counter() - t0
-    launches = {"bsr_predict": bsr_ops.bsr_predict_cuda.launches,
-                "blocked_topk": topk_ops.blocked_topk_cuda.launches}
-    _need(all(v > 0 for v in launches.values()),
-          f"a serving kernel never launched: {launches}")
-    labels = np.concatenate([r.labels for r in results])
-    _need(labels.shape == (len(X), K) and labels.min() >= 0
-          and labels.max() < TRAIN_LABELS, "malformed served labels")
-    hits = np.take_along_axis(Y, labels, axis=1)
-    p1, p5 = float(hits[:, 0].mean()), float(hits.mean())
-    model = engine.backend.model
-    decisive = agree = 0
-    for x, res in zip(requests, results):
-        v, ids = plain_topk(model, x, TRAIN_LABELS)
-        rows = (v[:, K - 1] - v[:, K]) > margin_tol
-        decisive += int(rows.sum())
-        agree += int((res.labels[rows] == ids[rows, :K]).all(axis=1).sum())
-    print(f"   {len(X)} held-out rows in {len(requests)} requests "
-          f"({t_serve:.2f} s): P@1 {p1:.4f}  P@5 {p5:.4f}; served ids == "
-          f"plain ids on {agree}/{decisive} decisive rows (margin > "
-          f"{margin_tol:.1e}); launches {launches}", flush=True)
-    _need(decisive > 0 and agree == decisive,
-          "served ids of the trained model differ from the plain path")
-    return dict(p_at_1=p1, p_at_5=p5, agree=agree, decisive=decisive,
-                launches=launches)
+    out, bsr_labels = {}, None
+    for name, overrides, kernel in TRAINED_CONFIGS:
+        engine, labels, stats = drive(ckpt, requests, overrides, kernel,
+                                      margin_tol, TRAIN_LABELS)
+        del engine
+        bsr_labels = labels if bsr_labels is None else bsr_labels
+        hits = np.take_along_axis(Y, labels, axis=1)
+        stats.update(p_at_1=float(hits[:, 0].mean()),
+                     p_at_5=float(hits.mean()),
+                     recall_at_5_vs_bsr=overlap(labels, bsr_labels))
+        print(f"   {name}: P@1 {stats['p_at_1']:.4f}  P@5 "
+              f"{stats['p_at_5']:.4f}  recall@5 vs bsr "
+              f"{stats['recall_at_5_vs_bsr']:.4f}", flush=True)
+        out[name] = stats
+    return out
 
 
 def main() -> None:
@@ -763,6 +1058,7 @@ def main() -> None:
             scores[:, N_LABELS:] = -3.0e38
             topk = check_topk(scores, flush)
             del gpu_model, scores, x, flush
+            torch.cuda.empty_cache()
             smi_run = subprocess.run(
                 ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,"
                  "temperature.gpu", "--format=csv,noheader"],
@@ -775,7 +1071,28 @@ def main() -> None:
             requests[ZERO_REQUEST][:] = 0.0
             err = max(r["max_abs_err"] for r in bsr["sweep"])
             served = serve(ckpt, requests, max(1e-7, 10 * err))
-        del model, requests
+
+        with phase("shortlist and int8 kernels vs plain versions"):
+            from repro_torch.checkpoint.io import load_shortlist
+            from repro_torch.core.pruning import quantize_block_sparse
+            flush = torch.empty(64 * 2**20, device="cuda")   # 256 MB
+            gpu_model = model.to("cuda")
+            t0 = time.perf_counter()
+            q = quantize_block_sparse(gpu_model)
+            print(f"   int8 artifact: {q.payload_bytes() / 1e6:.1f} MB "
+                  f"(blocks and scales), quantized in "
+                  f"{time.perf_counter() - t0:.1f} s")
+            centroids = torch.as_tensor(load_shortlist(ckpt).centroids,
+                                        device="cuda")
+            sl = check_shortlist_int8(gpu_model, q, centroids, X, flush)
+            del gpu_model, q, centroids, flush
+            torch.cuda.empty_cache()
+
+        with phase("serve: shortlist, shortlist per-query, shortlist int8, "
+                   "int8"):
+            served_cfg = serve_configs(ckpt, requests, max(1e-7, 10 * err),
+                                       served["labels"])
+        del model, requests, X
 
     from repro_torch.data.xmc import make_xmc_dataset
     with phase("train data: Wiki10-31K width"):
@@ -810,7 +1127,7 @@ def main() -> None:
         with phase("train: fit(X, Y, spec, dir) on the card"):
             trained = train(data, ckpt, {k: v["ms"] for k, v in
                                          train_k["times"].items()})
-        with phase("serve trained: CheckpointHandle.open(dir).engine()"):
+        with phase("serve trained: bsr, shortlist, shortlist per-query"):
             served_t = serve_trained(ckpt, data, max(1e-7, 10 * err))
 
     head = next(r for r in bsr["sweep"] if r["n"] == HEADLINE_N)
@@ -847,10 +1164,29 @@ def main() -> None:
             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=t["library_ms"],
             library="the two torch.matmul products, TF32 off", at=at))
+    config_of = {kernel: name for name, _, kernel in SERVE_CONFIGS}
+    for name, replaces in (("bsr_predict_int8", 70), ("bsr_gather", 122),
+                           ("bsr_gather_int8", 192), ("bsr_gather_pq", 256)):
+        sweep = sl["sweeps"][name]
+        h = next(r for r in sweep if r["n"] == HEADLINE_N)
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="src/repro_torch/csrc/bsr_predict.cu",
+            replaces=f"src/repro/kernels/bsr_predict/kernel.py:{replaces}",
+            launches=served_cfg[config_of[name]]["launches"][name],
+            max_abs_err=max(r["max_abs_err"] for r in sweep), ms=h["ms"],
+            plain_ms=h["plain_ms"], bound_ms=h["bound_ms"],
+            bound_by=h["bound_by"], library_ms=h["library_ms"],
+            library=None if h["library_ms"] is None else
+            "torch.sparse_bsr_tensor @ x.T over the " +
+            ("dequantized " if "int8" in name else "") +
+            ("selected blocks" if "gather" in name else "blocks"),
+            at=f"n={HEADLINE_N}, B={sl['B']} of {sl['R']} row blocks"
+            if "gather" in name else f"n={HEADLINE_N}", sweep=sweep))
     print(json.dumps({"kernels": kernels, "serve": {
         k: served[k] for k in ("p50_ms", "p99_ms", "load_s", "warmup_s",
                                "peak_mib", "agree", "decisive",
-                               "request_64_ms")}}))
+                               "request_64_ms")}, "serve_configs": served_cfg}))
     print(json.dumps({"train": {**trained, "tron": tron,
                                 "serve_trained": served_t}}))
     print(smi)

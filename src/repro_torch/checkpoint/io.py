@@ -104,6 +104,33 @@ def load_shortlist(directory: str):
                                  kind=kind, **tree_kwargs)
 
 
+def upgrade_shortlist(directory: str, artifact) -> dict:
+    """Replace a checkpoint's shortlist artifact (centroid -> learned or
+    tree, built by `fit` while the training data is in hand) and update the
+    index or manifest entry that references it, under `manifest_lock`.
+    The builders are deterministic, so racing workers write the same
+    bytes. Returns the new entry."""
+    index_path = os.path.join(directory, BSR_INDEX)
+    manifest_path = os.path.join(directory, BSR_MANIFEST)
+    with manifest_lock(directory):
+        entry = save_shortlist(directory, artifact)
+        if os.path.exists(index_path):
+            path, dump = index_path, dict(indent=1)
+        elif os.path.exists(manifest_path):
+            path, dump = manifest_path, dict(indent=1, sort_keys=True)
+        else:
+            raise FileNotFoundError(
+                f"no block-sparse checkpoint (index or manifest) in "
+                f"{directory} to attach a shortlist to")
+        with open(path) as f:
+            doc = json.load(f)
+        doc["shortlist"] = entry
+        with open(path + ".tmp", "w") as f:
+            json.dump(doc, f, **dump)
+        os.replace(path + ".tmp", path)
+        return entry
+
+
 def _prior_generation(directory: str) -> int:
     """Highest generation any artifact in `directory` has recorded, so the
     next fresh write publishes a strictly larger one. 0 when the directory
@@ -770,3 +797,56 @@ def load_block_sparse(directory: str, *, allow_incomplete: bool = False,
         model = _npz_model(data, index["shape"], index["block_shape"],
                            index.get("orig_shape", index["shape"]))
     return model.to(device), index["meta"]
+
+
+def _stream_int8_arrays(directory: str, manifest: dict):
+    """The persisted int8 block and scale arrays of a complete stream
+    checkpoint, stitched in `concat_block_sparse`'s order (sorted batch
+    id, the first row_ptr[-1] blocks of each shard), or None when a shard
+    predates the int8 artifact."""
+    qs, ss = [], []
+    for b in sorted(manifest["shards"], key=int):
+        entry = manifest["shards"][b]
+        with np.load(os.path.join(directory, entry["file"])) as data:
+            if "blocks_int8" not in data.files:
+                return None
+            n_p = int(data["row_ptr"][-1])
+            if n_p:
+                qs.append(data["blocks_int8"][:n_p])
+                ss.append(data["block_scales"][:n_p])
+    if not qs:                       # fully pruned: concat's sentinel
+        bl, bd = manifest["block_shape"]
+        return np.zeros((1, bl, bd), np.int8), np.zeros((1,), np.float32)
+    return np.concatenate(qs, axis=0), np.concatenate(ss)
+
+
+def load_block_sparse_int8(directory: str, *, model=None, device=None):
+    """Returns (Int8BlockSparseModel, meta dict) for either layout, on
+    `device` (None: the card; the device of `model` when it is given).
+
+    Uses the persisted `blocks_int8` / `block_scales` arrays when the
+    checkpoint has them; a checkpoint that predates them is quantized from
+    its fp32 blocks, which gives the same bytes. Pass the already loaded
+    fp32 `model` to share its coordinate tensors."""
+    from repro_torch.core.pruning import (Int8BlockSparseModel,
+                                          quantize_block_sparse)
+    index = load_block_sparse_meta(directory)
+    if model is None:
+        model, meta = load_block_sparse(directory, device=device)
+    else:
+        meta = index["meta"]
+    if index.get("layout") == "stream":
+        arrays = _stream_int8_arrays(directory, index["manifest"])
+    else:
+        with np.load(os.path.join(directory, BSR_ARRAYS)) as data:
+            arrays = ((data["blocks_int8"], data["block_scales"])
+                      if "blocks_int8" in data.files else None)
+    if arrays is None or arrays[0].shape[0] != model.n_blocks:
+        return quantize_block_sparse(model), meta
+    q, scales = (torch.from_numpy(np.ascontiguousarray(a)).to(model.device)
+                 for a in arrays)
+    return Int8BlockSparseModel(
+        blocks=q, scales=scales, block_rows=model.block_rows,
+        block_cols=model.block_cols, row_ptr=model.row_ptr,
+        shape=model.shape, block_shape=model.block_shape,
+        orig_shape=model.orig_shape), meta

@@ -1,8 +1,9 @@
 """Weights carried across from the JAX package.
 
 The JAX package holds jax arrays; handed over as numpy, they become the
-port's objects on a device: a packed `BlockSparseModel`, a trained
-`DiSMECModel`, a `TronResult`, or a warm start W0. For example
+port's objects on a device: a packed `BlockSparseModel` or its int8
+form `Int8BlockSparseModel`, a trained `DiSMECModel`, a `TronResult`, or
+a warm start W0. For example
 
     fields = {f: np.asarray(getattr(jax_model, f))
               for f in ("blocks", "block_rows", "block_cols", "row_ptr")}
@@ -19,7 +20,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.core.pruning import BlockSparseModel
+from repro_torch.core.pruning import BlockSparseModel, Int8BlockSparseModel
 from repro_torch.device import resolve_device
 
 
@@ -41,6 +42,25 @@ def block_sparse_from_numpy(fields: dict[str, np.ndarray], *, shape,
         row_ptr=put("row_ptr", np.int32), shape=tuple(shape),
         block_shape=tuple(block_shape),
         orig_shape=None if orig_shape is None else tuple(orig_shape))
+
+
+def int8_block_sparse_from_numpy(fields: dict[str, np.ndarray], *, shape,
+                                 block_shape, orig_shape=None,
+                                 device=None) -> Int8BlockSparseModel:
+    """The port's `Int8BlockSparseModel` from the JAX one's numpy fields
+    `blocks` (int8), `scales`, `block_rows`, `block_cols` and `row_ptr`
+    (copied, on `device`; None: the card)."""
+    coords = block_sparse_from_numpy(
+        {**fields, "blocks": np.asarray(fields["blocks"], np.int8)},
+        shape=shape, block_shape=block_shape, orig_shape=orig_shape,
+        device=device)
+    return Int8BlockSparseModel(
+        blocks=coords.blocks,
+        scales=torch.tensor(np.asarray(fields["scales"], np.float32),
+                            device=coords.device),
+        block_rows=coords.block_rows, block_cols=coords.block_cols,
+        row_ptr=coords.row_ptr, shape=coords.shape,
+        block_shape=coords.block_shape, orig_shape=coords.orig_shape)
 
 
 def dismec_model_from_numpy(W: np.ndarray, *, delta: float,

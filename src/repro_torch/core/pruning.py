@@ -88,6 +88,11 @@ class BlockSparseModel:
         W[self.block_rows.long(), self.block_cols.long()] = self.blocks
         return W.permute(0, 2, 1, 3).reshape(Lp, Dp)
 
+    def quantize(self) -> "Int8BlockSparseModel":
+        """Symmetric per-block int8 artifact of this model, on its device
+        (see `quantize_block_sparse`)."""
+        return quantize_block_sparse(self)
+
     def save(self, directory: str, *, meta: dict | None = None) -> None:
         """Persist as the serving checkpoint artifact (checkpoint/io.py)."""
         from repro_torch.checkpoint.io import save_block_sparse
@@ -117,6 +122,82 @@ def quantize_blocks(blocks) -> tuple[np.ndarray, np.ndarray]:
     safe = np.where(scales > 0.0, scales, 1.0)[:, None, None]
     q = np.clip(np.rint(b / safe), -INT8_QMAX, INT8_QMAX).astype(np.int8)
     return q, scales
+
+
+def dequantize_blocks(q, scales) -> np.ndarray:
+    """Inverse of `quantize_blocks` up to the rounding bound scales / 2."""
+    return (to_numpy(q).astype(np.float32)
+            * to_numpy(scales).astype(np.float32)[:, None, None])
+
+
+@dataclasses.dataclass
+class Int8BlockSparseModel:
+    """Packed BSR with symmetric per-block int8 values and fp32 scales: the
+    `int8` backend's artifact. Each surviving (bl, bd) block stores int8
+    values and one scale; coordinates and shapes are those of the fp32
+    `BlockSparseModel` it was quantized from (the same tensors, not
+    copies). The int8 kernels widen the values in registers and multiply
+    each block's fp32 partial dot by its scale.
+    """
+    blocks: torch.Tensor                 # (n_blocks, bl, bd) int8
+    scales: torch.Tensor                 # (n_blocks,) float32
+    block_rows: torch.Tensor
+    block_cols: torch.Tensor
+    row_ptr: torch.Tensor
+    shape: tuple[int, int]
+    block_shape: tuple[int, int]
+    orig_shape: tuple[int, int] | None = None
+
+    @property
+    def n_labels(self) -> int:
+        return (self.orig_shape or self.shape)[0]
+
+    @property
+    def n_features(self) -> int:
+        return (self.orig_shape or self.shape)[1]
+
+    @property
+    def n_blocks(self) -> int:
+        return int(self.blocks.shape[0])
+
+    @property
+    def device(self) -> torch.device:
+        return self.blocks.device
+
+    def payload_bytes(self) -> int:
+        """Bytes of the quantized payload (int8 blocks + scales)."""
+        return self.blocks.numel() + 4 * int(self.scales.shape[0])
+
+    def to(self, device) -> "Int8BlockSparseModel":
+        """The same model with its arrays on `device`."""
+        return dataclasses.replace(
+            self, blocks=self.blocks.to(device),
+            scales=self.scales.to(device),
+            block_rows=self.block_rows.to(device),
+            block_cols=self.block_cols.to(device),
+            row_ptr=self.row_ptr.to(device))
+
+    def dequantize(self) -> BlockSparseModel:
+        """Back to a float32 `BlockSparseModel` (within the rounding
+        bound), on the same device; the serving kernels never use it."""
+        blocks = torch.from_numpy(dequantize_blocks(self.blocks, self.scales))
+        return BlockSparseModel(
+            blocks=blocks.to(self.device), block_rows=self.block_rows,
+            block_cols=self.block_cols, row_ptr=self.row_ptr,
+            shape=self.shape, block_shape=self.block_shape,
+            orig_shape=self.orig_shape)
+
+
+def quantize_block_sparse(model: BlockSparseModel) -> Int8BlockSparseModel:
+    """Quantize a packed fp32 model to the int8 serving artifact, on the
+    model's device; the coordinate tensors are shared, not copied."""
+    q, scales = quantize_blocks(model.blocks)
+    return Int8BlockSparseModel(
+        blocks=torch.from_numpy(q).to(model.device),
+        scales=torch.from_numpy(scales).to(model.device),
+        block_rows=model.block_rows, block_cols=model.block_cols,
+        row_ptr=model.row_ptr, shape=model.shape,
+        block_shape=model.block_shape, orig_shape=model.orig_shape)
 
 
 def _model(blocks, rows, cols, row_ptr, shape, block_shape, orig_shape,

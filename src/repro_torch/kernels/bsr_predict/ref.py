@@ -1,9 +1,19 @@
-"""Plain PyTorch version of the BSR predict kernel.
+"""Plain PyTorch versions of the BSR predict kernels.
 
-Same function as csrc/bsr_predict.cu: x (n, Dp) against the packed blocks
--> scores (n, Lp). Gathers the x tile of every packed block by its column,
-multiplies each tile with its block (`einsum`), and adds each product into
-its row block (`index_add_`). Row blocks with no packed block stay zero.
+Same functions as csrc/bsr_predict.cu, with the kernels' structure: gather
+the x tile of every packed block by its column, multiply each tile with
+its block (`einsum`, one partial per block), and add each partial into
+its output slot (`index_add_`). Slots with no packed block stay zero.
+
+  bsr_predict             x (n, Dp) -> (n, R * bl), every row block;
+  bsr_predict_int8        the same over int8 blocks widened to fp32, each
+                          block's partial multiplied by its scale;
+  bsr_predict_gather      only the row blocks of sel (B,), in sel order ->
+                          (n, B * bl);
+  bsr_predict_gather_int8 the same over int8 blocks;
+  bsr_predict_gather_pq   row q scores only its own row blocks sel[q]
+                          (n, B) -> (n, B * bl), one query at a time, so
+                          no (n, blocks, bl, bd) tensor is ever formed.
 """
 
 from __future__ import annotations
@@ -11,15 +21,78 @@ from __future__ import annotations
 import torch
 
 
+def _partials(x: torch.Tensor, blocks: torch.Tensor, block_cols, scales
+              ) -> torch.Tensor:
+    """(n, nb, bl): x's tile of each block's column times the block, each
+    block's partial multiplied by its scale when `scales` is given."""
+    n, Dp = x.shape
+    bd = blocks.shape[2]
+    xg = x.float().reshape(n, Dp // bd, bd)[:, block_cols.long()]
+    part = torch.einsum("nbd,bld->nbl", xg, blocks.float())
+    if scales is not None:
+        part = part * scales.float()[None, :, None]
+    return part
+
+
+def _scatter(part: torch.Tensor, slots: torch.Tensor, n_slots: int
+             ) -> torch.Tensor:
+    n, _, bl = part.shape
+    out = torch.zeros((n, n_slots, bl), dtype=torch.float32,
+                      device=part.device)
+    out.index_add_(1, slots.long(), part)
+    return out.reshape(n, n_slots * bl)
+
+
 def bsr_predict(x: torch.Tensor, blocks: torch.Tensor,
                 block_rows: torch.Tensor, block_cols: torch.Tensor,
                 n_row_blocks: int) -> torch.Tensor:
-    n, Dp = x.shape
-    _, bl, bd = blocks.shape
-    xt = x.float().reshape(n, Dp // bd, bd)
-    xg = xt[:, block_cols.long()]                            # (n, nb, bd)
-    part = torch.einsum("nbd,bld->nbl", xg, blocks.float())  # (n, nb, bl)
-    out = torch.zeros((n, n_row_blocks, bl), dtype=torch.float32,
-                      device=x.device)
-    out.index_add_(1, block_rows.long(), part)
-    return out.reshape(n, n_row_blocks * bl)
+    return _scatter(_partials(x, blocks, block_cols, None), block_rows,
+                    n_row_blocks)
+
+
+def bsr_predict_int8(x: torch.Tensor, blocks: torch.Tensor,
+                     scales: torch.Tensor, block_rows: torch.Tensor,
+                     block_cols: torch.Tensor,
+                     n_row_blocks: int) -> torch.Tensor:
+    return _scatter(_partials(x, blocks, block_cols, scales), block_rows,
+                    n_row_blocks)
+
+
+def selected_blocks(row_ptr: torch.Tensor, sel: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The packed block ids of sel's row blocks, in sel order and packed
+    order within each, and the slot (position in sel) of each."""
+    ptr = row_ptr.long()
+    sel = sel.long()
+    counts = ptr[sel + 1] - ptr[sel]
+    slots = torch.repeat_interleave(
+        torch.arange(sel.numel(), device=sel.device), counts)
+    first = torch.cumsum(counts, 0) - counts
+    ids = (torch.repeat_interleave(ptr[sel] - first, counts)
+           + torch.arange(slots.numel(), device=sel.device))
+    return ids, slots
+
+
+def bsr_predict_gather(x: torch.Tensor, blocks: torch.Tensor,
+                       block_cols: torch.Tensor, row_ptr: torch.Tensor,
+                       sel: torch.Tensor) -> torch.Tensor:
+    ids, slots = selected_blocks(row_ptr, sel)
+    part = _partials(x, blocks[ids], block_cols[ids], None)
+    return _scatter(part, slots, sel.numel())
+
+
+def bsr_predict_gather_int8(x: torch.Tensor, blocks: torch.Tensor,
+                            scales: torch.Tensor, block_cols: torch.Tensor,
+                            row_ptr: torch.Tensor,
+                            sel: torch.Tensor) -> torch.Tensor:
+    ids, slots = selected_blocks(row_ptr, sel)
+    part = _partials(x, blocks[ids], block_cols[ids], scales[ids])
+    return _scatter(part, slots, sel.numel())
+
+
+def bsr_predict_gather_pq(x: torch.Tensor, blocks: torch.Tensor,
+                          block_cols: torch.Tensor, row_ptr: torch.Tensor,
+                          sel: torch.Tensor) -> torch.Tensor:
+    return torch.cat([bsr_predict_gather(x[q:q + 1], blocks, block_cols,
+                                         row_ptr, sel[q])
+                      for q in range(x.shape[0])])

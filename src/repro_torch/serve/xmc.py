@@ -8,19 +8,35 @@ PyTorch. A `ServeSpec` rides inside every checkpoint manifest, and
 
 builds this engine as the spec describes, on the card. Backends live in a
 decorator registry (`@register_backend("kind")`); `make_backend` is a thin
-lookup. Two backends are built in:
+lookup. Four backends are built in:
 
-  dense — X @ W.T (`torch.matmul`) on the densified model, then a stable
-          sort. Baseline and reference semantics.
-  bsr   — the block-sparse predict kernel followed by the blocked top-k
-          kernel (kernels/bsr_predict.ops.bsr_predict_topk); the model
-          stays in packed BSR form, compute scales with block density.
+  dense     — X @ W.T (`torch.matmul`) on the densified model, then a
+              stable sort. Baseline and reference semantics.
+  bsr       — the block-sparse predict kernel followed by the blocked top-k
+              kernel (kernels/bsr_predict.ops.bsr_predict_topk); the model
+              stays in packed BSR form, compute scales with block density.
+              `int8=True` serves the int8 artifact, as `int8` does.
+  int8      — the bsr path over the symmetric per-block int8 artifact
+              (`core.pruning.Int8BlockSparseModel`): int8 blocks widened in
+              registers, each block's fp32 dot multiplied by its scale.
+              Scores within the quantization bound, so top-k agreement,
+              not bit equality.
+  shortlist — two-stage sub-linear scoring: the checkpoint's coarse stage
+              (serve/shortlist.py: block centroids, a learned one-vs-rest
+              classifier or a routing tree) selects the top-B row blocks,
+              then the gathered kernel scores only their packed blocks.
+              Selection is shared by the micro-batch, or per query
+              (`shortlist_per_query`); `int8=True` gathers int8 blocks
+              (shared selection only: the per-query int8 kernel is not
+              ported). Without an artifact it serves as bsr (or int8).
 
-Both return identical top-k label ids on the same pruned model, tie order
-included (descending score, then ascending id): padding labels are masked
-below any real score before the merge, and fully pruned real labels keep
-their exact-zero score. A checkpoint packed under a `label_order`
-permutation is served through `RelabelBackend`, which maps ids back.
+dense, bsr and shortlist return identical top-k label ids on the same
+pruned model, tie order included (descending score, then ascending id;
+shortlist whenever its candidates cover the top-k, and exactly when B is
+the row-block count): padding labels are masked below any real score
+before the merge, and fully pruned real labels keep their exact-zero
+score. A checkpoint packed under a `label_order` permutation is served
+through `RelabelBackend`, which maps ids back.
 
 Requests go through `serve.batching.MicroBatchQueue` (size-bucketed padding
 of ragged streams); each bucket is run once at warm-up, and per-request
@@ -30,7 +46,9 @@ latency percentiles are kept (enqueue -> completion).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
+import inspect
 import time
 from typing import Iterable, Protocol, Sequence
 
@@ -38,10 +56,12 @@ import numpy as np
 import torch
 
 from repro_torch.core.prediction import predict_topk
-from repro_torch.core.pruning import BlockSparseModel
+from repro_torch.core.pruning import (BlockSparseModel, Int8BlockSparseModel,
+                                      quantize_block_sparse)
 from repro_torch.device import synchronize
 from repro_torch.serve.batching import (DEFAULT_BUCKETS, LatencyStats,
                                         MicroBatchQueue)
+from repro_torch.serve.shortlist import ShortlistArtifact
 
 
 class PredictBackend(Protocol):
@@ -102,6 +122,192 @@ class BsrBackend:
                                         n_labels=self.n_labels)
 
 
+class Int8Backend:
+    """Exhaustive BSR scoring over the int8 per-block-scaled artifact.
+    Takes the quantized artifact, or a fp32 `BlockSparseModel` that it
+    quantizes (the bytes a checkpoint persists)."""
+
+    name = "int8"
+
+    def __init__(self, model, k: int, *, n_labels: int | None = None):
+        if isinstance(model, BlockSparseModel):
+            model = quantize_block_sparse(model)
+        self.k = k
+        self.n_labels = int(n_labels if n_labels is not None
+                            else model.n_labels)
+        self.model = model
+        self.device = model.device
+
+    def warmup_key(self):
+        # The kind tag and the int8 dtype keep an int8 backend over the
+        # geometry of a fp32 bsr backend from marking its buckets warm.
+        m = self.model
+        return ("int8", tuple(m.blocks.shape), str(m.blocks.dtype), m.shape,
+                m.block_shape, m.orig_shape, self.k, self.n_labels,
+                str(self.device))
+
+    def topk(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        from repro_torch.kernels.bsr_predict import ops as bsr_ops
+        return bsr_ops.bsr_predict_int8_topk(x, self.model, self.k,
+                                             n_labels=self.n_labels)
+
+
+def _coarse_input(x: torch.Tensor, Dp: int) -> torch.Tensor:
+    xf = x.float()
+    if xf.shape[1] < Dp:
+        xf = torch.nn.functional.pad(xf, (0, Dp - xf.shape[1]))
+    return xf
+
+
+def _top_b(coarse: torch.Tensor, B: int) -> torch.Tensor:
+    """The B largest along the last axis, the lowest index first among
+    equal scores (`lax.top_k`'s order), then sorted ascending; on the
+    device, with no host sync."""
+    order = torch.sort(coarse, dim=-1, descending=True, stable=True)[1]
+    return torch.sort(order[..., :B], dim=-1)[0].to(torch.int32)
+
+
+def _select_shared_from(coarse: torch.Tensor, B: int) -> torch.Tensor:
+    """Shared top-B selection (B,) from (n, R) coarse scores: the max over
+    the micro-batch's rows, padding rows included."""
+    return _top_b(coarse.max(dim=0)[0], B)
+
+
+def _select_pq_from(coarse: torch.Tensor, B: int) -> torch.Tensor:
+    """Per-query top-B selection (n, B), each row sorted."""
+    return _top_b(coarse, B)
+
+
+def _shortlist_select(x: torch.Tensor, centroids: torch.Tensor,
+                      B: int) -> torch.Tensor:
+    """Matrix coarse stage, shared: x @ centroids.T (`torch.matmul`), max
+    over the batch, top B sorted ascending, so that B = R is the
+    exhaustive path."""
+    xf = _coarse_input(x, centroids.shape[1])
+    return _select_shared_from(xf @ centroids.T, B)
+
+
+def _shortlist_select_pq(x: torch.Tensor, centroids: torch.Tensor,
+                         B: int) -> torch.Tensor:
+    """Matrix coarse stage, per query: each row's own sorted top B."""
+    xf = _coarse_input(x, centroids.shape[1])
+    return _select_pq_from(xf @ centroids.T, B)
+
+
+def _tree_coarse(x: torch.Tensor, nodes: torch.Tensor,
+                 leaf_scores: torch.Tensor, depth: int) -> torch.Tensor:
+    """Tree coarse scores (n, R): descend the complete tree of hyperplanes
+    (right iff x @ w >= 0) for `depth` steps, read the leaf's row."""
+    xf = _coarse_input(x, nodes.shape[1])
+    idx = torch.zeros(xf.shape[0], dtype=torch.long, device=xf.device)
+    for _ in range(depth):
+        go_right = ((xf * nodes[idx]).sum(dim=1) >= 0.0).long()
+        idx = 2 * idx + 1 + go_right
+    return leaf_scores[idx - (2 ** depth - 1)]
+
+
+class ShortlistBackend:
+    """Two-stage sub-linear scoring: a coarse shortlist of row blocks, then
+    the gathered fine stage over the packed blocks of those row blocks.
+
+    The coarse stage is the artifact's: "centroid" and "learned" are one
+    (n, Dp) x (Dp, R) product, "tree" routes each query to a leaf's
+    per-block scores. The selection is shared by the micro-batch (the max
+    over its rows, padding rows included: a padding row scores exactly 0,
+    which on a model whose coarse scores are all negative can steer the
+    selection) or, with `per_query`, each row's own. B is fixed per
+    backend, candidate fraction B / R. At B == R every sorted per-query
+    list is the full list, so full width always uses the shared kernel,
+    which gives the exhaustive path bit for bit. `int8=True` keeps the
+    fp32 model and gathers from the int8 one (`int8_model`, or quantized
+    here); int8 with a per-query selection of B < R raises
+    NotImplementedError, its kernel being unported.
+    """
+
+    name = "shortlist"
+
+    def __init__(self, model: BlockSparseModel, artifact: ShortlistArtifact,
+                 k: int, *, n_labels: int | None = None,
+                 blocks: int | None = None, int8: bool = False,
+                 int8_model: Int8BlockSparseModel | None = None,
+                 per_query: bool = False):
+        from repro_torch.kernels.bsr_predict import ops as bsr_ops
+        artifact.validate_against(model)
+        self.k = k
+        self.n_labels = int(n_labels if n_labels is not None
+                            else model.n_labels)
+        self.model = model
+        self.device = model.device
+        self.artifact = artifact
+        self.kind = artifact.kind
+        R = artifact.n_row_blocks
+        self.B = min(int(blocks if blocks is not None
+                         else artifact.default_blocks()), R)
+        if self.B < 1:
+            raise ValueError(f"shortlist width must be >= 1, got {self.B}")
+        self.per_query = bool(per_query) and self.B < R
+        self.int8 = bool(int8)
+        if self.int8 and self.per_query:
+            raise NotImplementedError(
+                "shortlist serving with int8=True and a per-query selection "
+                f"narrower than the model (B={self.B} < R={R}) needs the "
+                "per-query gathered int8 kernel, which is not ported yet; "
+                "see ROADMAP Queue B")
+        put = functools.partial(torch.as_tensor, device=self.device)
+        self._centroids = put(artifact.centroids)
+        self._tree = None
+        if self.kind == "tree":
+            self._tree = (put(artifact.tree_nodes),
+                          put(artifact.tree_leaf_scores),
+                          int(artifact.tree_depth))
+        self._max_per_row = bsr_ops.max_blocks_per_row(model)
+        self.int8_model = None
+        if self.int8:
+            self.int8_model = (int8_model if int8_model is not None
+                               else quantize_block_sparse(model))
+
+    @property
+    def candidate_fraction(self) -> float:
+        """Fraction of row blocks the fine stage scores per query."""
+        return self.B / self.artifact.n_row_blocks
+
+    def warmup_key(self):
+        # int8 vs fp32, tree vs matrix and per-query vs shared are other
+        # computations over the same geometry: part of the key.
+        m = self.model
+        return ("shortlist", self.kind, self.per_query, self.int8,
+                tuple(m.blocks.shape), str(m.blocks.dtype), m.shape,
+                m.block_shape, m.orig_shape, tuple(self._centroids.shape),
+                self.B, self._max_per_row, self.k, self.n_labels,
+                str(self.device))
+
+    def _select(self, x: torch.Tensor) -> torch.Tensor:
+        """The selection the fine stage scores: (B,) shared or (n, B) per
+        query, sorted either way."""
+        if self.kind == "tree":
+            coarse = _tree_coarse(x, *self._tree)
+            return (_select_pq_from if self.per_query
+                    else _select_shared_from)(coarse, self.B)
+        return (_shortlist_select_pq if self.per_query
+                else _shortlist_select)(x, self._centroids, self.B)
+
+    def select_blocks(self, x) -> np.ndarray:
+        """The sorted row-block ids the fine stage would score for this
+        batch: (B,) shared or (n, B) per query."""
+        x = torch.as_tensor(np.asarray(x, np.float32), device=self.device)
+        return self._select(x).cpu().numpy()
+
+    def topk(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        from repro_torch.kernels.bsr_predict import ops as bsr_ops
+        sel = self._select(x)
+        if self.per_query:
+            return bsr_ops.bsr_predict_gather_pq_topk(
+                x, self.model, sel, self.k, n_labels=self.n_labels)
+        return bsr_ops.bsr_predict_gather_topk(
+            x, self.int8_model if self.int8 else self.model, sel, self.k,
+            n_labels=self.n_labels)
+
+
 class RelabelBackend:
     """Pack-time reorder unmapping: wraps any backend serving a checkpoint
     packed under a `label_order` permutation and maps its packed top-k ids
@@ -139,7 +345,8 @@ class RelabelBackend:
 
 
 # ---------------------------------------------------------------------------
-# Backend registry: kind -> factory(bsr, k, *, n_labels) -> PredictBackend.
+# Backend registry: kind -> factory(bsr, k, *, n_labels, ...) ->
+# PredictBackend.
 # ---------------------------------------------------------------------------
 
 _BACKEND_REGISTRY: dict[str, "object"] = {}
@@ -152,6 +359,9 @@ def register_backend(kind: str):
         @register_backend("quantized")
         def _make_quantized(bsr, k, *, n_labels):
             return QuantizedBackend(bsr, k, n_labels=n_labels)
+
+    It is given only the keywords of `make_backend` its signature names
+    (all of them with **kwargs).
     """
     def deco(factory):
         if kind in _BACKEND_REGISTRY:
@@ -159,6 +369,11 @@ def register_backend(kind: str):
         _BACKEND_REGISTRY[kind] = factory
         return factory
     return deco
+
+
+def unregister_backend(kind: str) -> None:
+    """Remove a registered backend kind (plugin teardown, tests)."""
+    _BACKEND_REGISTRY.pop(kind, None)
 
 
 def available_backends() -> tuple[str, ...]:
@@ -173,18 +388,52 @@ def _make_dense_backend(bsr: BlockSparseModel, k: int, *, n_labels: int):
 
 
 @register_backend("bsr")
-def _make_bsr_backend(bsr: BlockSparseModel, k: int, *, n_labels: int):
+def _make_bsr_backend(bsr: BlockSparseModel, k: int, *, n_labels: int,
+                      int8=False, int8_model=None):
+    if int8:      # ServeSpec(backend="bsr", int8=True) is the "int8" kind
+        return Int8Backend(int8_model if int8_model is not None else bsr,
+                           k, n_labels=n_labels)
     return BsrBackend(bsr, k, n_labels=n_labels)
+
+
+@register_backend("int8")
+def _make_int8_backend(bsr: BlockSparseModel, k: int, *, n_labels: int,
+                       int8_model=None):
+    return Int8Backend(int8_model if int8_model is not None else bsr, k,
+                       n_labels=n_labels)
+
+
+@register_backend("shortlist")
+def _make_shortlist_backend(bsr: BlockSparseModel, k: int, *, n_labels: int,
+                            shortlist=None, shortlist_blocks=None,
+                            int8=False, int8_model=None,
+                            shortlist_per_query=False):
+    if shortlist is None:            # no artifact: exhaustive scoring
+        return _make_bsr_backend(bsr, k, n_labels=n_labels, int8=int8,
+                                 int8_model=int8_model)
+    return ShortlistBackend(bsr, shortlist, k, n_labels=n_labels,
+                            blocks=shortlist_blocks, int8=int8,
+                            int8_model=int8_model,
+                            per_query=shortlist_per_query)
 
 
 def make_backend(kind: str, bsr: BlockSparseModel, k: int, *,
                  n_labels: int | None = None,
+                 shortlist: ShortlistArtifact | None = None,
+                 shortlist_blocks: int | None = None, int8: bool = False,
+                 int8_model: Int8BlockSparseModel | None = None,
+                 shortlist_per_query: bool = False,
                  label_order=None) -> PredictBackend:
     """Build a registered backend from the packed model (a thin lookup).
 
     dense densifies in memory, sliced back to the true (L, D); bsr serves
-    the packed form directly. `label_order` (the pack-time permutation
-    recorded in the checkpoint) wraps the backend in `RelabelBackend`.
+    the packed form directly; shortlist adds the coarse stage when given
+    an artifact. kind="int8" (or bsr/shortlist with int8=True) serves the
+    int8 artifact: `int8_model` (a checkpoint's persisted arrays), else
+    the fp32 blocks quantized here (the same bytes). Each factory is given
+    the keywords its signature names. `label_order` (the pack-time
+    permutation recorded in the checkpoint) wraps the backend in
+    `RelabelBackend`.
     """
     try:
         factory = _BACKEND_REGISTRY[kind]
@@ -192,7 +441,14 @@ def make_backend(kind: str, bsr: BlockSparseModel, k: int, *,
         raise ValueError(f"unknown backend {kind!r}; expected one of "
                          f"{available_backends()}") from None
     n_labels = int(n_labels if n_labels is not None else bsr.n_labels)
-    be = factory(bsr, k, n_labels=n_labels)
+    kwargs = dict(n_labels=n_labels, shortlist=shortlist,
+                  shortlist_blocks=shortlist_blocks, int8=int8,
+                  int8_model=int8_model,
+                  shortlist_per_query=shortlist_per_query)
+    params = inspect.signature(factory).parameters
+    if not any(p.kind is p.VAR_KEYWORD for p in params.values()):
+        kwargs = {key: v for key, v in kwargs.items() if key in params}
+    be = factory(bsr, k, **kwargs)
     if label_order is not None:
         be = RelabelBackend(be, label_order)
     return be
@@ -257,17 +513,32 @@ class XMCEngine:
     @classmethod
     def from_checkpoint(cls, directory: str, *, backend: str = "bsr",
                         k: int = 5, buckets: Sequence[int] = DEFAULT_BUCKETS,
-                        warmup: bool = True, device=None) -> "XMCEngine":
+                        warmup: bool = True, device=None,
+                        shortlist_blocks: int | None = None,
+                        int8: bool = False,
+                        shortlist_per_query: bool = False) -> "XMCEngine":
         """Serve the sparse artifact written by `save_block_sparse` (either
         package's), with the model on `device` (None: the card, raising
-        when none is present). A checkpoint packed under a `label_order`
-        permutation is unmapped here: every backend returns original ids.
+        when none is present). The shortlist artifact beside the arrays is
+        picked up when present; backend="int8" (or `int8=True`) serves the
+        persisted int8 arrays, quantizing when the checkpoint predates
+        them. A checkpoint packed under a `label_order` permutation is
+        unmapped here: every backend returns original ids.
         """
         from repro_torch.checkpoint.io import (load_block_sparse,
-                                               load_block_sparse_meta)
+                                               load_block_sparse_int8,
+                                               load_block_sparse_meta,
+                                               load_shortlist)
         bsr, meta = load_block_sparse(directory, device=device)
         n_labels = int(meta.get("n_labels", bsr.n_labels))
+        int8_model = None
+        if int8 or backend == "int8":
+            int8_model, _ = load_block_sparse_int8(directory, model=bsr)
         be = make_backend(backend, bsr, k, n_labels=n_labels,
+                          shortlist=load_shortlist(directory),
+                          shortlist_blocks=shortlist_blocks, int8=int8,
+                          int8_model=int8_model,
+                          shortlist_per_query=shortlist_per_query,
                           label_order=load_block_sparse_meta(
                               directory).get("label_order"))
         return cls(be, buckets, warmup=warmup,

@@ -21,9 +21,9 @@ DEFAULT_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256)
 class ServeSpec(Spec):
     """One serving configuration over a sparse checkpoint.
 
-    backend   : predict-backend registry kind ("dense" / "bsr" in this
-                port; the JAX package also has "sharded", "shortlist" and
-                "int8").
+    backend   : predict-backend registry kind ("dense", "bsr", "int8" and
+                "shortlist" in this port; the JAX package also has
+                "sharded").
     k         : top-k labels returned per instance.
     buckets   : micro-batch bucket sizes.
     interpret : the JAX package's Pallas execution mode. Kept so that
@@ -31,9 +31,14 @@ class ServeSpec(Spec):
                 ignores it (its kernels run on the card, their plain
                 versions on the CPU).
     warmup    : run every bucket once at engine construction.
-    shortlist_blocks / int8 / shortlist_kind / shortlist_per_query :
-                knobs of the JAX package's shortlist and int8 backends,
-                kept for manifest round-trips.
+    shortlist_blocks : shortlist width B in row blocks (None: the
+                artifact's default, 1/8 of them).
+    int8      : serve the int8 artifact (bsr and shortlist backends).
+    shortlist_kind : the coarse stage `fit` builds ("centroid", "learned"
+                or "tree").
+    shortlist_per_query : one selection per query instead of one per
+                micro-batch (fp32 only: the per-query int8 kernel is not
+                ported).
     max_batch_delay_ms / max_queue : knobs of the JAX package's async
                 server, kept for manifest round-trips.
     """

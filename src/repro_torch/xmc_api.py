@@ -24,9 +24,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, to_numpy
 from repro_torch.specs import ScheduleSpec, ServeSpec, SolverSpec
 from repro_torch.specs.base import Spec
 
@@ -112,24 +113,49 @@ def fit(X, Y, spec: XMCSpec, out_dir: str, *,
                 fixed point: the warm fit reproduces it bit for bit.
     resume / max_batches / on_batch / worker : as `XMCTrainJob.run`.
 
-    A `reorder_labels` schedule or a non-centroid `shortlist_kind` raises
-    NotImplementedError: the label reordering and the learned/tree coarse
-    stages are not ported yet (ROADMAP Queue A item 4).
+    Two spec knobs act at fit time beyond the solve itself, as in the JAX
+    package: `schedule.reorder_labels` packs the label space under the
+    co-occurrence permutation (trained as `Y[:, order]`, recorded in the
+    manifest, unmapped at serve time), and `serve.shortlist_kind` other
+    than "centroid" replaces the finalize-time centroid shortlist with a
+    learned one-vs-rest classifier (solved on `device`) or a routing tree
+    built from the run's own data.
     """
     spec = spec.normalized()
-    if spec.schedule.reorder_labels or spec.serve.shortlist_kind != \
-            "centroid":
-        raise NotImplementedError(
-            "fit: reorder_labels and the learned/tree shortlists are not "
-            "ported yet; see ROADMAP Queue A item 4 (shortlist)")
     device = resolve_device(device)
+    label_order = None
+    if spec.schedule.reorder_labels:
+        from repro_torch.serve.shortlist import cooccurrence_label_order
+        label_order = cooccurrence_label_order(
+            to_numpy(Y), block_rows=int(spec.schedule.block_shape[0]))
     res = job_from_spec(spec).run(
         X, Y, out_dir, resume=resume, init_from=init_from,
         max_batches=max_batches, on_batch=on_batch, worker=worker,
-        device=device,
+        device=device, label_order=label_order,
         meta={**(meta or {}), "xmc_spec": spec.canonical().to_dict()})
+    if res.complete and spec.serve.shortlist_kind != "centroid":
+        _upgrade_coarse_stage(out_dir, spec, X, Y, label_order, device)
     return CheckpointHandle(directory=out_dir, spec=spec, device=device,
                             result=res)
+
+
+def _upgrade_coarse_stage(out_dir: str, spec: XMCSpec, X, Y, label_order,
+                          device: torch.device) -> None:
+    """Swap the finalize-time centroid shortlist for the coarse artifact
+    `spec.serve.shortlist_kind` names, trained from the run's own data
+    with Y in packed label order (the writer's finalize, which any worker
+    may win, knows nothing of X and Y)."""
+    from repro_torch.checkpoint.io import load_block_sparse, upgrade_shortlist
+    from repro_torch.serve.shortlist import (build_learned_shortlist,
+                                             build_tree_shortlist)
+    model, _ = load_block_sparse(out_dir, device=device)
+    Yn = to_numpy(Y)
+    if label_order is not None:
+        Yn = Yn[:, np.asarray(label_order)]
+    build = (build_learned_shortlist
+             if spec.serve.shortlist_kind == "learned"
+             else build_tree_shortlist)
+    upgrade_shortlist(out_dir, build(model, X, Yn))
 
 
 def _spec_from_index(index: dict) -> XMCSpec:
@@ -236,10 +262,8 @@ class CheckpointHandle:
         `ServeSpec.interpret` has no meaning here and is ignored."""
         from repro_torch.serve.xmc import XMCEngine
         serve = (serve_override or self.spec.serve).validate()
-        if serve.int8:
-            raise ValueError("int8 serving is not ported yet; serve the fp32 "
-                             "blocks with ServeSpec(int8=False)")
         return XMCEngine.from_checkpoint(
             self.directory, backend=serve.backend, k=serve.k,
             buckets=tuple(serve.buckets), warmup=serve.warmup,
-            device=self.device)
+            device=self.device, shortlist_blocks=serve.shortlist_blocks,
+            int8=serve.int8, shortlist_per_query=serve.shortlist_per_query)

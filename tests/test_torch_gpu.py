@@ -5,7 +5,9 @@ card. Marked `gpu`: without a card every test here skips.
 
 Tolerances: BSR scores within 1e-5 of the magnitude |x| @ |W|^T of their
 terms (the same fp32 products, summed in another order; both sides in
-full fp32, TF32 off); top-k values and ids exactly, since the top-k only
+full fp32, TF32 off; |W| = |q| * scale for int8 blocks); the gathered and
+per-query kernels bit for bit equal to the kernel they must reproduce
+(`torch.equal`); top-k values and ids exactly, since the top-k only
 selects. The training kernels (hinge, HVP): f, grad and Hv within 1e-5 of
 the same sums taken over absolute values (`_train_magnitudes`), for the
 same reason; `act` identical wherever |z| > 1e-5; two launches on the
@@ -16,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.pruning import to_block_sparse
+from repro_torch.core.pruning import quantize_block_sparse, to_block_sparse
 from repro_torch.kernels import _build
 from repro_torch.kernels.bsr_predict import ops as bsr_ops
 from repro_torch.kernels.bsr_predict import ref as bsr_ref
@@ -153,6 +155,171 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         topk_ops.blocked_topk_cuda(torch.zeros((2, 512), device=cuda).t(),
                                    3, bL=256)
+
+
+def _int8_model(L, D, density, block, seed, device):
+    return quantize_block_sparse(_model(L, D, density, block, seed, device))
+
+
+def _within(got, want, mag):
+    torch.cuda.synchronize()
+    assert bool(((got - want).abs() <= 1e-5 * mag).all())
+
+
+INT8_CASES = [(300, 520, 0.3, (16, 16)), (256, 1024, 0.2, (128, 128)),
+              (500, 256, 0.5, (256, 64)), (90, 300, 0.4, (8, 32))]
+
+
+@pytest.mark.parametrize("L,D,density,block", INT8_CASES)
+@pytest.mark.parametrize("n", [1, 9, 64])
+def test_int8_kernels_match_plain(cuda, L, D, density, block, n):
+    """Kernels 4 and 6 against their plain versions; kernel 6 with a sorted
+    full selection equals kernel 4 bit for bit (contract b)."""
+    q = _int8_model(L, D, density, block, seed=L + n, device=cuda)
+    x = _x(n, q.shape[1], n, cuda)
+    R = q.shape[0] // block[0]
+    absq = q.blocks.abs()
+    got = bsr_ops.bsr_predict_int8_cuda(x, q.blocks, q.scales, q.block_cols,
+                                        q.row_ptr, R)
+    _within(got, bsr_ref.bsr_predict_int8(x, q.blocks, q.scales,
+                                          q.block_rows, q.block_cols, R),
+            bsr_ref.bsr_predict_int8(x.abs(), absq, q.scales, q.block_rows,
+                                     q.block_cols, R))
+    full = torch.arange(R, dtype=torch.int32, device=cuda)
+    assert torch.equal(got, bsr_ops.bsr_predict_gather_int8_cuda(
+        x, q.blocks, q.scales, q.block_cols, q.row_ptr, full))
+    sel = torch.tensor([R - 1, 0, R // 2], dtype=torch.int32, device=cuda)
+    g = bsr_ops.bsr_predict_gather_int8_cuda(x, q.blocks, q.scales,
+                                             q.block_cols, q.row_ptr, sel)
+    _within(g, bsr_ref.bsr_predict_gather_int8(x, q.blocks, q.scales,
+                                               q.block_cols, q.row_ptr, sel),
+            bsr_ref.bsr_predict_gather_int8(x.abs(), absq, q.scales,
+                                            q.block_cols, q.row_ptr, sel))
+    assert bool((g[:, block[0]:2 * block[0]] == 0).all())   # row block 0
+
+
+@pytest.mark.parametrize("L,D,density,block", [
+    (300, 520, 0.3, (16, 16)), (256, 1024, 0.2, (128, 128)),
+    (500, 256, 0.5, (256, 64)), (90, 300, 0.4, (8, 32))])
+@pytest.mark.parametrize("n", [1, 9, 33, 64])
+def test_gather_kernels_match_plain(cuda, L, D, density, block, n):
+    """Kernel 5 against its plain version (unsorted selection, an empty
+    row block) and against kernel 3 at a sorted full selection (contract
+    a); kernel 7 against its plain version, and at n = 1 against kernel 5
+    (contract c)."""
+    model = _model(L, D, density, block, seed=L * n, device=cuda)
+    x = _x(n, model.shape[1], n + 1, cuda)
+    bl, R = block[0], model.shape[0] // block[0]
+    args = (model.blocks, model.block_cols, model.row_ptr)
+    absargs = (model.blocks.abs(), model.block_cols, model.row_ptr)
+    full = torch.arange(R, dtype=torch.int32, device=cuda)
+    assert torch.equal(bsr_ops.bsr_predict_gather_cuda(x, *args, full),
+                       bsr_ops.bsr_predict_cuda(x, *args, R))
+    sel = torch.tensor([R - 1, 0, R // 2], dtype=torch.int32, device=cuda)
+    g = bsr_ops.bsr_predict_gather_cuda(x, *args, sel)
+    _within(g, bsr_ref.bsr_predict_gather(x, *args, sel),
+            bsr_ref.bsr_predict_gather(x.abs(), *absargs, sel))
+    assert bool((g[:, bl:2 * bl] == 0).all())     # row block 0 is empty
+    gen = torch.Generator(device="cpu").manual_seed(n)
+    B = max(1, R // 2)
+    sel_pq = torch.sort(torch.stack([torch.randperm(R, generator=gen)[:B]
+                                     for _ in range(n)]), dim=1)[0]
+    sel_pq = sel_pq.to(device=cuda, dtype=torch.int32).contiguous()
+    pq = bsr_ops.bsr_predict_gather_pq_cuda(x, *args, sel_pq)
+    _within(pq, bsr_ref.bsr_predict_gather_pq(x, *args, sel_pq),
+            bsr_ref.bsr_predict_gather_pq(x.abs(), *absargs, sel_pq))
+    for q in range(min(n, 3)):
+        one = bsr_ops.bsr_predict_gather_pq_cuda(x[q:q + 1].contiguous(),
+                                                 *args, sel_pq[q:q + 1])
+        assert torch.equal(one, bsr_ops.bsr_predict_gather_cuda(
+            x[q:q + 1].contiguous(), *args, sel_pq[q].contiguous()))
+
+
+def test_gather_kernels_on_the_sentinel_write_zeros(cuda):
+    model = to_block_sparse(np.zeros((200, 300), np.float32), (128, 128),
+                            device=cuda)
+    q = quantize_block_sparse(model)
+    x = _x(5, model.shape[1], 0, cuda)
+    sel = torch.tensor([1, 0], dtype=torch.int32, device=cuda)
+    args = (model.block_cols, model.row_ptr)
+    for out in (bsr_ops.bsr_predict_gather_cuda(x, model.blocks, *args, sel),
+                bsr_ops.bsr_predict_int8_cuda(x, q.blocks, q.scales, *args,
+                                              2),
+                bsr_ops.bsr_predict_gather_int8_cuda(x, q.blocks, q.scales,
+                                                     *args, sel),
+                bsr_ops.bsr_predict_gather_pq_cuda(
+                    x, model.blocks, *args,
+                    sel.repeat(5, 1).contiguous())):
+        torch.cuda.synchronize()
+        assert bool((out == 0).all())
+
+
+def test_new_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    model = _model(256, 256, 0.5, (128, 128), seed=1, device=cuda)
+    q = quantize_block_sparse(model)
+    x = _x(4, 256, 0, cuda)
+    sel = torch.tensor([0, 1], dtype=torch.int32, device=cuda)
+    cases = [
+        lambda: bsr_ops.bsr_predict_int8_cuda(x, q.blocks.float(), q.scales,
+                                              q.block_cols, q.row_ptr, 2),
+        lambda: bsr_ops.bsr_predict_int8_cuda(x, q.blocks, q.scales[:-1],
+                                              q.block_cols, q.row_ptr, 2),
+        lambda: bsr_ops.bsr_predict_gather_cuda(x, model.blocks,
+                                                model.block_cols,
+                                                model.row_ptr, sel.long()),
+        lambda: bsr_ops.bsr_predict_gather_int8_cuda(
+            x, q.blocks, q.scales, q.block_cols, q.row_ptr, sel.cpu()),
+        lambda: bsr_ops.bsr_predict_gather_pq_cuda(
+            x, model.blocks, model.block_cols, model.row_ptr, sel),
+    ]
+    for case in cases:
+        with pytest.raises(ValueError):
+            case()
+    small = _model(64, 64, 1.0, (16, 8), seed=2, device=cuda)   # bd = 8
+    sq = quantize_block_sparse(small)
+    with pytest.raises(ValueError, match="% 16"):
+        bsr_ops.bsr_predict_int8_cuda(_x(2, 64, 0, cuda), sq.blocks,
+                                      sq.scales, sq.block_cols, sq.row_ptr,
+                                      4)
+
+
+@pytest.mark.parametrize("spec", [
+    dict(backend="int8"), dict(backend="bsr", int8=True),
+    dict(backend="shortlist", shortlist_blocks=3),
+    dict(backend="shortlist", shortlist_blocks=3, int8=True),
+    dict(backend="shortlist", shortlist_blocks=3, shortlist_per_query=True)])
+def test_shortlist_and_int8_engines_count_launches(cuda, tmp_path, spec):
+    """Each engine launches its kernel, and serves the plain path's ids on
+    every decisive row."""
+    from repro_torch.checkpoint.io import save_block_sparse
+    from repro_torch.specs import ServeSpec
+    from repro_torch.xmc_api import CheckpointHandle
+    model = _model(1000, 2000, 0.2, (128, 128), seed=5, device="cpu")
+    save_block_sparse(model, str(tmp_path), meta={"n_labels": 1000,
+                                                  "n_features": 2000})
+    fns = {"int8": bsr_ops.bsr_predict_int8_cuda,
+           "gather": bsr_ops.bsr_predict_gather_cuda,
+           "gather_int8": bsr_ops.bsr_predict_gather_int8_cuda,
+           "gather_pq": bsr_ops.bsr_predict_gather_pq_cuda}
+    want = ("gather_pq" if spec.get("shortlist_per_query") else
+            ("gather_int8" if spec.get("int8") else "gather")
+            if spec["backend"] == "shortlist" else "int8")
+    before = {k: f.launches for k, f in fns.items()}
+    engine = CheckpointHandle.open(str(tmp_path)).engine(
+        ServeSpec(k=5, buckets=(1, 8, 64), warmup=False, **spec))
+    x = _x(40, 2000, 9, "cpu").numpy()
+    got = engine.serve([x[:1], x[1:40]])
+    assert fns[want].launches > before[want]
+    assert all(fns[k].launches == before[k] for k in fns if k != want)
+    ids = np.concatenate([r.labels for r in got])
+    cpu = CheckpointHandle.open(str(tmp_path), device="cpu").engine(
+        ServeSpec(k=6, buckets=(1, 8, 64), warmup=False, **spec))
+    ref = cpu.serve([x[:1], x[1:40]])
+    v_r = np.concatenate([r.scores for r in ref])
+    i_r = np.concatenate([r.labels for r in ref])
+    rows = (v_r[:, 4] - v_r[:, 5]) > 1e-5
+    assert rows.sum() > 20
+    np.testing.assert_array_equal(ids[rows], i_r[rows, :5])
 
 
 def _train_inputs(L, N, D, seed, device, w_scale=1.0):

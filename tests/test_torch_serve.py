@@ -166,12 +166,14 @@ def test_warmup_runs_each_bucket_once_process_wide(ckpts):
 
 
 def test_unknown_backend_and_int8_raise(ckpts):
+    """An unknown kind raises; the four built-in kinds are registered, so
+    `shortlist` and `int8` serve; a request of the wrong width raises."""
     handle = CheckpointHandle.open(ckpts["plain"], device="cpu")
-    with pytest.raises(ValueError, match="unknown backend 'shortlist'"):
-        handle.engine(ServeSpec(backend="shortlist", warmup=False))
-    with pytest.raises(ValueError, match="int8"):
-        handle.engine(ServeSpec(int8=True, warmup=False))
-    assert xmc.available_backends() == ("bsr", "dense")
+    with pytest.raises(ValueError, match="unknown backend 'sharded'"):
+        handle.engine(ServeSpec(backend="sharded", warmup=False))
+    assert xmc.available_backends() == ("bsr", "dense", "int8", "shortlist")
+    assert handle.engine(ServeSpec(int8=True, warmup=False)).backend.name \
+        == "int8"
     engine = handle.engine(ServeSpec(k=K, buckets=BUCKETS, warmup=False))
     with pytest.raises(ValueError, match="feature dim"):
         engine.submit(np.zeros((1, 1023), np.float32))

@@ -347,12 +347,17 @@ def test_not_ported_parts_raise(data, tmp_path):
     with pytest.raises(NotImplementedError, match="Queue A item 6"):
         dismec.make_batch_solver(torch.zeros((4, 8)), dismec.DiSMECConfig(),
                                  shard_data=True)
-    for spec in (port_spec(reorder_labels=True),
-                 dataclasses.replace(port_spec(), serve=ServeSpec(
-                     shortlist_kind="learned"))):
-        with pytest.raises(NotImplementedError, match="Queue A item 4"):
-            fit(data.X_train, data.Y_train, spec, str(tmp_path / "x"),
-                device="cpu")
+    # reorder_labels and the learned coarse stage are ported; serving the
+    # result with int8 and a per-query selection narrower than the model
+    # needs the one BSR kernel left to port.
+    spec = dataclasses.replace(port_spec(reorder_labels=True), serve=ServeSpec(
+        backend="shortlist", shortlist_kind="learned", int8=True,
+        shortlist_per_query=True, shortlist_blocks=1, warmup=False))
+    handle = fit(data.X_train, data.Y_train, spec, str(tmp_path / "x"),
+                 device="cpu")
+    assert handle.result.complete
+    with pytest.raises(NotImplementedError, match="Queue B"):
+        handle.engine()
 
 
 def test_signs_and_balance_permutation_match_jax():
