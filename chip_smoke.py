@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py [--seed 0]      # from the root of a checkout
 
-Drives the port's serving and training paths at the full width of
-Wiki10-31K (L = 30,938 labels, D = 101,938 features, N = 14,146 training
-documents; Extreme Classification Repository, DiSMEC paper Table 1).
+Drives the port's serving, training, async-server and lifecycle paths at
+the full width of Wiki10-31K (L = 30,938 labels, D = 101,938 features,
+N = 14,146 training documents; Extreme Classification Repository, DiSMEC
+paper Table 1).
 Serving uses 128 x 128 blocks at 5% block density, weights drawn from the
 seed:
 
@@ -27,17 +28,20 @@ seed:
                run, and the served ids must equal the plain path's ids on
                every row whose k-th/(k+1)-th margin is decisive;
   4b. shortlist and int8 kernels — the int8 BSR, gathered BSR, gathered
-               int8 BSR and per-query gathered BSR kernels against their
-               plain versions on the same model (int8 from
-               `quantize_block_sparse`), at the selection the checkpoint's
-               centroid coarse stage gives at the default B = 31 of 242
-               row blocks, n = 1, 32, 256; the gathered kernels at a sorted
-               full selection equal the exhaustive ones and the per-query
-               kernel at n = 1 the shared one, bit for bit; empty row
-               blocks and the sentinel score exact zeros; timed like 3;
-  4c. serve: shortlist, shortlist per-query, shortlist int8, int8 — the
-               same checkpoint and requests through each of those
-               `ServeSpec`s: each configuration's kernel launched in its
+               int8 BSR, per-query gathered BSR and per-query gathered int8
+               BSR kernels against their plain versions on the same model
+               (int8 from `quantize_block_sparse`), at the selection the
+               checkpoint's centroid coarse stage gives at the default
+               B = 31 of 242 row blocks, n = 1, 32, 256; the gathered
+               kernels at a sorted full selection equal the exhaustive ones
+               and the per-query kernels at n = 1 the shared ones, bit for
+               bit, and the per-query int8 kernel over full lists the
+               exhaustive int8 one; empty row blocks and the sentinel
+               score exact zeros; timed like 3;
+  4c. serve: shortlist, shortlist per-query, shortlist int8, shortlist
+               int8 per-query, int8 — the same checkpoint and requests
+               through each of those `ServeSpec`s: each configuration's
+               kernel launched in its
                run, the served ids equal to its plain path's (the same
                selection, plain versions, a stable sort) on every decisive
                row, recall@5 against `bsr` and int8-vs-fp32 agreement
@@ -68,10 +72,43 @@ Then training, on the port's synthetic power-law data at Wiki10-31K width
                      the served ids equal to the plain path's on every
                      decisive row, and each configuration's kernels
                      launched.
+ 10. server        — the async request path: a `ModelRouter` over two
+                     `CheckpointHandle.server()`s of the serving
+                     checkpoint (`wiki_bsr` on `bsr`; `wiki_pq_int8` on
+                     `shortlist`, int8, per query, B = 31 of 242), each
+                     with a 2 ms launch deadline, 256 queued requests at
+                     most and two batches in flight; 300 open-loop Poisson
+                     requests at 100/s of 1-8 rows, routed at random;
+                     after request 150 `router.refresh` hot-swaps
+                     `wiki_bsr` onto the trained checkpoint, and the
+                     traffic goes on until 30 wiki_bsr requests came after
+                     the refresh returned; then 300 more requests with no
+                     swap, the control of what the swap costs the tail;
+                     then the swap window again, refreshing `wiki_bsr`
+                     back onto the serving checkpoint with each array
+                     copied to the card in one piece, the control of the
+                     16 MB pieces `refresh` copies the model in (the
+                     copies stall the serving threads while they run).
+                     Both swap windows run under `torch.profiler`
+                     and print what the trace shows (copies per stream,
+                     request-copy waits, kernel launch-to-start delay).
+                     Every accepted future resolves, every answer equals
+                     the plain path's ids under the model that served it
+                     on decisive rows, and `wiki_bsr`'s answers are a
+                     clean cut: old model, then new, in each swap window;
+ 11. sweep         — `lifecycle.sweep` on the training data's first 1,024
+                     labels: arms base, same and delta_0.05, two workers,
+                     the 512 held-out rows; `same` must be the base's
+                     fixed point, bit for bit;
+ 12. CLI           — `python -m repro_torch.launch.serve --xmc --server`
+                     with a `bsr` and a `shortlist` int8 model at the CLI's
+                     default sizes, sent SIGTERM once it offers load: it
+                     must drain the router and exit 143.
 
-The lines before the last are the kernels' JSON summary (all eight
-kernels), the training run's JSON summary and the card's name and power
-limit from nvidia-smi; the last line is `{"ok": true, "device": {...}}`.
+The lines before the last are the kernels' JSON summary (all nine
+kernels), the training, server and sweep JSON summaries and the card's
+name and power limit from nvidia-smi; the last line is `{"ok": true,
+"device": {...}}`.
 Any failure exits non-zero before it. Without a CUDA card, or outside a
 checkout, it exits non-zero at once.
 """
@@ -81,9 +118,11 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -117,11 +156,30 @@ SERVE_CONFIGS = (
                                  shortlist_per_query=True), "bsr_gather_pq"),
     ("shortlist int8", dict(backend="shortlist", int8=True),
      "bsr_gather_int8"),
+    ("shortlist int8 per-query", dict(backend="shortlist", int8=True,
+                                      shortlist_per_query=True),
+     "bsr_gather_pq_int8"),
     ("int8", dict(backend="int8"), "bsr_predict_int8"),
 )
 # Phase 9: the trained checkpoint through these.
 TRAINED_CONFIGS = (("bsr", dict(backend="bsr"), "bsr_predict"),) + \
     SERVE_CONFIGS[:2]
+# Phase 10: the async server under open-loop Poisson traffic.
+SERVER_REQUESTS, SERVER_RATE, SERVER_SWAP_AFTER = 300, 100.0, 150
+SERVER_MAX_ROWS = 8
+# Traffic goes on past request 300 until the refresh has returned and
+# this many wiki_bsr requests were offered after it (at most 1,200 in
+# all): loading the trained checkpoint takes about 3.5 s and the serving
+# one about 6.5 s, longer than the 1.5 s of traffic left after request
+# 150.
+SERVER_TAIL, SERVER_MAX = 30, 1_200
+SERVER_SPEC = dict(max_batch_delay_ms=2.0, max_queue=256)
+SERVER_MODELS = (("wiki_bsr", dict(backend="bsr")),
+                 ("wiki_pq_int8", dict(backend="shortlist", int8=True,
+                                       shortlist_per_query=True)))
+# Phase 11: the sweep's arms over one full-width label batch.
+SWEEP_LABELS = 1_024
+SWEEP_ARMS = {"same": {}, "delta_0.05": {"delta": 0.05}}
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
@@ -335,7 +393,7 @@ def sparse_bsr(blocks, cols, crow, shape):
 
 
 def check_shortlist_int8(model, q, centroids, X, flush) -> dict:
-    """Kernels 4-7 against their plain versions on the serving model, at
+    """Kernels 4-8 against their plain versions on the serving model, at
     the selection the checkpoint's centroid coarse stage gives at the
     default B, at n = 1, 32, 256; the contracts bit for bit; exact zeros
     for an empty selected row block and for the sentinel; times beside
@@ -365,7 +423,8 @@ def check_shortlist_int8(model, q, centroids, X, flush) -> dict:
           "because both sum the same fp32 products in another order; the "
           "contracts bit for bit (torch.equal)")
     sweeps = {k: [] for k in ("bsr_predict_int8", "bsr_gather",
-                              "bsr_gather_int8", "bsr_gather_pq")}
+                              "bsr_gather_int8", "bsr_gather_pq",
+                              "bsr_gather_pq_int8")}
     for n in BSR_N:
         x = torch.nn.functional.pad(torch.from_numpy(X[:n]).cuda(),
                                     (0, Dp - N_FEATURES)).contiguous()
@@ -417,6 +476,16 @@ def check_shortlist_int8(model, q, centroids, X, flush) -> dict:
                 4 * nu * bl * bd + 4 * nu + 4 * n * B + common
                 + 4 * n * B * bl,
                 bsr_ops.gather_pq_flops(model, sel_pq)),
+            "bsr_gather_pq_int8": (
+                lambda: bsr_ops.bsr_predict_gather_pq_int8_cuda(
+                    x, qb, qs, cols, ptr, sel_pq),
+                lambda: bsr_ref.bsr_predict_gather_pq_int8(x, qb, qs, cols,
+                                                           ptr, sel_pq),
+                lambda: bsr_ref.bsr_predict_gather_pq_int8(
+                    x.abs(), qabs, qs, cols, ptr, sel_pq),
+                None,
+                nu * bl * bd + 8 * nu + 4 * n * B + common + 4 * n * B * bl,
+                bsr_ops.gather_pq_flops(model, sel_pq)),
         }
         for name, (kernel, plain, magnitude, lib, n_bytes, n_ops) in \
                 cases.items():
@@ -429,15 +498,14 @@ def check_shortlist_int8(model, q, centroids, X, flush) -> dict:
                   f" max |diff| {err:.3e}")
             del got, want, mag
             ms = cuda_ms(kernel, 20, flush)
-            plain_ms = cuda_ms(plain, 3 if name == "bsr_gather_pq" else 5,
-                               flush)
+            plain_ms = cuda_ms(plain, 3 if "pq" in name else 5, flush)
             lib_ms = None if lib is None else cuda_ms(lambda: lib(x), 10,
                                                       flush)
             b_ms, b_by = bound(n_bytes, n_ops)
             sweeps[name].append(dict(
                 n=n, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                blocks_read=nu if name == "bsr_gather_pq" else
+                blocks_read=nu if "pq" in name else
                 ns if "gather" in name else nb))
             lib_txt = ("no library call" if lib_ms is None else
                        f"sparse BSR {lib_ms:.4f} ms")
@@ -445,7 +513,7 @@ def check_shortlist_int8(model, q, centroids, X, flush) -> dict:
                   f"{ms:.4f} ms  plain {plain_ms:.4f} ms  {lib_txt}  bound "
                   f"{b_ms:.4f} ms ({b_by}, {n_bytes / 1e6:.1f} MB, "
                   f"{n_ops / 1e9:.2f} GFLOP)", flush=True)
-        # Contracts (a), (b) and (c), bit for bit.
+        # Contracts (a) to (e), bit for bit.
         _need(torch.equal(bsr_ops.bsr_predict_gather_cuda(x, blocks, cols,
                                                           ptr, full),
                           bsr_ops.bsr_predict_cuda(x, blocks, cols, ptr, R)),
@@ -462,7 +530,19 @@ def check_shortlist_int8(model, q, centroids, X, flush) -> dict:
                 bsr_ops.bsr_predict_gather_cuda(xi, blocks, cols, ptr,
                                                 sel_pq[i].contiguous())),
                 f"(c) per-query at n=1 != shared at n=1 (row {i} of {n})")
-        print(f"   n={n:3d}: contracts (a), (b), (c) hold bit for bit; "
+            _need(torch.equal(
+                bsr_ops.bsr_predict_gather_pq_int8_cuda(xi, qb, qs, cols,
+                                                        ptr, sel_pq[i:i + 1]),
+                bsr_ops.bsr_predict_gather_int8_cuda(xi, qb, qs, cols, ptr,
+                                                     sel_pq[i].contiguous())),
+                f"(d) per-query int8 at n=1 != shared int8 at n=1 (row {i} "
+                f"of {n})")
+        _need(torch.equal(
+            bsr_ops.bsr_predict_gather_pq_int8_cuda(
+                x, qb, qs, cols, ptr, full.repeat(n, 1).contiguous()),
+            bsr_ops.bsr_predict_int8_cuda(x, qb, qs, cols, ptr, R)),
+            f"(e) per-query int8 over full lists != int8 at n={n}")
+        print(f"   n={n:3d}: contracts (a) to (e) hold bit for bit; "
               f"shared selection {ns} blocks, per-query union {nu} blocks",
               flush=True)
     # Row block 0 emptied (its packed blocks dropped) and the sentinel.
@@ -475,6 +555,9 @@ def check_shortlist_int8(model, q, centroids, X, flush) -> dict:
                                                  cols[p1:], e_ptr, e_sel),
             bsr_ops.bsr_predict_gather_pq_cuda(
                 x, blocks[p1:], cols[p1:], e_ptr,
+                e_sel.repeat(x.shape[0], 1).contiguous()),
+            bsr_ops.bsr_predict_gather_pq_int8_cuda(
+                x, qb[p1:], qs[p1:], cols[p1:], e_ptr,
                 e_sel.repeat(x.shape[0], 1).contiguous())]
     ref5 = bsr_ops.bsr_predict_gather_cuda(x, blocks, cols, ptr, e_sel[1:])
     torch.cuda.synchronize()
@@ -489,12 +572,14 @@ def check_shortlist_int8(model, q, centroids, X, flush) -> dict:
     outs = [bsr_ops.bsr_predict_int8_cuda(x, zq, zs, zi, zp, R),
             bsr_ops.bsr_predict_gather_cuda(x, zf, zi, zp, sel),
             bsr_ops.bsr_predict_gather_int8_cuda(x, zq, zs, zi, zp, sel),
-            bsr_ops.bsr_predict_gather_pq_cuda(x, zf, zi, zp, sel_pq)]
+            bsr_ops.bsr_predict_gather_pq_cuda(x, zf, zi, zp, sel_pq),
+            bsr_ops.bsr_predict_gather_pq_int8_cuda(x, zq, zs, zi, zp,
+                                                    sel_pq)]
     torch.cuda.synchronize()
     _need(all(bool((o == 0).all()) for o in outs),
           "the sentinel model does not score exact zeros")
     print("   an empty selected row block and the sentinel model score "
-          "exact zeros in all four kernels")
+          "exact zeros in all five kernels")
     return dict(B=B, R=R, sweeps=sweeps)
 
 
@@ -508,6 +593,7 @@ def serving_kernels() -> dict:
             "bsr_gather": bsr_ops.bsr_predict_gather_cuda,
             "bsr_gather_int8": bsr_ops.bsr_predict_gather_int8_cuda,
             "bsr_gather_pq": bsr_ops.bsr_predict_gather_pq_cuda,
+            "bsr_gather_pq_int8": bsr_ops.bsr_predict_gather_pq_int8_cuda,
             "blocked_topk": topk_ops.blocked_topk_cuda}
 
 
@@ -523,11 +609,15 @@ def plain_backend_topk(be, x: torch.Tensor):
     xp = torch.nn.functional.pad(x, (0, Dp - x.shape[1]))
     if be.name == "shortlist":
         sel = be._select(x)
-        if be.per_query:
+        q = be.int8_model
+        if be.per_query and be.int8:
+            s = bsr_ref.bsr_predict_gather_pq_int8(xp, q.blocks, q.scales,
+                                                   q.block_cols, q.row_ptr,
+                                                   sel)
+        elif be.per_query:
             s = bsr_ref.bsr_predict_gather_pq(xp, m.blocks, m.block_cols,
                                               m.row_ptr, sel)
         elif be.int8:
-            q = be.int8_model
             s = bsr_ref.bsr_predict_gather_int8(xp, q.blocks, q.scales,
                                                 q.block_cols, q.row_ptr, sel)
         else:
@@ -993,6 +1083,448 @@ def serve_trained(ckpt: str, data, margin_tol: float) -> dict:
     return out
 
 
+def decisive_rows(engine, x: np.ndarray, margin_tol: float):
+    """The plain path of request x under `engine` (its ids, K + 1 wide)
+    and the rows whose answer cannot move with the micro-batch it shares:
+    the k-th/(k+1)-th margin above `margin_tol` and, for a per-query
+    shortlist, the B-th/(B+1)-th coarse scores more than 1e-5 of the
+    row's largest coarse score apart (the server's coarse product runs on
+    another batch shape than the plain path's)."""
+    v, ids = plain_engine_topk(engine, x)
+    rows = (v[:, K - 1] - v[:, K]) > margin_tol
+    be = engine.backend
+    if be.name == "shortlist" and be.per_query:
+        from repro_torch.serve.xmc import _coarse_input
+        xd = torch.from_numpy(x).cuda()
+        coarse = _coarse_input(xd, be._centroids.shape[1]) @ be._centroids.T
+        c = torch.sort(coarse, dim=1, descending=True)[0].cpu().numpy()
+        scale = np.abs(c).max(axis=1)
+        rows &= (c[:, be.B - 1] - c[:, be.B]) > 1e-5 * scale
+    return ids, rows
+
+
+def explain_row(engine, x: np.ndarray, r: int, res) -> None:
+    """Print what a served per-query int8 answer that differs from the
+    plain path on a decisive row is made of: the plain ids and values,
+    the request's own coarse margin at B, whether the served labels lie in
+    the plain selection, and the exhaustive plain scores of the served
+    labels next to the served scores."""
+    from repro_torch.kernels.bsr_predict import ref as bsr_ref
+    from repro_torch.serve.xmc import _coarse_input
+    be = engine.backend
+    q, bl = be.int8_model, be.model.block_shape[0]
+    v, ids = plain_engine_topk(engine, x)
+    xd = torch.from_numpy(x).cuda()
+    coarse = _coarse_input(xd, be._centroids.shape[1]) @ be._centroids.T
+    c = torch.sort(coarse, dim=1, descending=True)[0].cpu().numpy()[r]
+    sel = be._select(xd).cpu().numpy()[r]
+    xp = torch.nn.functional.pad(xd[r:r + 1], (0, be.model.shape[1]
+                                               - xd.shape[1]))
+    full = bsr_ref.bsr_predict_int8(xp, q.blocks, q.scales, q.block_rows,
+                                    q.block_cols, be.model.shape[0] // bl)
+    true = full[0, torch.from_numpy(res.labels[r]).long().cuda()]
+    print(f"   MISMATCH request {res.request_id} row {r}: served "
+          f"{res.labels[r].tolist()} {res.scores[r].tolist()}; plain "
+          f"{ids[r].tolist()} {v[r].tolist()}; coarse B-gap / max "
+          f"{(c[be.B - 1] - c[be.B]) / np.abs(c).max():.3e}; served "
+          f"blocks in the plain selection "
+          f"{np.isin(res.labels[r] // bl, sel).tolist()}; exhaustive "
+          f"plain scores of the served labels {true.tolist()}",
+          flush=True)
+
+
+def offer(router, requests, names, gaps, on_submit=None) -> list:
+    """Submit requests open-loop on the Poisson schedule `gaps`, each to
+    its model; `on_submit(i, name)` after each, returning True to stop."""
+    futures = []
+    t_next = time.monotonic()
+    for i, (x, name, gap) in enumerate(zip(requests, names, gaps)):
+        t_next += gap
+        now = time.monotonic()
+        if t_next > now:
+            time.sleep(t_next - now)
+        futures.append(router.submit(name, x))
+        if on_submit is not None and on_submit(i, name):
+            break
+    return futures
+
+
+def check_answers(router, requests, names, results, bsr_engines,
+                  margin_tol: float):
+    """Every answer against the plain path of the model that served it,
+    on decisive rows: `wiki_pq_int8`'s one engine; for `wiki_bsr`, the
+    one of `bsr_engines` ({tag: engine}) whose plain ids it has, which
+    must be exactly one. Returns (wiki_bsr's tags in submission order,
+    decisive rows, rows that agree)."""
+    kinds, decisive, agree = [], 0, 0
+    for x, name, res in zip(requests, names, results):
+        _need(res.labels.shape == (x.shape[0], K)
+              and np.isfinite(res.scores).all(),
+              f"{name}: malformed answer to request {res.request_id}")
+        if name == "wiki_pq_int8":
+            ids, rows = decisive_rows(router[name].engine, x, margin_tol)
+            decisive += int(rows.sum())
+            same = (res.labels == ids[:, :K]).all(1)
+            agree += int(same[rows].sum())
+            for r in np.flatnonzero(rows & ~same):
+                explain_row(router[name].engine, x, int(r), res)
+            continue
+        match = []          # a model whose plain ids the answer has
+        for tag, eng in bsr_engines.items():
+            ids, rows = decisive_rows(eng, x, margin_tol)
+            same = res.labels == ids[:, :K]
+            if same[rows].all() and (rows.any() or same.all()):
+                match.append((tag, int(rows.sum())))
+        _need(len(match) == 1, f"wiki_bsr request {res.request_id}: the "
+              f"answer matches the plain path of {match or 'no'} model")
+        kinds.append(match[0][0])
+        decisive += match[0][1]
+        agree += match[0][1]
+    _need(decisive > 0 and agree == decisive,
+          f"served ids differ from the plain path on {decisive - agree} of "
+          f"{decisive} decisive rows")
+    return kinds, decisive, agree
+
+
+def window_stats(router, names, wall: float, before: dict) -> dict:
+    """Per model, what the servers recorded since `before` (their counters
+    then; latency and queue wait are reset at the start of a window)."""
+    stats = {}
+    for name, _ in SERVER_MODELS:
+        st = router[name].stats()
+        lat, qw = st["latency"], st["queue_wait"]
+        done = st["completed"] - before[name]["completed"]
+        swap = router[name].last_swap or {}
+        stats[name] = dict(
+            completed=done, rejected=st["rejected"] - before[name]["rejected"],
+            batches=st["batches"] - before[name]["batches"],
+            swaps=st["swaps"] - before[name]["swaps"],
+            p50_ms=lat["p50_ms"], p99_ms=lat["p99_ms"],
+            queue_wait_p50_ms=qw["p50_ms"], queue_wait_p99_ms=qw["p99_ms"],
+            goodput_rps=done / wall,
+            warm_ms=swap.get("warm_ms"), flip_ms=swap.get("flip_ms"))
+        _need(done == names.count(name) and lat["count"] == done,
+              f"{name}: {done} of {names.count(name)} resolved")
+        print(f"   {name}: completed {done}, rejected "
+              f"{stats[name]['rejected']}, batches "
+              f"{stats[name]['batches']}, swaps {stats[name]['swaps']}; "
+              f"latency p50 {lat['p50_ms']:.3f} ms, p99 {lat['p99_ms']:.3f}"
+              f" ms; queue wait p50 {qw['p50_ms']:.3f} ms, p99 "
+              f"{qw['p99_ms']:.3f} ms; goodput {done / wall:.2f} req/s" +
+              (f"; last swap warm {swap['warm_ms']:.3f} ms, flip "
+               f"{swap['flip_ms']:.4f} ms" if stats[name]["swaps"] else ""),
+              flush=True)
+    return stats
+
+
+def trace_summary(path: str) -> dict:
+    """What a `torch.profiler` chrome trace of a swap window shows, per
+    stream: the host-to-card copies (count, MB, device ms) and the
+    kernels' launch-to-start delay; the longest a host thread waited in a
+    copy call of under 32 MB (the dispatchers' request copies, pageable
+    and so synchronous); and the runtime calls with the longest single
+    call. Returns {} when the trace holds no device activity."""
+    events = json.loads(Path(path).read_text())["traceEvents"]
+    runtime = {e["args"]["correlation"]: e for e in events
+               if e.get("cat") in ("cuda_runtime", "cuda_driver")
+               and "correlation" in e.get("args", {})}
+    copies, delays, waits = {}, {}, []
+    for e in events:
+        if e.get("cat") not in ("kernel", "gpu_memcpy"):
+            continue
+        a = e.get("args", {})
+        stream = str(a.get("stream"))
+        call = runtime.get(a.get("correlation"))
+        if e["cat"] == "kernel":
+            if call is not None:
+                delays.setdefault(stream, []).append(
+                    (e["ts"] - call["ts"]) / 1e3)
+        elif "HtoD" in e.get("name", ""):
+            c = copies.setdefault(stream, dict(count=0, mb=0.0, ms=0.0))
+            c["count"] += 1
+            c["mb"] += a.get("bytes", 0) / 1e6
+            c["ms"] += e.get("dur", 0) / 1e3
+            if call is not None and a.get("bytes", 0) < 32e6:
+                waits.append(call.get("dur", 0) / 1e3)
+    if not copies and not delays:
+        return {}
+
+    def spread(v):
+        return dict(count=len(v), p50=float(np.percentile(v, 50)),
+                    p99=float(np.percentile(v, 99)), max=max(v)) \
+            if v else None
+
+    longest = {}
+    for e in runtime.values():
+        longest[e["name"]] = max(longest.get(e["name"], 0.0),
+                                 e.get("dur", 0) / 1e3)
+    return dict(
+        htod_by_stream=copies, small_copy_wait_ms=spread(waits),
+        kernel_delay_ms_by_stream={k: spread(v) for k, v in delays.items()},
+        longest_call_ms=dict(sorted(longest.items(),
+                                    key=lambda kv: -kv[1])[:5]))
+
+
+class InterpreterProbe:
+    """A thread that sleeps 1 ms at a time and records how late it wakes:
+    waking means taking the interpreter lock back, so the lateness is how
+    long another thread kept the lock from a thread that wanted it (the
+    dispatchers want it between every two calls into torch)."""
+
+    def __init__(self):
+        self.late_ms: list[float] = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        while not self._stop.is_set():
+            t = time.perf_counter()
+            time.sleep(1e-3)
+            self.late_ms.append((time.perf_counter() - t) * 1e3 - 1.0)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+    def summary(self) -> dict:
+        v = np.asarray(self.late_ms)
+        return dict(wakes=int(v.size), p50=float(np.percentile(v, 50)),
+                    p99=float(np.percentile(v, 99)), max=float(v.max()),
+                    over_10ms=int((v > 10).sum()))
+
+
+def serve_async(serve_ckpt: str, trained_ckpt: str, rng, perm,
+                margin_tol: float) -> dict:
+    """Phase 10: the async request path on the main path. Two servers
+    behind a `ModelRouter` under open-loop Poisson traffic, in three
+    windows: "swap", a hot swap of `wiki_bsr` onto the trained checkpoint
+    by `router.refresh` after request 150 (the model goes to the card in
+    `COPY_CHUNK_BYTES` pieces); "steady", the same traffic with no swap,
+    the control of what a swap costs the tail; and "swap_whole_copies",
+    a refresh of `wiki_bsr` back onto the serving checkpoint with each
+    array copied in one piece, the control of the pieces. Both swap
+    windows run under `torch.profiler` (`trace_summary`), and every
+    window under an `InterpreterProbe`. The launch counts are set to 0 just before the
+    router is built and read after it drained."""
+    import repro_torch.device as device_mod
+    from repro_torch.serve.batching import LatencyStats
+    from repro_torch.serve.server import ModelRouter, Rejected
+    from repro_torch.specs import ServeSpec
+    from repro_torch.xmc_api import CheckpointHandle
+    from torch.profiler import ProfilerActivity, profile
+    n_all = 2 * SERVER_MAX + SERVER_REQUESTS
+    sizes = rng.integers(1, SERVER_MAX_ROWS + 1, size=n_all)
+    requests = [tfidf_rows(rng, int(n), perm) for n in sizes]
+    names = [SERVER_MODELS[int(i)][0]
+             for i in rng.integers(len(SERVER_MODELS), size=n_all)]
+    gaps = rng.exponential(1.0 / SERVER_RATE, size=n_all)
+    kernels = serving_kernels()
+    torch.cuda.empty_cache()
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    router = ModelRouter()
+    handle = CheckpointHandle.open(serve_ckpt)
+    for name, overrides in SERVER_MODELS:
+        router.add(name, handle.server(handle.spec.serve.replace(
+            **SERVER_SPEC, **overrides), name=name))
+    t_load = time.perf_counter() - t0
+    _need(router["wiki_pq_int8"].engine.backend.per_query
+          and router["wiki_pq_int8"].engine.backend.int8,
+          "wiki_pq_int8 does not serve int8 per query")
+    bsr = ServeSpec(backend="bsr")
+
+    def refresh_in_pieces():
+        return router.refresh("wiki_bsr", trained_ckpt, serve_override=bsr)
+
+    def refresh_whole():            # the control: one copy per array
+        chunk = device_mod.COPY_CHUNK_BYTES
+        device_mod.COPY_CHUNK_BYTES = 1 << 62
+        try:
+            return router.refresh("wiki_bsr", serve_ckpt,
+                                  serve_override=bsr)
+        finally:
+            device_mod.COPY_CHUNK_BYTES = chunk
+
+    # (window, swap or None, traced, its requests)
+    windows = (
+        ("swap", refresh_in_pieces, True, slice(0, SERVER_MAX)),
+        ("steady", None, False,
+         slice(SERVER_MAX, SERVER_MAX + SERVER_REQUESTS)),
+        ("swap_whole_copies", refresh_whole, True,
+         slice(SERVER_MAX + SERVER_REQUESTS, n_all)))
+    out = {}
+    with router, tempfile.TemporaryDirectory(dir=ROOT / "build") as tdir:
+        for window, swap, traced, part in windows:
+            reqs, nms, gps = requests[part], names[part], gaps[part]
+            before = {n: router[n].stats() for n, _ in SERVER_MODELS}
+            for n, _ in SERVER_MODELS:
+                router[n].latency = LatencyStats()
+                router[n].queue_wait = LatencyStats()
+            old = router["wiki_bsr"].engine
+            swap_out = {"after": 0}
+
+            def run_swap():
+                t = time.perf_counter()
+                try:
+                    swap_out["prev"] = swap()
+                except Exception as e:              # reported below
+                    swap_out["error"] = e
+                swap_out["s"] = time.perf_counter() - t
+
+            swapper = threading.Thread(target=run_swap)
+
+            def on_submit(i, name):
+                if "s" in swap_out and name == "wiki_bsr":
+                    swap_out["after"] += 1
+                if i + 1 == SERVER_SWAP_AFTER:
+                    swapper.start()
+                return (i + 1 >= SERVER_REQUESTS
+                        and swap_out["after"] >= SERVER_TAIL)
+
+            with (profile(activities=[ProfilerActivity.CUDA]) if traced
+                  else contextlib.nullcontext()) as prof, \
+                    InterpreterProbe() as probe:
+                t_start = time.monotonic()
+                futures = offer(router, reqs, nms, gps,
+                                on_submit if swap else None)
+                if swap:
+                    swapper.join()
+                results = [f.result(120) for f in futures]
+                wall = time.monotonic() - t_start
+            reqs, nms = reqs[:len(futures)], nms[:len(futures)]
+            _need(not any(isinstance(r, Rejected) for r in results),
+                  "a request was rejected below the admission bound")
+            new = router["wiki_bsr"].engine
+            if swap:
+                _need(swap_out.get("prev") is old and new is not old
+                      and router["wiki_bsr"].counters["swaps"]
+                      == before["wiki_bsr"]["swaps"] + 1,
+                      f"the hot swap of window '{window}' did not happen: "
+                      f"{swap_out.get('error')!r}")
+            kinds, decisive, agree = check_answers(
+                router, reqs, nms, results,
+                {"old": old, "new": new} if swap else
+                {"old": router["wiki_bsr"].previous_engine, "new": new},
+                margin_tol)
+            first_new = kinds.index("new") if "new" in kinds else len(kinds)
+            cut = "".join(k[0] for k in kinds)
+            _need(all(k == "new" for k in kinds[first_new:])
+                  and (0 < first_new < len(kinds) if swap
+                       else first_new == 0),
+                  f"wiki_bsr's answers are not a clean cut (o: old, n: "
+                  f"new): {cut}")
+            print(f"   window '{window}': {len(futures)} requests at "
+                  f"{SERVER_RATE:.0f}/s offered and answered in {wall:.2f} "
+                  f"s; wiki_bsr answered {kinds.count('old')} on the old "
+                  f"model, then {kinds.count('new')} on the new; served "
+                  f"ids == plain ids on {agree}/{decisive} decisive rows" +
+                  (f"; the swap took {swap_out['s']:.2f} s" if swap else ""),
+                  flush=True)
+            out[window] = dict(
+                models=window_stats(router, nms, wall, before),
+                requests=len(futures), wall_s=wall,
+                old_answers=kinds.count("old"),
+                new_answers=kinds.count("new"), agree=agree,
+                decisive=decisive, refresh_s=swap_out.get("s"),
+                interpreter_late_ms=probe.summary())
+            print(f"   window '{window}': a 1 ms sleep woke late by "
+                  f"{json.dumps(out[window]['interpreter_late_ms'])} ms",
+                  flush=True)
+            if traced:
+                path = os.path.join(tdir, f"{window}.json")
+                prof.export_chrome_trace(path)
+                tr = out[window]["trace"] = trace_summary(path)
+                print(f"   window '{window}' trace: " + (json.dumps(tr) if tr
+                      else "no device activity (not measured)"), flush=True)
+    launches = {k: fn.launches for k, fn in kernels.items() if fn.launches}
+    _need(all(launches.get(k, 0) > 0 for k in
+              ("bsr_predict", "bsr_gather_pq_int8", "blocked_topk")),
+          f"a kernel of the server path never launched: {launches}")
+    print(f"   set-up (two servers over the serving checkpoint) "
+          f"{t_load:.1f} s; launches {launches}", flush=True)
+    return dict(out, setup_s=t_load, launches=launches)
+
+
+def run_sweep(data, out_root: str) -> dict:
+    """Phase 11: `lifecycle.sweep` on the card over the training data's
+    first SWEEP_LABELS labels (one full-width batch per arm)."""
+    from repro_torch.lifecycle import sweep
+    from repro_torch.specs import (ScheduleSpec, ServeSpec, SolverSpec,
+                                   SweepPolicy)
+    from repro_torch.xmc_api import XMCSpec
+    spec = XMCSpec(solver=SolverSpec(C=1.0, delta=0.01, eps=0.01,
+                                     max_newton=MAX_NEWTON, max_cg=MAX_CG,
+                                     ops="pallas"),
+                   schedule=ScheduleSpec(label_batch=TRAIN_BATCH),
+                   serve=ServeSpec(backend="bsr", k=K))
+    Y = np.ascontiguousarray(data.Y_train[:, :SWEEP_LABELS])
+    Yh = np.ascontiguousarray(data.Y_test[:, :SWEEP_LABELS])
+    t0 = time.perf_counter()
+    report = sweep(data.X_train, Y, spec, SWEEP_ARMS, out_root, workers=2,
+                   holdout=(data.X_test, Yh), eval_ks=(1, 5),
+                   policy=SweepPolicy(kind="max_precision", metric="P@1"))
+    wall = time.perf_counter() - t0
+    rows = []
+    for a in report.arms:
+        rows.append(dict(name=a.name, delta=a.delta, nnz=a.nnz,
+                         model_mb=a.model_mb, int8_mb=a.int8_mb,
+                         p_at_1=a.metrics["P@1"], p_at_5=a.metrics["P@5"],
+                         train_s=a.train_s, fixed_point=a.fixed_point))
+        print(f"   {a.name}: delta {a.delta}, nnz {a.nnz}, model "
+              f"{a.model_mb:.3f} MB, int8 {a.int8_mb:.3f} MB, P@1 "
+              f"{a.metrics['P@1']:.4f}, P@5 {a.metrics['P@5']:.4f}, train "
+              f"{a.train_s:.1f} s, fixed point {a.fixed_point}", flush=True)
+    print(f"   winner {report.winner} (max P@1); sweep wall {wall:.1f} s",
+          flush=True)
+    _need(report.arm("same").fixed_point is True,
+          "the unchanged arm is not the base's fixed point")
+    return dict(arms=rows, winner=report.winner, wall_s=wall)
+
+
+def run_cli(ckpt_root: str) -> dict:
+    """Phase 12: the serving CLI's server mode on the card, sent SIGTERM
+    once it offers load; it must drain the router and exit 143."""
+    import signal
+    ckpt = str(Path(ckpt_root) / "cli_ckpt")
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--xmc",
+           "--server", "--model", f"a={ckpt},backend=bsr", "--model",
+           f"b={ckpt},backend=shortlist,int8=1", "--requests", "2000",
+           "--rate", "20"]
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    lines = []
+    try:
+        for line in proc.stdout:
+            lines.append(line)
+            if "offering" in line:
+                break
+        t_up = time.perf_counter() - t0
+        time.sleep(1.0)
+        proc.send_signal(signal.SIGTERM)
+        rest, _ = proc.communicate(timeout=120)
+        lines.append(rest)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    out = "".join(lines)
+    for line in out.splitlines():
+        if line.startswith("[server]"):
+            print(f"   {line}")
+    _need(proc.returncode == 128 + signal.SIGTERM and "router drained" in out,
+          f"the CLI exited {proc.returncode} without draining:\n{out}")
+    print(f"   exit {proc.returncode} after SIGTERM; up and offering load "
+          f"{t_up:.1f} s after the start", flush=True)
+    return dict(returncode=proc.returncode, up_s=t_up)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1032,6 +1564,8 @@ def main() -> None:
     perm = rng.permutation(N_FEATURES)
     build_dir = ROOT / "build"
     build_dir.mkdir(exist_ok=True)
+    # The serving checkpoint stays until the server phase: saving it again
+    # would take another 80 s.
     with tempfile.TemporaryDirectory(dir=build_dir) as ckpt:
         with phase("model: Wiki10-31K width, packed batch by batch"):
             t0 = time.perf_counter()
@@ -1089,46 +1623,58 @@ def main() -> None:
             torch.cuda.empty_cache()
 
         with phase("serve: shortlist, shortlist per-query, shortlist int8, "
-                   "int8"):
+                   "shortlist int8 per-query, int8"):
             served_cfg = serve_configs(ckpt, requests, max(1e-7, 10 * err),
                                        served["labels"])
         del model, requests, X
 
-    from repro_torch.data.xmc import make_xmc_dataset
-    with phase("train data: Wiki10-31K width"):
-        data = make_xmc_dataset(n_train=TRAIN_N, n_test=TEST_N,
-                                n_features=N_FEATURES,
-                                n_labels=TRAIN_LABELS, beta=TRAIN_BETA,
-                                seed=args.seed, name="wiki10_31k_width")
-        st = data.stats()
-        print(f"   X_train {data.X_train.shape} "
-              f"({data.X_train.nbytes / 1e9:.2f} GB fp32), feature density "
-              f"{st['feat_density']:.2e}, labels per row {st['ALpP']:.2f}, "
-              f"rows per label {st['APpL']:.2f}, tail labels (<= 5 rows) "
-              f"{st['tail_leq5']:.3f}", flush=True)
+        from repro_torch.data.xmc import make_xmc_dataset
+        with phase("train data: Wiki10-31K width"):
+            data = make_xmc_dataset(n_train=TRAIN_N, n_test=TEST_N,
+                                    n_features=N_FEATURES,
+                                    n_labels=TRAIN_LABELS, beta=TRAIN_BETA,
+                                    seed=args.seed, name="wiki10_31k_width")
+            st = data.stats()
+            print(f"   X_train {data.X_train.shape} "
+                  f"({data.X_train.nbytes / 1e9:.2f} GB fp32), feature "
+                  f"density {st['feat_density']:.2e}, labels per row "
+                  f"{st['ALpP']:.2f}, rows per label {st['APpL']:.2f}, tail "
+                  f"labels (<= 5 rows) {st['tail_leq5']:.3f}", flush=True)
 
-    with phase("train kernels vs plain versions (1,024, 14,146, 101,938)"):
-        flush = torch.empty(64 * 2**20, device="cuda")       # 256 MB
-        gen = torch.Generator(device="cuda").manual_seed(args.seed)
-        Xd = torch.from_numpy(data.X_train).cuda()
-        Sd = (2.0 * torch.from_numpy(
-            data.Y_train[:, :TRAIN_BATCH].T.astype(np.float32))
-            - 1.0).cuda().contiguous()
-        train_k = check_train_kernels(Xd, Sd, gen, flush)
-        del Sd, flush
-        torch.cuda.empty_cache()
+        with phase("train kernels vs plain versions "
+                   "(1,024, 14,146, 101,938)"):
+            flush = torch.empty(64 * 2**20, device="cuda")       # 256 MB
+            gen = torch.Generator(device="cuda").manual_seed(args.seed)
+            Xd = torch.from_numpy(data.X_train).cuda()
+            Sd = (2.0 * torch.from_numpy(
+                data.Y_train[:, :TRAIN_BATCH].T.astype(np.float32))
+                - 1.0).cuda().contiguous()
+            train_k = check_train_kernels(Xd, Sd, gen, flush)
+            del Sd, flush
+            torch.cuda.empty_cache()
 
-    with phase("TRON: kernel ops vs plain ops on the card"):
-        tron = check_tron(Xd, data.Y_train)
-        del Xd
-        torch.cuda.empty_cache()
+        with phase("TRON: kernel ops vs plain ops on the card"):
+            tron = check_tron(Xd, data.Y_train)
+            del Xd
+            torch.cuda.empty_cache()
 
-    with tempfile.TemporaryDirectory(dir=build_dir) as ckpt:
-        with phase("train: fit(X, Y, spec, dir) on the card"):
-            trained = train(data, ckpt, {k: v["ms"] for k, v in
-                                         train_k["times"].items()})
-        with phase("serve trained: bsr, shortlist, shortlist per-query"):
-            served_t = serve_trained(ckpt, data, max(1e-7, 10 * err))
+        with tempfile.TemporaryDirectory(dir=build_dir) as trained_ckpt:
+            with phase("train: fit(X, Y, spec, dir) on the card"):
+                trained = train(data, trained_ckpt,
+                            {k: v["ms"] for k, v in train_k["times"].items()})
+            with phase("serve trained: bsr, shortlist, shortlist per-query"):
+                served_t = serve_trained(trained_ckpt, data,
+                                         max(1e-7, 10 * err))
+            with phase("server: ModelRouter, Poisson load, hot swap"):
+                server = serve_async(ckpt, trained_ckpt, rng, perm,
+                                     max(1e-7, 10 * err))
+
+        with tempfile.TemporaryDirectory(dir=build_dir) as out_root:
+            with phase("sweep: lifecycle.sweep on the card"):
+                swept = run_sweep(data, out_root)
+            del data
+            with phase("CLI: launch.serve --xmc --server, SIGTERM"):
+                cli = run_cli(out_root)
 
     head = next(r for r in bsr["sweep"] if r["n"] == HEADLINE_N)
     kernels = [
@@ -1166,7 +1712,8 @@ def main() -> None:
             library="the two torch.matmul products, TF32 off", at=at))
     config_of = {kernel: name for name, _, kernel in SERVE_CONFIGS}
     for name, replaces in (("bsr_predict_int8", 70), ("bsr_gather", 122),
-                           ("bsr_gather_int8", 192), ("bsr_gather_pq", 256)):
+                           ("bsr_gather_int8", 192), ("bsr_gather_pq", 256),
+                           ("bsr_gather_pq_int8", 339)):
         sweep = sl["sweeps"][name]
         h = next(r for r in sweep if r["n"] == HEADLINE_N)
         kernels.append(dict(
@@ -1177,7 +1724,8 @@ def main() -> None:
             max_abs_err=max(r["max_abs_err"] for r in sweep), ms=h["ms"],
             plain_ms=h["plain_ms"], bound_ms=h["bound_ms"],
             bound_by=h["bound_by"], library_ms=h["library_ms"],
-            library=None if h["library_ms"] is None else
+            library="none: no single PyTorch call gives each query its own "
+            "gathered scores" if h["library_ms"] is None else
             "torch.sparse_bsr_tensor @ x.T over the " +
             ("dequantized " if "int8" in name else "") +
             ("selected blocks" if "gather" in name else "blocks"),
@@ -1189,6 +1737,7 @@ def main() -> None:
                                "request_64_ms")}, "serve_configs": served_cfg}))
     print(json.dumps({"train": {**trained, "tron": tron,
                                 "serve_trained": served_t}}))
+    print(json.dumps({"server": server, "sweep": swept, "cli": cli}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -35,7 +35,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.device import resolve_device, to_numpy
+from repro_torch.device import resolve_device, to_device, to_numpy
 
 try:
     import fcntl
@@ -843,8 +843,8 @@ def load_block_sparse_int8(directory: str, *, model=None, device=None):
                       if "blocks_int8" in data.files else None)
     if arrays is None or arrays[0].shape[0] != model.n_blocks:
         return quantize_block_sparse(model), meta
-    q, scales = (torch.from_numpy(np.ascontiguousarray(a)).to(model.device)
-                 for a in arrays)
+    q, scales = (to_device(torch.from_numpy(np.ascontiguousarray(a)),
+                           model.device) for a in arrays)
     return Int8BlockSparseModel(
         blocks=q, scales=scales, block_rows=model.block_rows,
         block_cols=model.block_cols, row_ptr=model.row_ptr,

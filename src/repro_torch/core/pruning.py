@@ -18,7 +18,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.device import resolve_device, to_numpy
+from repro_torch.device import resolve_device, to_device, to_numpy
 
 
 def prune(W: torch.Tensor, delta: float) -> torch.Tensor:
@@ -74,7 +74,7 @@ class BlockSparseModel:
     def to(self, device) -> "BlockSparseModel":
         """The same model with its arrays on `device`."""
         return dataclasses.replace(
-            self, blocks=self.blocks.to(device),
+            self, blocks=to_device(self.blocks, device),
             block_rows=self.block_rows.to(device),
             block_cols=self.block_cols.to(device),
             row_ptr=self.row_ptr.to(device))
@@ -171,7 +171,7 @@ class Int8BlockSparseModel:
     def to(self, device) -> "Int8BlockSparseModel":
         """The same model with its arrays on `device`."""
         return dataclasses.replace(
-            self, blocks=self.blocks.to(device),
+            self, blocks=to_device(self.blocks, device),
             scales=self.scales.to(device),
             block_rows=self.block_rows.to(device),
             block_cols=self.block_cols.to(device),
@@ -193,7 +193,7 @@ def quantize_block_sparse(model: BlockSparseModel) -> Int8BlockSparseModel:
     model's device; the coordinate tensors are shared, not copied."""
     q, scales = quantize_blocks(model.blocks)
     return Int8BlockSparseModel(
-        blocks=torch.from_numpy(q).to(model.device),
+        blocks=to_device(torch.from_numpy(q), model.device),
         scales=torch.from_numpy(scales).to(model.device),
         block_rows=model.block_rows, block_cols=model.block_cols,
         row_ptr=model.row_ptr, shape=model.shape,

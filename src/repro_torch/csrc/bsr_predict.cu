@@ -1,5 +1,5 @@
 // Block-sparse (BSR) predict for Hopper: scores = x @ W_pruned^T over the
-// packed surviving blocks of a Delta-pruned DiSMEC model, in five variants
+// packed surviving blocks of a Delta-pruned DiSMEC model, in six variants
 // of one loop (weights fp32 or int8 with per-block scales; every row block,
 // a shared selection of row blocks, or each query's own selection).
 //
@@ -9,6 +9,7 @@
 //   bsr_gather_f32         `_bsr_gather_kernel`        (sel (B,), fp32)
 //   bsr_gather_int8        `_bsr_gather_int8_kernel`   (sel (B,), int8)
 //   bsr_gather_pq_f32      `_bsr_gather_pq_kernel`     (sel (n, B), fp32)
+//   bsr_gather_pq_int8     `_bsr_gather_pq_int8_kernel` (sel (n, B), int8)
 // Those walk the packed blocks in order on one core (a static grid whose
 // padding steps are clamped and gated off) and keep a row's (n, bl) output
 // tile resident across the row's blocks. Here blocks run in parallel and in
@@ -26,12 +27,13 @@
 // features at a time in ascending order, whatever TN is. So a sorted full
 // selection reproduces the exhaustive kernel bit for bit, and the per-query
 // kernel at n = 1 reproduces the shared one (both at TN = 8, rows 1-7
-// zero-filled). Int8 weights arrive through the same cp.async pipeline (16
-// features in one 16-byte piece) and are widened to fp32 in registers; each
-// block's fp32 partial dot is kept apart, multiplied by the block's scale
-// when the block ends and then added to the running output, with no FMA
-// contraction: o += scale * dot(x, q), as the TPU kernels compute it. No
-// atomics and no split-K: every sum runs in a fixed order.
+// zero-filled), in fp32 and in int8 alike. Int8 weights arrive through the
+// same cp.async pipeline (16 features in one 16-byte piece) and are
+// widened to fp32 in registers; each block's fp32 partial dot is kept
+// apart, multiplied by the block's scale when the block ends and then
+// added to the running output, with no FMA contraction: o += scale *
+// dot(x, q), as the TPU kernels compute it. No atomics and no split-K:
+// every sum runs in a fixed order.
 //
 // What bounds it on an H100: at serving batch sizes (n <= 32) the weight
 // stream, every packed block it visits read once (632 MB fp32 at Wiki10-31K
@@ -383,6 +385,18 @@ extern "C" int bsr_gather_pq_f32(const float* x, const float* blocks,
   return run<float, kPerQuery>(x, blocks, nullptr, block_cols, row_ptr, sel,
                                out, n, Dp, n_row_blocks, B, bl, bd, device,
                                stream);
+}
+
+// As bsr_gather_pq_f32 over int8 blocks with fp32 per-block scales (nb,).
+extern "C" int bsr_gather_pq_int8(const float* x, const int8_t* blocks,
+                                  const float* scales, const int* block_cols,
+                                  const int* row_ptr, const int* sel,
+                                  float* out, int n, int Dp,
+                                  int n_row_blocks, int B, int bl, int bd,
+                                  int device, void* stream) {
+  return run<int8_t, kPerQuery>(x, blocks, scales, block_cols, row_ptr, sel,
+                                out, n, Dp, n_row_blocks, B, bl, bd, device,
+                                stream);
 }
 
 extern "C" const char* kernel_error_string(int code) {

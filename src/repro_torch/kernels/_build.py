@@ -12,7 +12,13 @@ shared library with a plain C interface:
 or header is rebuilt at its next use. `build()` starts one nvcc per
 missing library, all at once, and raises with nvcc's output when any of
 them fails; its output (the `-Xptxas -v` register and shared-memory lines
-among it) is kept in `BUILD_LOGS`. Nothing is built or loaded when this module is imported.
+among it) is kept in `BUILD_LOGS`. Nothing is built or loaded when this
+module is imported.
+
+Builds and loads are serialized by one lock, so threads that reach an
+unbuilt kernel at once (a server's dispatcher and a `swap` warming a new
+engine, or a sweep's arms) start one nvcc and load one library per name;
+each temporary output file is named by process and thread.
 
 Every C entry point returns `cudaGetLastError()` after its launch, and
 `check` raises when that is not 0: a refused launch never runs, and a
@@ -27,6 +33,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -39,6 +46,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: nvcc's output of the builds this process ran, by kernel name.
 BUILD_LOGS: dict[str, str] = {}
 _FUNCS: dict[tuple[str, str], ctypes._CFuncPtr] = {}
+_LIBS: dict[str, ctypes.CDLL] = {}
+_LOCK = threading.RLock()       # build() and the loads in function()
 
 
 def _nvcc() -> str:
@@ -78,46 +87,59 @@ def library_path(name: str) -> Path:
 
 def build(names=KERNELS) -> dict[str, Path]:
     """Compile every named kernel whose library is missing, all nvcc
-    processes at once; returns the library path of each name."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    running = {}
-    for name in names:
-        target = library_path(name)
-        if target.exists():
-            continue
-        tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        running[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                          stderr=subprocess.STDOUT,
-                                          text=True), tmp, target)
-    failed = []
-    for name, (proc, tmp, target) in running.items():
-        out, _ = proc.communicate()
-        BUILD_LOGS[name] = out
-        if proc.returncode == 0:
-            os.replace(tmp, target)
-        else:
-            failed.append(f"--- nvcc {name}.cu (exit {proc.returncode}):\n"
-                          f"{out}")
-    if failed:
-        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
-    return {name: library_path(name) for name in names}
+    processes at once; returns the library path of each name. One thread
+    builds at a time."""
+    with _LOCK:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        running = {}
+        for name in names:
+            target = library_path(name)
+            if target.exists():
+                continue
+            tmp = target.with_name(f"{target.name}.{os.getpid()}."
+                                   f"{threading.get_ident()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                   str(CSRC / f"{name}.cu")]
+            running[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                              stderr=subprocess.STDOUT,
+                                              text=True), tmp, target)
+        failed = []
+        for name, (proc, tmp, target) in running.items():
+            out, _ = proc.communicate()
+            BUILD_LOGS[name] = out
+            if proc.returncode == 0:
+                os.replace(tmp, target)
+            else:
+                failed.append(f"--- nvcc {name}.cu (exit "
+                              f"{proc.returncode}):\n{out}")
+        if failed:
+            raise RuntimeError("CUDA kernel build failed:\n"
+                               + "\n".join(failed))
+        return {name: library_path(name) for name in names}
 
 
 def function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
     """The C entry point `symbol` of kernel library `name`, built and
-    loaded at first use, returning an int (a `cudaError_t`)."""
+    loaded at first use (once per library, whatever the number of threads
+    asking), returning an int (a `cudaError_t`)."""
     key = (name, symbol)
     fn = _FUNCS.get(key)
-    if fn is None:
-        lib = ctypes.CDLL(str(build((name,))[name]))
-        lib.kernel_error_string.restype = ctypes.c_char_p
-        lib.kernel_error_string.argtypes = [ctypes.c_int]
-        fn = getattr(lib, symbol)
-        fn.restype = ctypes.c_int
-        fn.argtypes = list(argtypes)
-        fn.error_string = lib.kernel_error_string
-        _FUNCS[key] = fn
+    if fn is not None:
+        return fn
+    with _LOCK:
+        fn = _FUNCS.get(key)
+        if fn is None:
+            lib = _LIBS.get(name)
+            if lib is None:
+                lib = ctypes.CDLL(str(build((name,))[name]))
+                lib.kernel_error_string.restype = ctypes.c_char_p
+                lib.kernel_error_string.argtypes = [ctypes.c_int]
+                _LIBS[name] = lib
+            fn = getattr(lib, symbol)
+            fn.restype = ctypes.c_int
+            fn.argtypes = list(argtypes)
+            fn.error_string = lib.kernel_error_string
+            _FUNCS[key] = fn
     return fn
 
 

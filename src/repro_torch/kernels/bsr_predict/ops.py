@@ -6,8 +6,8 @@ to the blocked top-k (kernels/topk) as the serving entry point of
 over the int8 artifact (`Int8Backend`). The gathered forms score only a
 selection of row blocks, the fine stage of `ShortlistBackend`: shared by
 the micro-batch, `sel` (B,) -> (n, B * bl) (`bsr_predict_gather[_int8]`),
-or each query's own, `sel` (n, B) (`bsr_predict_gather_pq`); their `_topk`
-forms translate the candidates back to label ids. A sorted selection of
+or each query's own, `sel` (n, B) (`bsr_predict_gather_pq[_int8]`); their
+`_topk` forms translate the candidates back to label ids. A sorted selection of
 every row block reproduces the exhaustive path bit for bit.
 
 Each `*_cuda` function launches one entry point of csrc/bsr_predict.cu and
@@ -38,6 +38,7 @@ _ARGTYPES = {
     "bsr_gather_f32": [_P] * 6 + [_I] * 7 + [_P],
     "bsr_gather_int8": [_P] * 7 + [_I] * 7 + [_P],
     "bsr_gather_pq_f32": [_P] * 6 + [_I] * 7 + [_P],
+    "bsr_gather_pq_int8": [_P] * 7 + [_I] * 7 + [_P],
 }
 
 
@@ -143,17 +144,36 @@ def bsr_predict_gather_pq_cuda(x: torch.Tensor, blocks: torch.Tensor,
                                sel: torch.Tensor) -> torch.Tensor:
     """Launch the per-query gathered BSR kernel: sel (n, B) i32, row q's
     own row-block ids -> (n, B * bl) f32."""
-    if sel.dim() != 2 or sel.shape[0] != x.shape[0]:
-        raise ValueError(f"bsr_gather_pq_f32 takes sel (n, B) for x "
-                         f"{tuple(x.shape)}; got {tuple(sel.shape)}")
+    _check_pq_sel("bsr_gather_pq_f32", x, sel)
     out = _launch("bsr_gather_pq_f32", x, blocks, None, block_cols, row_ptr,
                   sel, row_ptr.shape[0] - 1, sel.shape[1])
     bsr_predict_gather_pq_cuda.launches += 1
     return out
 
 
+def bsr_predict_gather_pq_int8_cuda(x: torch.Tensor, blocks: torch.Tensor,
+                                    scales: torch.Tensor,
+                                    block_cols: torch.Tensor,
+                                    row_ptr: torch.Tensor,
+                                    sel: torch.Tensor) -> torch.Tensor:
+    """Launch the per-query gathered int8 BSR kernel:
+    `bsr_predict_gather_pq_cuda` over int8 blocks and their scales."""
+    _check_pq_sel("bsr_gather_pq_int8", x, sel)
+    out = _launch("bsr_gather_pq_int8", x, blocks, scales, block_cols,
+                  row_ptr, sel, row_ptr.shape[0] - 1, sel.shape[1])
+    bsr_predict_gather_pq_int8_cuda.launches += 1
+    return out
+
+
+def _check_pq_sel(symbol: str, x: torch.Tensor, sel: torch.Tensor) -> None:
+    if sel.dim() != 2 or sel.shape[0] != x.shape[0]:
+        raise ValueError(f"{symbol} takes sel (n, B) for x "
+                         f"{tuple(x.shape)}; got {tuple(sel.shape)}")
+
+
 for _fn in (bsr_predict_cuda, bsr_predict_int8_cuda, bsr_predict_gather_cuda,
-            bsr_predict_gather_int8_cuda, bsr_predict_gather_pq_cuda):
+            bsr_predict_gather_int8_cuda, bsr_predict_gather_pq_cuda,
+            bsr_predict_gather_pq_int8_cuda):
     _fn.launches = 0
 
 
@@ -191,15 +211,15 @@ def bsr_predict_int8_blocks(x: torch.Tensor, model: Int8BlockSparseModel
 def bsr_predict_gather_blocks(x: torch.Tensor, model, sel: torch.Tensor
                               ) -> torch.Tensor:
     """x (n, Dp) against the row blocks of sel -> (n, B * bl): (B,) shared,
-    or (n, B) per query (fp32 only); int8 when `model` is the int8
-    artifact."""
+    or (n, B) per query; int8 when `model` is the int8 artifact."""
     int8 = isinstance(model, Int8BlockSparseModel)
-    if sel.dim() == 2 and int8:
-        raise NotImplementedError(
-            "per-query gathered int8 scoring (`_bsr_gather_pq_int8_kernel`) "
-            "is not ported yet; see ROADMAP Queue B")
     sel = sel.to(device=x.device, dtype=torch.int32).contiguous()
     if x.device.type == "cpu":
+        if sel.dim() == 2 and int8:
+            return ref.bsr_predict_gather_pq_int8(x, model.blocks,
+                                                  model.scales,
+                                                  model.block_cols,
+                                                  model.row_ptr, sel)
         if sel.dim() == 2:
             return ref.bsr_predict_gather_pq(x, model.blocks,
                                              model.block_cols,
@@ -211,6 +231,10 @@ def bsr_predict_gather_blocks(x: torch.Tensor, model, sel: torch.Tensor
         return ref.bsr_predict_gather(x, model.blocks, model.block_cols,
                                       model.row_ptr, sel)
     x = _card_x(x)
+    if sel.dim() == 2 and int8:
+        return bsr_predict_gather_pq_int8_cuda(x, model.blocks, model.scales,
+                                               model.block_cols,
+                                               model.row_ptr, sel)
     if sel.dim() == 2:
         return bsr_predict_gather_pq_cuda(x, model.blocks, model.block_cols,
                                           model.row_ptr, sel)
@@ -378,6 +402,11 @@ def bsr_predict_gather_pq_topk(x: torch.Tensor, model: BlockSparseModel,
     scores = bsr_predict_gather_pq(x, model, sel)
     return _pq_translate_topk(scores, sel, model.block_shape[0], k,
                               n_labels)
+
+
+# The per-query forms pick the int8 kernel from the model's type.
+bsr_predict_gather_pq_int8 = bsr_predict_gather_pq
+bsr_predict_gather_pq_int8_topk = bsr_predict_gather_pq_topk
 
 
 def model_flops(model, n: int) -> int:

@@ -13,7 +13,8 @@ its output slot (`index_add_`). Slots with no packed block stay zero.
   bsr_predict_gather_int8 the same over int8 blocks;
   bsr_predict_gather_pq   row q scores only its own row blocks sel[q]
                           (n, B) -> (n, B * bl), one query at a time, so
-                          no (n, blocks, bl, bd) tensor is ever formed.
+                          no (n, blocks, bl, bd) tensor is ever formed;
+  bsr_predict_gather_pq_int8 the same over int8 blocks.
 """
 
 from __future__ import annotations
@@ -95,4 +96,13 @@ def bsr_predict_gather_pq(x: torch.Tensor, blocks: torch.Tensor,
                           sel: torch.Tensor) -> torch.Tensor:
     return torch.cat([bsr_predict_gather(x[q:q + 1], blocks, block_cols,
                                          row_ptr, sel[q])
+                      for q in range(x.shape[0])])
+
+
+def bsr_predict_gather_pq_int8(x: torch.Tensor, blocks: torch.Tensor,
+                               scales: torch.Tensor, block_cols: torch.Tensor,
+                               row_ptr: torch.Tensor,
+                               sel: torch.Tensor) -> torch.Tensor:
+    return torch.cat([bsr_predict_gather_int8(x[q:q + 1], blocks, scales,
+                                              block_cols, row_ptr, sel[q])
                       for q in range(x.shape[0])])

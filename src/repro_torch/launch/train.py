@@ -1,0 +1,157 @@
+"""Training launcher: the streaming XMC pipeline with the PyTorch port.
+
+XMC mode (flags -> XMCSpec -> repro_torch.xmc_api.fit: streaming
+label-batch pipeline -> servable sparse checkpoint with the spec in its
+manifest; re-running with the same --out resumes a killed job,
+--init-from warm starts from a prior checkpoint's weights):
+
+  PYTHONPATH=src python -m repro_torch.launch.train --xmc --labels 512 \\
+      --label-batch 128 --out /tmp/xmc_ckpt
+  PYTHONPATH=src python -m repro_torch.launch.train --xmc --labels 512 \\
+      --delta 0.02 --out /tmp/xmc_d02 --init-from /tmp/xmc_ckpt
+  PYTHONPATH=src python -m repro_torch.launch.serve --xmc --ckpt /tmp/xmc_ckpt
+
+Several workers on one --out (`--workers 2 --worker-id node0`, ...) claim
+label batches through the manifest's lease table and drain one queue into
+one checkpoint. Everything runs on the card unless `--device cpu` is
+given. `--mesh` (several GPUs) raises: it is ROADMAP Queue A item 6. LM
+training (`--arch`) is not ported (Queue A item 8) and exits with an
+error. A port of the JAX package's launcher of the same name.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import tempfile
+import time
+
+import torch
+
+from repro_torch.launch.serve import LM_NOT_PORTED
+
+
+def train_xmc(args) -> None:
+    """--xmc: one declarative session — args become an XMCSpec, `fit()`
+    streams the checkpoint, the handle quick-evals it."""
+    from repro_torch.core.prediction import evaluate, predict_topk
+    from repro_torch.data.xmc import make_xmc_dataset
+    from repro_torch.specs import ScheduleSpec, SolverSpec
+    from repro_torch.xmc_api import XMCSpec, fit
+
+    if args.out is None:
+        args.out = os.path.join(tempfile.gettempdir(),
+                                "repro_torch_xmc_train_ckpt")
+    mesh = None
+    if args.mesh:
+        d, m = (int(x) for x in args.mesh.split("x"))
+        mesh = (d, m)
+
+    data = make_xmc_dataset(n_train=args.train_n, n_test=args.test_n,
+                            n_features=args.features, n_labels=args.labels,
+                            seed=args.seed)
+    # fit() normalizes the spec: a label batch that is not a multiple of the
+    # BSR block height is rounded up with a warning.
+    spec = XMCSpec(
+        solver=SolverSpec(C=args.C, delta=args.delta),
+        schedule=ScheduleSpec(label_batch=args.label_batch, mesh=mesh,
+                              shard_data=args.shard_data,
+                              balance=args.balance, workers=args.workers,
+                              lease_ttl=args.lease_ttl))
+
+    t0 = time.time()
+    handle = fit(data.X_train, data.Y_train, spec, args.out,
+                 resume=not args.fresh, init_from=args.init_from,
+                 worker=args.worker_id, device=args.device,
+                 on_batch=lambda b, n: print(
+                     f"[xmc] batch {b + 1}/{n} done "
+                     f"({time.time() - t0:.1f}s)"))
+    wall = time.time() - t0
+    res = handle.result
+    print(f"[xmc] {len(res.solved)} batches solved, {len(res.skipped)} "
+          f"resumed from manifest in {wall:.1f}s on {handle.device} -> "
+          f"{args.out}"
+          + (f" (warm-started from {args.init_from})"
+             if args.init_from else ""))
+
+    if not res.complete:
+        # A normal run (cooperative or not) returns complete — workers
+        # wait out co-worker leases. Reaching here means the run was cut
+        # short; re-running the same command resumes it.
+        print(f"[xmc] checkpoint not complete ({len(res.solved)} batches "
+              f"by this worker); re-run this command to finish {args.out}")
+        return
+
+    nnz = sum(s["nnz"] for s in res.manifest["shards"].values())
+    total = args.labels * args.features
+    print(f"[xmc] model: {nnz} nonzeros / {total} "
+          f"({100.0 * nnz / total:.2f}% dense)")
+
+    # Quick-eval only at smoke scale: to_dense() would rebuild the full
+    # (L, D) matrix the streaming pipeline just avoided materializing.
+    if args.labels * args.features <= 50_000_000:
+        model, _ = handle.model()
+        W = model.to_dense()[:args.labels, :args.features]
+        X_test = torch.as_tensor(data.X_test, device=handle.device)
+        _, idx = predict_topk(X_test, W, 5)
+        ev = evaluate(torch.as_tensor(data.Y_test, device=handle.device),
+                      idx)
+        print(f"[xmc] test P@1={ev['P@1']:.3f} P@5={ev['P@5']:.3f}")
+    else:
+        print("[xmc] model too large for dense quick-eval; serve it with "
+              "the bsr backend instead")
+    print(f"[xmc] serve it: PYTHONPATH=src python -m "
+          f"repro_torch.launch.serve --xmc --ckpt {args.out} --features "
+          f"{args.features} --labels {args.labels} --device {args.device}")
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--xmc", action="store_true",
+                    help="run the streaming XMC pipeline")
+    ap.add_argument("--arch", default=None,
+                    help="LM mode: not ported (exits with an error)")
+    ap.add_argument("--mesh", default=None,
+                    help="e.g. 2x4 (data x model); several GPUs are not "
+                         "ported and raise")
+    ap.add_argument("--out", default=None, help="checkpoint directory")
+    ap.add_argument("--labels", type=int, default=512)
+    ap.add_argument("--features", type=int, default=4096)
+    ap.add_argument("--train-n", type=int, default=1000)
+    ap.add_argument("--test-n", type=int, default=300)
+    ap.add_argument("--label-batch", type=int, default=128)
+    ap.add_argument("--C", type=float, default=1.0)
+    ap.add_argument("--delta", type=float, default=0.01)
+    ap.add_argument("--balance", action="store_true",
+                    help="frequency-balanced label->shard dealing per batch")
+    ap.add_argument("--shard-data", action="store_true",
+                    help="also shard instances over the mesh data axis")
+    ap.add_argument("--fresh", action="store_true",
+                    help="ignore any existing manifest (no resume)")
+    ap.add_argument("--init-from", default=None,
+                    help="warm start: prior sparse checkpoint whose rows "
+                         "seed each batch's TRON as W0")
+    ap.add_argument("--workers", type=int, default=1,
+                    help="cooperative worker count: >1 claims label batches "
+                         "via the manifest lease table, so N processes "
+                         "sharing --out drain one queue into one checkpoint")
+    ap.add_argument("--worker-id", default=None,
+                    help="stable identity of this worker in a multi-host "
+                         "drain (default: hostname-pid); implies lease-"
+                         "based claiming even with --workers 1")
+    ap.add_argument("--lease-ttl", type=float, default=300.0,
+                    help="seconds before an unrefreshed batch lease expires "
+                         "and the batch is re-dealt (crash recovery)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="where the model trains: cuda (the card, the "
+                         "default) or cpu")
+    args = ap.parse_args()
+
+    if not args.xmc:
+        ap.error(LM_NOT_PORTED)
+    train_xmc(args)
+
+
+if __name__ == "__main__":
+    main()

@@ -27,8 +27,7 @@ lookup. Four backends are built in:
               then the gathered kernel scores only their packed blocks.
               Selection is shared by the micro-batch, or per query
               (`shortlist_per_query`); `int8=True` gathers int8 blocks
-              (shared selection only: the per-query int8 kernel is not
-              ported). Without an artifact it serves as bsr (or int8).
+              for either. Without an artifact it serves as bsr (or int8).
 
 dense, bsr and shortlist return identical top-k label ids on the same
 pruned model, tie order included (descending score, then ascending id;
@@ -40,13 +39,14 @@ through `RelabelBackend`, which maps ids back.
 
 Requests go through `serve.batching.MicroBatchQueue` (size-bucketed padding
 of ragged streams); each bucket is run once at warm-up, and per-request
-latency percentiles are kept (enqueue -> completion).
+latency percentiles are kept (enqueue -> completion). `XMCEngine.step()`
+drains the queue synchronously; `XMCEngine.server()` wraps the engine in
+the async request path (`serve/server.py`).
 """
 
 from __future__ import annotations
 
 import dataclasses
-import functools
 import hashlib
 import inspect
 import time
@@ -57,11 +57,11 @@ import torch
 
 from repro_torch.core.prediction import predict_topk
 from repro_torch.core.pruning import (BlockSparseModel, Int8BlockSparseModel,
-                                      quantize_block_sparse)
-from repro_torch.device import synchronize
+                                      quantize_block_sparse, to_block_sparse)
+from repro_torch.device import synchronize, to_device
 from repro_torch.serve.batching import (DEFAULT_BUCKETS, LatencyStats,
                                         MicroBatchQueue)
-from repro_torch.serve.shortlist import ShortlistArtifact
+from repro_torch.serve.shortlist import ShortlistArtifact, build_shortlist
 
 
 class PredictBackend(Protocol):
@@ -220,8 +220,7 @@ class ShortlistBackend:
     list is the full list, so full width always uses the shared kernel,
     which gives the exhaustive path bit for bit. `int8=True` keeps the
     fp32 model and gathers from the int8 one (`int8_model`, or quantized
-    here); int8 with a per-query selection of B < R raises
-    NotImplementedError, its kernel being unported.
+    here), shared or per query.
     """
 
     name = "shortlist"
@@ -247,13 +246,8 @@ class ShortlistBackend:
             raise ValueError(f"shortlist width must be >= 1, got {self.B}")
         self.per_query = bool(per_query) and self.B < R
         self.int8 = bool(int8)
-        if self.int8 and self.per_query:
-            raise NotImplementedError(
-                "shortlist serving with int8=True and a per-query selection "
-                f"narrower than the model (B={self.B} < R={R}) needs the "
-                "per-query gathered int8 kernel, which is not ported yet; "
-                "see ROADMAP Queue B")
-        put = functools.partial(torch.as_tensor, device=self.device)
+        def put(a):
+            return to_device(torch.as_tensor(a), self.device)
         self._centroids = put(artifact.centroids)
         self._tree = None
         if self.kind == "tree":
@@ -300,12 +294,10 @@ class ShortlistBackend:
     def topk(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         from repro_torch.kernels.bsr_predict import ops as bsr_ops
         sel = self._select(x)
-        if self.per_query:
-            return bsr_ops.bsr_predict_gather_pq_topk(
-                x, self.model, sel, self.k, n_labels=self.n_labels)
-        return bsr_ops.bsr_predict_gather_topk(
-            x, self.int8_model if self.int8 else self.model, sel, self.k,
-            n_labels=self.n_labels)
+        fn = (bsr_ops.bsr_predict_gather_pq_topk if self.per_query
+              else bsr_ops.bsr_predict_gather_topk)
+        return fn(x, self.int8_model if self.int8 else self.model, sel,
+                  self.k, n_labels=self.n_labels)
 
 
 class RelabelBackend:
@@ -510,6 +502,18 @@ class XMCEngine:
         submitted request); None until either is known."""
         return self._n_features
 
+    def adopt_n_features(self, n_features: int) -> None:
+        """Pin the feature dim on an engine that does not know it yet (no
+        checkpoint meta, no request seen). `XMCServer.swap` uses this so an
+        in-memory replacement engine can be warmed for the server's buckets
+        before the flip; adopting a conflicting dim is refused like a
+        mismatched request would be."""
+        n_features = int(n_features)
+        if self._n_features is not None and self._n_features != n_features:
+            raise ValueError(f"engine already serves feature dim "
+                             f"{self._n_features}, cannot adopt {n_features}")
+        self._n_features = n_features
+
     @classmethod
     def from_checkpoint(cls, directory: str, *, backend: str = "bsr",
                         k: int = 5, buckets: Sequence[int] = DEFAULT_BUCKETS,
@@ -543,6 +547,25 @@ class XMCEngine:
                               directory).get("label_order"))
         return cls(be, buckets, warmup=warmup,
                    n_features=int(meta.get("n_features", bsr.n_features)))
+
+    @classmethod
+    def from_dismec(cls, model, *, backend: str = "dense", k: int = 5,
+                    block_shape: tuple[int, int] = (128, 128),
+                    buckets: Sequence[int] = DEFAULT_BUCKETS,
+                    warmup: bool = False,
+                    shortlist_blocks: int | None = None,
+                    int8: bool = False,
+                    shortlist_per_query: bool = False) -> "XMCEngine":
+        """An engine straight from an in-memory `DiSMECModel`, on the
+        device of its W (the centroid shortlist artifact is built here; no
+        checkpoint needed)."""
+        bsr = to_block_sparse(model.W, block_shape, device=model.W.device)
+        be = make_backend(backend, bsr, k, n_labels=model.W.shape[0],
+                          shortlist=build_shortlist(bsr),
+                          shortlist_blocks=shortlist_blocks, int8=int8,
+                          shortlist_per_query=shortlist_per_query)
+        return cls(be, buckets, warmup=warmup,
+                   n_features=int(model.W.shape[1]))
 
     # -- serving ------------------------------------------------------------
 
@@ -625,6 +648,16 @@ class XMCEngine:
         for x in requests:
             self.submit(x)
         return self.step()
+
+    def server(self, **kwargs):
+        """Wrap this engine in the async continuous-batching loop
+        (`serve.server.XMCServer`): `submit` returns futures, buckets
+        launch on fill or deadline, admission control sheds overload. The
+        synchronous `step()` path stays available and bit-identical.
+        Keyword args go to `XMCServer` (max_batch_delay_ms, max_queue,
+        max_inflight, name, start)."""
+        from repro_torch.serve.server import XMCServer   # deferred: no cycle
+        return XMCServer(self, **kwargs)
 
     def latency_summary(self) -> dict[str, float]:
         return self.stats.summary()

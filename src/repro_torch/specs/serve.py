@@ -37,10 +37,10 @@ class ServeSpec(Spec):
     shortlist_kind : the coarse stage `fit` builds ("centroid", "learned"
                 or "tree").
     shortlist_per_query : one selection per query instead of one per
-                micro-batch (fp32 only: the per-query int8 kernel is not
-                ported).
-    max_batch_delay_ms / max_queue : knobs of the JAX package's async
-                server, kept for manifest round-trips.
+                micro-batch (fp32 or int8).
+    max_batch_delay_ms / max_queue : the async server's launch deadline
+                and admission bound (`CheckpointHandle.server()`, None:
+                unbounded).
     """
     backend: str = "bsr"
     k: int = 5

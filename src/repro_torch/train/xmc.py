@@ -52,6 +52,7 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint.io import (BSR_ARRAYS, BlockSparseWriter,
+                                       has_block_sparse_checkpoint,
                                        label_range_reader,
                                        load_block_sparse_meta)
 from repro_torch.core.dismec import (DiSMECConfig, DiSMECModel,
@@ -426,3 +427,42 @@ def train_streaming(X, Y, cfg: DiSMECConfig, out_dir: str,
                   if k in job_kwargs}
     return XMCTrainJob(cfg=cfg, **job_kwargs).run(X, Y, out_dir,
                                                   **run_kwargs)
+
+
+def train_demo_checkpoint(ckpt_dir: str, *, n_train: int = 800,
+                          n_test: int = 512, n_features: int = 4096,
+                          n_labels: int = 256, label_batch: int = 128,
+                          block_shape: tuple[int, int] = (128, 128),
+                          data_kwargs: dict | None = None,
+                          C: float = 1.0, delta: float = 0.01,
+                          seed: int = 0, reuse: bool = True,
+                          verbose: bool = True, device=None):
+    """Train-and-checkpoint a small DiSMEC model for demos, on `device`
+    (None: the card).
+
+    The shared setup behind `launch/serve.py --xmc`: builds the synthetic
+    dataset (the JAX generator's, bit for bit), fits a model into
+    `ckpt_dir` (unless a servable checkpoint is already there and
+    `reuse`), and returns `(dataset, index)` where `index` is the
+    checkpoint's metadata (`checkpoint.io.load_block_sparse_meta`).
+    `data_kwargs` forwards extra knobs to `make_xmc_dataset`.
+    """
+    from repro_torch.data.xmc import make_xmc_dataset
+    data = make_xmc_dataset(n_train=n_train, n_test=n_test,
+                            n_features=n_features, n_labels=n_labels,
+                            seed=seed, **(data_kwargs or {}))
+    if not (reuse and has_block_sparse_checkpoint(ckpt_dir)):
+        if verbose:
+            print(f"[xmc] no servable checkpoint at {ckpt_dir}; streaming a "
+                  f"{n_labels}-label model in batches of {label_batch}...")
+        from repro_torch.xmc_api import XMCSpec, fit      # deferred: no cycle
+        spec = XMCSpec(solver=SolverSpec(C=C, delta=delta),
+                       schedule=ScheduleSpec(label_batch=label_batch,
+                                             block_shape=tuple(block_shape)))
+        fit(data.X_train, data.Y_train, spec, ckpt_dir, device=device)
+        if verbose:
+            index = load_block_sparse_meta(ckpt_dir)
+            print(f"[xmc] saved sparse checkpoint: {index['n_blocks']} "
+                  "blocks across "
+                  f"{len(index['manifest']['shards'])} shards")
+    return data, load_block_sparse_meta(ckpt_dir)

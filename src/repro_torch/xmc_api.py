@@ -9,6 +9,8 @@
     handle = fit(X, Y, spec, "/ckpts/wiki10-31k")    # trains on the card
     engine = handle.engine()                         # serves as spec says
     results = engine.serve(requests)
+    server = handle.server()                         # the async path
+    result = server.submit(x).result()
 
     handle = CheckpointHandle.open("/ckpts/wiki10-31k")   # from disk alone
 
@@ -200,7 +202,8 @@ class CheckpointHandle:
     Returned by `fit` (with the run's `XMCTrainResult` as `result`);
     `open` re-creates it from disk alone (the spec travels inside the
     manifest). `engine()` turns it into a serving `XMCEngine` exactly as
-    `spec.serve` describes; `model()` loads the packed BSR artifact.
+    `spec.serve` describes, `server()` into the async `XMCServer` around
+    one; `model()` loads the packed BSR artifact.
     """
     directory: str
     spec: XMCSpec
@@ -267,3 +270,19 @@ class CheckpointHandle:
             buckets=tuple(serve.buckets), warmup=serve.warmup,
             device=self.device, shortlist_blocks=serve.shortlist_blocks,
             int8=serve.int8, shortlist_per_query=serve.shortlist_per_query)
+
+    def server(self, serve_override: Optional[ServeSpec] = None, *,
+               name: Optional[str] = None, start: bool = True):
+        """Build the async continuous-batching server this checkpoint's
+        spec describes (`serve.server.XMCServer`) on the handle's device:
+        `submit` returns futures, buckets launch on fill or
+        `ServeSpec.max_batch_delay_ms`, and `ServeSpec.max_queue`
+        admission control sheds overload with `Rejected` results. Several
+        handles' servers compose into one process through
+        `serve.server.ModelRouter`. The synchronous `engine()` path is
+        unchanged."""
+        from repro_torch.serve.server import XMCServer
+        serve = (serve_override or self.spec.serve).validate()
+        return XMCServer(self.engine(serve),
+                         max_batch_delay_ms=serve.max_batch_delay_ms,
+                         max_queue=serve.max_queue, name=name, start=start)

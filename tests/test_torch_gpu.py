@@ -14,6 +14,8 @@ same reason; `act` identical wherever |z| > 1e-5; two launches on the
 same inputs identical bit for bit (no atomics, fixed summation order).
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -235,6 +237,74 @@ def test_gather_kernels_match_plain(cuda, L, D, density, block, n):
             x[q:q + 1].contiguous(), *args, sel_pq[q].contiguous()))
 
 
+@pytest.mark.parametrize("L,D,density,block", [
+    (300, 520, 0.3, (16, 16)), (256, 1024, 0.2, (128, 128)),
+    (500, 256, 0.5, (256, 64)), (90, 300, 0.4, (8, 32))])
+@pytest.mark.parametrize("n", [1, 9, 33, 64])
+def test_gather_pq_int8_kernel_matches_plain(cuda, L, D, density, block, n):
+    """Kernel 8 against its plain version (per-row selections holding the
+    empty row block 0); at n = 1 against kernel 6 and, where a row's list
+    is every row block, against kernel 4, bit for bit."""
+    q = _int8_model(L, D, density, block, seed=L * n + 1, device=cuda)
+    x = _x(n, q.shape[1], n + 2, cuda)
+    R = q.shape[0] // block[0]
+    args = (q.blocks, q.scales, q.block_cols, q.row_ptr)
+    absargs = (q.blocks.abs(), q.scales, q.block_cols, q.row_ptr)
+    gen = torch.Generator(device="cpu").manual_seed(n + 7)
+    B = max(1, R // 2)
+    sel = torch.sort(torch.stack([torch.randperm(R, generator=gen)[:B]
+                                  for _ in range(n)]), dim=1)[0]
+    sel[0, 0] = 0                                  # the empty row block
+    sel = torch.sort(sel, dim=1)[0]
+    sel = sel.to(device=cuda, dtype=torch.int32).contiguous()
+    got = bsr_ops.bsr_predict_gather_pq_int8_cuda(x, *args, sel)
+    _within(got, bsr_ref.bsr_predict_gather_pq_int8(x, *args, sel),
+            bsr_ref.bsr_predict_gather_pq_int8(x.abs(), *absargs, sel))
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    bl = block[0]
+    for i in range(B):                             # row 0's empty slot
+        if int(sel[0, i]) == 0:
+            assert bool((got[0, i * bl:(i + 1) * bl] == 0).all())
+    for r in range(min(n, 3)):
+        xr = x[r:r + 1].contiguous()
+        assert torch.equal(
+            bsr_ops.bsr_predict_gather_pq_int8_cuda(xr, *args,
+                                                    sel[r:r + 1]),
+            bsr_ops.bsr_predict_gather_int8_cuda(xr, *args,
+                                                 sel[r].contiguous()))
+    full = torch.arange(R, dtype=torch.int32, device=cuda)
+    assert torch.equal(
+        bsr_ops.bsr_predict_gather_pq_int8_cuda(
+            x, *args, full.repeat(n, 1).contiguous()),
+        bsr_ops.bsr_predict_int8_cuda(x, q.blocks, q.scales, q.block_cols,
+                                      q.row_ptr, R))
+
+
+def test_gather_pq_int8_kernel_writes_zeros(cuda):
+    """The sentinel model, an empty selected row block and an id outside
+    [0, R) all score exact zeros in kernel 8."""
+    sentinel = quantize_block_sparse(to_block_sparse(
+        np.zeros((200, 320), np.float32), (128, 128), device=cuda))
+    x = _x(5, sentinel.shape[1], 0, cuda)
+    sel = torch.tensor([[0, 1]] * 5, dtype=torch.int32, device=cuda)
+    out = bsr_ops.bsr_predict_gather_pq_int8_cuda(
+        x, sentinel.blocks, sentinel.scales, sentinel.block_cols,
+        sentinel.row_ptr, sel)
+    torch.cuda.synchronize()
+    assert out.shape == (5, 256) and bool((out == 0).all())
+    q = _int8_model(256, 512, 0.5, (64, 128), seed=3, device=cuda)
+    x = _x(3, q.shape[1], 1, cuda)
+    sel = torch.tensor([[0, 2], [1, 4], [0, -1]], dtype=torch.int32,
+                       device=cuda)
+    out = bsr_ops.bsr_predict_gather_pq_int8_cuda(
+        x, q.blocks, q.scales, q.block_cols, q.row_ptr, sel)
+    torch.cuda.synchronize()
+    assert bool((out[0, :64] == 0).all())          # row block 0 is empty
+    assert bool((out[2] == 0).all())               # empty, then out of range
+    assert bool((out[1, 64:] == 0).all())          # id 4 >= R = 4
+
+
 def test_gather_kernels_on_the_sentinel_write_zeros(cuda):
     model = to_block_sparse(np.zeros((200, 300), np.float32), (128, 128),
                             device=cuda)
@@ -271,6 +341,11 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take(cuda):
             x, q.blocks, q.scales, q.block_cols, q.row_ptr, sel.cpu()),
         lambda: bsr_ops.bsr_predict_gather_pq_cuda(
             x, model.blocks, model.block_cols, model.row_ptr, sel),
+        lambda: bsr_ops.bsr_predict_gather_pq_int8_cuda(
+            x, q.blocks, q.scales, q.block_cols, q.row_ptr, sel),
+        lambda: bsr_ops.bsr_predict_gather_pq_int8_cuda(
+            x, model.blocks, q.scales, q.block_cols, q.row_ptr,
+            sel.repeat(4, 1).contiguous()),
     ]
     for case in cases:
         with pytest.raises(ValueError):
@@ -287,7 +362,9 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take(cuda):
     dict(backend="int8"), dict(backend="bsr", int8=True),
     dict(backend="shortlist", shortlist_blocks=3),
     dict(backend="shortlist", shortlist_blocks=3, int8=True),
-    dict(backend="shortlist", shortlist_blocks=3, shortlist_per_query=True)])
+    dict(backend="shortlist", shortlist_blocks=3, shortlist_per_query=True),
+    dict(backend="shortlist", shortlist_blocks=3, shortlist_per_query=True,
+         int8=True)])
 def test_shortlist_and_int8_engines_count_launches(cuda, tmp_path, spec):
     """Each engine launches its kernel, and serves the plain path's ids on
     every decisive row."""
@@ -300,9 +377,10 @@ def test_shortlist_and_int8_engines_count_launches(cuda, tmp_path, spec):
     fns = {"int8": bsr_ops.bsr_predict_int8_cuda,
            "gather": bsr_ops.bsr_predict_gather_cuda,
            "gather_int8": bsr_ops.bsr_predict_gather_int8_cuda,
-           "gather_pq": bsr_ops.bsr_predict_gather_pq_cuda}
-    want = ("gather_pq" if spec.get("shortlist_per_query") else
-            ("gather_int8" if spec.get("int8") else "gather")
+           "gather_pq": bsr_ops.bsr_predict_gather_pq_cuda,
+           "gather_pq_int8": bsr_ops.bsr_predict_gather_pq_int8_cuda}
+    gather = "gather_pq" if spec.get("shortlist_per_query") else "gather"
+    want = ((gather + "_int8" if spec.get("int8") else gather)
             if spec["backend"] == "shortlist" else "int8")
     before = {k: f.launches for k, f in fns.items()}
     engine = CheckpointHandle.open(str(tmp_path)).engine(
@@ -320,6 +398,90 @@ def test_shortlist_and_int8_engines_count_launches(cuda, tmp_path, spec):
     rows = (v_r[:, 4] - v_r[:, 5]) > 1e-5
     assert rows.sum() > 20
     np.testing.assert_array_equal(ids[rows], i_r[rows, :5])
+
+
+@pytest.mark.parametrize("spec", [
+    dict(backend="bsr"),
+    dict(backend="shortlist", shortlist_blocks=3, shortlist_per_query=True),
+    dict(backend="shortlist", shortlist_blocks=3, shortlist_per_query=True,
+         int8=True)])
+def test_server_on_the_card_matches_step(cuda, tmp_path, spec):
+    """An `XMCServer` on the card, its threads running and its batches
+    formed by arrival time, answers with the ids and scores of
+    `engine.step()`: each of these backends scores a row the same way
+    whatever rows share its micro-batch."""
+    from repro_torch.checkpoint.io import save_block_sparse
+    from repro_torch.specs import ServeSpec
+    from repro_torch.xmc_api import CheckpointHandle
+    model = _model(1000, 2000, 0.2, (128, 128), seed=6, device="cpu")
+    save_block_sparse(model, str(tmp_path), meta={"n_labels": 1000,
+                                                  "n_features": 2000})
+    handle = CheckpointHandle.open(str(tmp_path))
+    serve = ServeSpec(k=5, buckets=(1, 4, 16), warmup=False,
+                      max_batch_delay_ms=1.0, **spec)
+    rng = np.random.default_rng(8)
+    x = _x(60, 2000, 10, "cpu").numpy()
+    reqs, off = [], 0
+    while off < len(x):
+        n = int(rng.integers(1, 6))
+        reqs.append(x[off:off + n])
+        off += n
+    sync = handle.engine(serve).serve(reqs)
+    server = handle.server(serve)
+    futures = []
+    for r in reqs:
+        futures.append(server.submit(r))
+        time.sleep(float(rng.exponential(5e-4)))
+    server.stop()
+    assert server.counters["batches"] > 1
+    for s, f in zip(sync, futures):
+        a = f.result(timeout=0)
+        np.testing.assert_array_equal(a.labels, s.labels)
+        np.testing.assert_array_equal(a.scores, s.scores)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int8])
+def test_to_device_in_pieces_is_the_plain_copy(cuda, monkeypatch, dtype):
+    """A host tensor past `COPY_CHUNK_BYTES` reaches the card in pieces,
+    the last one short, with the bytes and shape of `t.to("cuda")`."""
+    import repro_torch.device as device_mod
+    monkeypatch.setattr(device_mod, "COPY_CHUNK_BYTES", 1000)
+    t = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(37, 11, 13)).astype(np.float32) * 50).to(dtype)
+    got = device_mod.to_device(t, "cuda")
+    assert got.shape == t.shape and got.dtype == dtype
+    assert torch.equal(got.cpu(), t)
+
+
+def test_refresh_from_on_the_card_serves_the_new_model(cuda, tmp_path):
+    """`XMCServer.refresh_from` loads the new model while the server
+    answers; after it returns, answers are the new model's, equal to its
+    own `engine.step()`."""
+    from repro_torch.checkpoint.io import save_block_sparse
+    from repro_torch.specs import ServeSpec
+    from repro_torch.xmc_api import CheckpointHandle
+    dirs = []
+    for seed in (6, 7):
+        d = tmp_path / f"m{seed}"
+        save_block_sparse(_model(1000, 2000, 0.2, (128, 128), seed=seed,
+                                 device="cpu"), str(d),
+                          meta={"n_labels": 1000, "n_features": 2000})
+        dirs.append(str(d))
+    serve = ServeSpec(backend="bsr", k=5, buckets=(1, 4, 16), warmup=False,
+                      max_batch_delay_ms=1.0)
+    x = _x(12, 2000, 11, "cpu").numpy()
+    reqs = [x[i:i + 3] for i in range(0, 12, 3)]
+    server = CheckpointHandle.open(dirs[0]).server(serve)
+    before = [server.submit(r) for r in reqs]
+    handle, prev = server.refresh_from(dirs[1], serve_override=serve)
+    after = [server.submit(r) for r in reqs]
+    server.stop()
+    assert prev is server.previous_engine and handle.directory == dirs[1]
+    want = handle.engine(serve).serve(reqs)
+    for w, f in zip(want, after):
+        np.testing.assert_array_equal(f.result(0).labels, w.labels)
+        np.testing.assert_array_equal(f.result(0).scores, w.scores)
+    assert all(f.result(0).labels.shape == (3, 5) for f in before)
 
 
 def _train_inputs(L, N, D, seed, device, w_scale=1.0):

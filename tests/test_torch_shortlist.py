@@ -4,7 +4,9 @@ CPU.
 The plain versions of the gathered kernels (shared selection, kernel 5;
 per-query selection, kernel 7) agree with the Pallas kernels in interpret
 mode within rtol 1e-5, atol 1e-6 (the same fp32 products, summed in
-another order). The port's coarse stages write the JAX package's
+another order); the per-query int8 one (kernel 8) within 1e-5 of the
+magnitude |x| @ |dequant(W)|^T of its terms, exact zeros for an empty row
+block. The port's coarse stages write the JAX package's
 artifacts: centroid and tree bit for bit, learned within 1e-5 (a TRON
 solve). `CheckpointHandle.open(d, device="cpu").engine(ServeSpec(backend=
 "shortlist", ...))` serves the JAX engine's ids for centroid, learned and
@@ -27,15 +29,18 @@ import torch
 import jax.numpy as jnp
 
 from repro.checkpoint import io as jax_io
+from repro.core.pruning import quantize_block_sparse as jax_quantize
 from repro.core.pruning import to_block_sparse as jax_to_block_sparse
 from repro.data.xmc import make_xmc_dataset
 from repro.kernels.bsr_predict import ops as jax_bsr_ops
-from repro.kernels.bsr_predict.kernel import (bsr_predict_gather_pallas,
-                                              bsr_predict_gather_pq_pallas)
+from repro.kernels.bsr_predict.kernel import (
+    bsr_predict_gather_pallas, bsr_predict_gather_pq_int8_pallas,
+    bsr_predict_gather_pq_pallas)
 from repro.serve import shortlist as jax_shortlist
 from repro.serve.xmc import XMCEngine as JaxXMCEngine
 from repro_torch.checkpoint import io
 from repro_torch.convert import block_sparse_from_numpy
+from repro_torch.core.pruning import quantize_block_sparse
 from repro_torch.kernels.bsr_predict import ops as bsr_ops
 from repro_torch.kernels.bsr_predict import ref as bsr_ref
 from repro_torch.serve import shortlist, xmc
@@ -119,6 +124,63 @@ def test_gather_plain_versions_match_pallas(L, D, block):
         np.testing.assert_allclose(v_t.numpy(), np.asarray(v_j), rtol=RTOL,
                                    atol=ATOL)
         assert i_t.numpy().max() < L
+
+
+@pytest.mark.parametrize("L,D,block", GATHER_CASES)
+def test_gather_pq_int8_plain_version_matches_pallas(L, D, block):
+    """Kernel 8's plain version against the Pallas kernel in interpret
+    mode on the same int8 blocks, scales and per-row selections (row 0
+    holding the empty row block 1); at n = 1 it equals the shared int8
+    plain version bit for bit, and its top-k wrapper gives the JAX ids."""
+    jm, tm = _models(_W(L, D, L * D, block), block)
+    jq, tq = jax_quantize(jm), quantize_block_sparse(tm)
+    np.testing.assert_array_equal(tq.blocks.numpy(), np.asarray(jq.blocks))
+    np.testing.assert_array_equal(tq.scales.numpy(), np.asarray(jq.scales))
+    bl, R = block[0], jm.shape[0] // block[0]
+    rng = np.random.default_rng(L + 1)
+    x = rng.normal(size=(5, jm.shape[1])).astype(np.float32)
+    xt = torch.from_numpy(x)
+    sel = np.sort(np.stack([rng.choice(R, 3, replace=False)
+                            for _ in range(5)]), axis=1).astype(np.int32)
+    sel[0] = [0, 1, 2]                           # the empty row block
+    st = torch.from_numpy(sel)
+    want = np.asarray(bsr_predict_gather_pq_int8_pallas(
+        jnp.asarray(x), jq.blocks, jq.scales, jq.block_cols, jq.row_ptr,
+        jnp.asarray(sel), bsr_ops.max_blocks_per_row(tm), interpret=True))
+    got = bsr_ref.bsr_predict_gather_pq_int8(xt, tq.blocks, tq.scales,
+                                             tq.block_cols, tq.row_ptr, st)
+    mag = bsr_ref.bsr_predict_gather_pq_int8(xt.abs(), tq.blocks.abs(),
+                                             tq.scales, tq.block_cols,
+                                             tq.row_ptr, st)
+    assert got.shape == want.shape == (5, 3 * bl)
+    assert np.all(np.abs(got.numpy() - want) <= 1e-5 * mag.numpy())
+    assert np.all(got.numpy()[0, bl:2 * bl] == 0.0)
+    assert np.all(want[0, bl:2 * bl] == 0.0)
+    one = bsr_ref.bsr_predict_gather_pq_int8(xt[:1], tq.blocks, tq.scales,
+                                             tq.block_cols, tq.row_ptr,
+                                             st[:1])
+    assert torch.equal(one, bsr_ref.bsr_predict_gather_int8(
+        xt[:1], tq.blocks, tq.scales, tq.block_cols, tq.row_ptr, st[0]))
+    # The wrappers pad x, route a CPU tensor to the plain version and
+    # translate each row's candidates as the JAX package does.
+    x0 = x[:, :D].copy()
+    x0[1] = 0.0                                  # every candidate ties
+    xp = torch.from_numpy(np.pad(x0, ((0, 0), (0, jm.shape[1] - D))))
+    assert torch.equal(
+        bsr_ops.bsr_predict_gather_pq_int8(torch.from_numpy(x0), tq, st),
+        bsr_ref.bsr_predict_gather_pq_int8(xp, tq.blocks, tq.scales,
+                                           tq.block_cols, tq.row_ptr, st))
+    v_j, i_j = jax_bsr_ops.bsr_predict_gather_pq_int8_topk(
+        jnp.asarray(x0), jq, jnp.asarray(sel), K + 1, n_labels=L)
+    v_t, i_t = bsr_ops.bsr_predict_gather_pq_int8_topk(
+        torch.from_numpy(x0), tq, st, K, n_labels=L)
+    rows = _robust(np.asarray(v_j), K)
+    assert rows[1] and rows.sum() >= 4
+    np.testing.assert_array_equal(i_t.numpy()[rows],
+                                  np.asarray(i_j)[rows, :K])
+    np.testing.assert_allclose(v_t.numpy(), np.asarray(v_j)[:, :K],
+                               rtol=RTOL, atol=ATOL)
+    assert i_t.numpy().max() < L
 
 
 def test_gather_accounting_matches_jax():
@@ -311,30 +373,76 @@ def test_shortlist_engine_matches_jax_engine(clustered, shortlist_ckpts,
     assert t.backend.candidate_fraction == B / 12
 
 
+@pytest.mark.parametrize("kind", ["centroid", "learned", "tree"])
+@pytest.mark.parametrize("B", [3, 12])
+def test_shortlist_int8_per_query_engine_matches_jax_engine(
+        clustered, shortlist_ckpts, kind, B):
+    """`shortlist` with int8 and a per-query selection: at B = 3 the
+    per-query int8 kernel's plain version serves the JAX engine's ids on
+    every row whose selection and k-th/(k+1)-th margin are decisive; at
+    B = R = 12 the selection collapses to the shared int8 kernel."""
+    d = shortlist_ckpts[kind]
+    x = np.asarray(clustered["data"].X_test, np.float32)
+    x = np.concatenate([x, np.zeros((1, D_C), np.float32)])   # ties at 0
+    j = JaxXMCEngine.from_checkpoint(
+        d, backend="shortlist", k=K + 1, buckets=(32,), warmup=False,
+        shortlist_blocks=B, int8=True, shortlist_per_query=True)
+    t = CheckpointHandle.open(d, device="cpu").engine(ServeSpec(
+        backend="shortlist", k=K, buckets=(32,), warmup=False,
+        shortlist_blocks=B, int8=True, shortlist_per_query=True))
+    assert t.backend.int8 and t.backend.per_query == (B < 12)
+    assert t.backend.int8_model.blocks.dtype == torch.int8
+    r_j, r_t = j.serve([x])[0], t.serve([x])[0]
+    rows = _robust(np.asarray(r_j.scores), K)
+    if B < 12:
+        rows &= _decisive_selection(
+            clustered[kind] if kind != "centroid" else
+            jax_shortlist.build_shortlist(clustered["jm"]), x, B, True)
+        sel_t = t.backend.select_blocks(x)
+        sel_j = np.asarray(j.backend.select_blocks(jnp.asarray(x)))
+        np.testing.assert_array_equal(sel_t[rows], sel_j[rows])
+    assert rows.sum() >= len(x) // 2 and rows[-1]
+    np.testing.assert_array_equal(r_t.labels[rows],
+                                  np.asarray(r_j.labels)[rows, :K])
+    np.testing.assert_allclose(r_t.scores, np.asarray(r_j.scores)[:, :K],
+                               rtol=RTOL, atol=ATOL)
+
+
 def test_shortlist_without_artifact_and_int8_per_query(clustered, tmp_path):
     """No artifact: shortlist serves as bsr (or int8). int8 with a
-    per-query selection narrower than the model raises; at B = R the
-    per-query selection collapses to the shared one and serves."""
+    per-query selection narrower than the model is built and served, with
+    the JAX engine's ids on decisive rows; at B = R the per-query
+    selection collapses to the shared one."""
     tm = clustered["tm"]
     art = shortlist.build_shortlist(tm)
     assert isinstance(xmc.make_backend("shortlist", tm, K),
                       xmc.BsrBackend)
     assert isinstance(xmc.make_backend("shortlist", tm, K, int8=True),
                       xmc.Int8Backend)
-    with pytest.raises(NotImplementedError, match="Queue B"):
-        xmc.make_backend("shortlist", tm, K, shortlist=art,
-                         shortlist_blocks=3, int8=True,
-                         shortlist_per_query=True)
+    narrow = xmc.make_backend("shortlist", tm, K, shortlist=art,
+                              shortlist_blocks=3, int8=True,
+                              shortlist_per_query=True)
+    assert narrow.per_query and narrow.int8 and narrow.B == 3
     full = xmc.make_backend("shortlist", tm, K, shortlist=art,
                             shortlist_blocks=12, int8=True,
                             shortlist_per_query=True)
     assert not full.per_query and full.int8
     d = str(tmp_path / "ck")
     io.save_block_sparse(tm, d, meta={"n_labels": L_C, "n_features": D_C})
-    with pytest.raises(NotImplementedError, match="Queue B"):
-        CheckpointHandle.open(d, device="cpu").engine(ServeSpec(
-            backend="shortlist", int8=True, shortlist_per_query=True,
-            warmup=False))
+    x = np.asarray(clustered["data"].X_test, np.float32)
+    t = CheckpointHandle.open(d, device="cpu").engine(ServeSpec(
+        backend="shortlist", int8=True, shortlist_per_query=True,
+        warmup=False))
+    j = JaxXMCEngine.from_checkpoint(
+        d, backend="shortlist", k=K + 1, warmup=False, int8=True,
+        shortlist_per_query=True)
+    assert t.backend.per_query and t.backend.B == 2 == j.backend.B
+    r_t, r_j = t.serve([x])[0], j.serve([x])[0]
+    rows = _robust(np.asarray(r_j.scores), K) & _decisive_selection(
+        art, x, 2, True)
+    assert rows.sum() >= len(x) // 2
+    np.testing.assert_array_equal(r_t.labels[rows],
+                                  np.asarray(r_j.labels)[rows, :K])
 
 
 def test_fit_reorder_learned_per_query_matches_jax_fit(tmp_path):

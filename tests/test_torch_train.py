@@ -347,17 +347,39 @@ def test_not_ported_parts_raise(data, tmp_path):
     with pytest.raises(NotImplementedError, match="Queue A item 6"):
         dismec.make_batch_solver(torch.zeros((4, 8)), dismec.DiSMECConfig(),
                                  shard_data=True)
-    # reorder_labels and the learned coarse stage are ported; serving the
-    # result with int8 and a per-query selection narrower than the model
-    # needs the one BSR kernel left to port.
+    # reorder_labels, the learned coarse stage and int8 serving with a
+    # per-query selection narrower than the model are all ported: the
+    # port's fit serves the ids of the JAX fit's checkpoint, served by the
+    # JAX engine with the same spec, on every row whose selection and
+    # k-th/(k+1)-th margin are decisive.
     spec = dataclasses.replace(port_spec(reorder_labels=True), serve=ServeSpec(
         backend="shortlist", shortlist_kind="learned", int8=True,
         shortlist_per_query=True, shortlist_blocks=1, warmup=False))
     handle = fit(data.X_train, data.Y_train, spec, str(tmp_path / "x"),
                  device="cpu")
     assert handle.result.complete
-    with pytest.raises(NotImplementedError, match="Queue B"):
-        handle.engine()
+    jax_serve = dict(backend="shortlist", shortlist_kind="learned",
+                     int8=True, shortlist_per_query=True, shortlist_blocks=1,
+                     warmup=False)
+    jd = str(tmp_path / "jax")
+    jax_fit(jnp.asarray(data.X_train), jnp.asarray(data.Y_train),
+            dataclasses.replace(
+                JAX_SPEC, schedule=JaxScheduleSpec(label_batch=LABEL_BATCH,
+                                                   reorder_labels=True),
+                serve=JaxServeSpec(**jax_serve)), jd)
+    teng = handle.engine()
+    assert teng.backend.per_query and teng.backend.int8
+    jeng = JaxCheckpointHandle.open(jd).engine(
+        JaxServeSpec(**{**jax_serve, "k": K + 1}))
+    x = np.asarray(data.X_test, np.float32)
+    r_t, r_j = teng.serve([x])[0], jeng.serve([x])[0]
+    v_j = np.asarray(r_j.scores)
+    rows = (v_j[:, K - 1] - v_j[:, K]) > MARGIN
+    rows &= (teng.backend.select_blocks(x) ==
+             np.asarray(jeng.backend.select_blocks(jnp.asarray(x)))).all(1)
+    assert rows.sum() >= N_TEST // 2
+    np.testing.assert_array_equal(r_t.labels[rows],
+                                  np.asarray(r_j.labels)[rows, :K])
 
 
 def test_signs_and_balance_permutation_match_jax():
