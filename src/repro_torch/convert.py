@@ -2,8 +2,8 @@
 
 The JAX package holds jax arrays; handed over as numpy, they become the
 port's objects on a device: a packed `BlockSparseModel` or its int8
-form `Int8BlockSparseModel`, a trained `DiSMECModel`, a `TronResult`, or
-a warm start W0. For example
+form `Int8BlockSparseModel`, a trained `DiSMECModel`, a `TronResult`, a
+warm start W0, or an LM's parameters (`lm_params_from_jax`). For example
 
     fields = {f: np.asarray(getattr(jax_model, f))
               for f in ("blocks", "block_rows", "block_cols", "row_ptr")}
@@ -95,3 +95,45 @@ def warm_start_from_numpy(W0: np.ndarray, *, device=None) -> torch.Tensor:
     `make_batch_solver(warm=True)` take it as is."""
     return torch.tensor(np.asarray(W0, np.float32),
                         device=resolve_device(device))
+
+
+def _tensor(a: np.ndarray) -> torch.Tensor:
+    """A numpy array as a tensor; bfloat16 arrays (ml_dtypes) by their
+    bits."""
+    a = np.array(a, order="C")                  # a writable copy
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def lm_params_from_jax(cfg, params_np: dict, *, device=None):
+    """The port's LM parameters (`models.transformer.LMParams`) from the
+    JAX package's parameter tree as numpy arrays: `embed`, `final_norm`,
+    `head` and `blocks`, whose leaves are stacked over the n_layers
+    layers (leading dim L), e.g.
+    `jax.tree.map(np.asarray, build_model(cfg).init(key))`. The layer axis
+    is unstacked into `blocks.<i>.` entries; every leaf must fill a
+    parameter of the same shape, and none may be missing."""
+    from repro_torch.models.transformer import LMParams
+
+    flat: dict[str, torch.Tensor] = {}
+
+    def walk(prefix: str, tree, layer: Optional[int]) -> None:
+        for key, val in tree.items():
+            if isinstance(val, dict):
+                walk(f"{prefix}{key}.", val, layer)
+            else:
+                a = np.asarray(val)
+                flat[prefix + key] = _tensor(a if layer is None else a[layer])
+
+    for key, val in params_np.items():
+        if key == "blocks":
+            for i in range(cfg.n_layers):
+                walk(f"blocks.{i}.", val, i)
+        elif isinstance(val, dict):
+            walk(f"{key}.", val, None)
+        else:
+            flat[key] = _tensor(np.asarray(val))
+    params = LMParams(cfg, device=resolve_device(device))
+    params.load_state_dict(flat, strict=True)
+    return params

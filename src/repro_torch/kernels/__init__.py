@@ -14,4 +14,6 @@ for sm_90a with nvcc at first use.
   hinge        fused squared-hinge objective, gradient and active mask
                (TRON's obj_grad)
   hvp          generalized-Hessian vector product (TRON's CG step)
+  banded_attn  causal sliding-window GQA attention over each query's band
+               of keys (the LM's local attention layers)
 """

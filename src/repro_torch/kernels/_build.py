@@ -39,7 +39,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 #: `build/kernels` at the root of the checkout (git-ignored).
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("bsr_predict", "topk", "hinge", "hvp")
+KERNELS = ("bsr_predict", "topk", "hinge", "hvp", "banded_attn")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

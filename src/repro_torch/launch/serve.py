@@ -1,4 +1,17 @@
-"""Serving launcher: XMC top-k label serving with the PyTorch port.
+"""Serving launcher: LM decode or XMC top-k label serving with the
+PyTorch port.
+
+LM mode (batched greedy decode of ragged prompts; random weights from
+--seed, `use_swa` as the architecture has it):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
+      --steps 16 --batch 4                  # full width, on the card
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
+      --smoke --device cpu                  # the smoke config, on the CPU
+
+Only the dense and hybrid families are ported; the others, the
+encoder-decoder and the modality-prefix archs exit with an error naming
+their ROADMAP item.
 
 XMC mode (the paper's distributed prediction as a service; trains and
 checkpoints a small sparse model first if --ckpt does not exist yet, then
@@ -20,9 +33,8 @@ an open-loop Poisson load generator drives the router):
 
 With no --model, a single model named "default" is built from the plain
 XMC flags (--ckpt/--backend/--k/--max-batch-delay-ms/--max-queue).
-Everything runs on the card unless `--device cpu` is given. LM decode
-(`--arch`) is not ported yet (ROADMAP Queue A item 8) and exits with an
-error. A port of the JAX package's launcher of the same name.
+Everything runs on the card unless `--device cpu` is given. A port of the
+JAX package's launcher of the same name.
 """
 
 from __future__ import annotations
@@ -36,11 +48,6 @@ import time
 from contextlib import contextmanager
 
 import numpy as np
-
-#: What LM mode answers: its models, layers and kernels are not ported.
-LM_NOT_PORTED = ("LM mode (--arch) is not ported to PyTorch yet; see "
-                 "ROADMAP Queue A item 8 (the LM side). This launcher "
-                 "runs XMC models only: pass --xmc")
 
 #: --model value: NAME=CKPT_DIR[,key=value...]; these keys override the
 #: checkpoint's own ServeSpec for that model's server.
@@ -245,6 +252,38 @@ def serve_xmc_server(args) -> None:
               f"wall across {len(names)} model(s)")
 
 
+def serve_lm(args) -> None:
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.serve import serve_batch
+
+    cfg = get_config(args.arch, smoke=args.smoke)
+    if cfg.is_encoder_decoder or cfg.n_prefix:
+        raise SystemExit("serve CLI drives text-only archs; encoder-decoder "
+                         "and VLM serving is not ported yet: ROADMAP Queue "
+                         "A item 8c")
+    try:
+        model = build_model(cfg, device=args.device)
+    except NotImplementedError as e:
+        raise SystemExit(str(e)) from None
+    params = model.init(torch.Generator(device=model.device)
+                        .manual_seed(args.seed))
+    rng = np.random.default_rng(0)
+    reqs = [rng.integers(2, cfg.vocab, size=rng.integers(4, 12))
+            for _ in range(args.batch)]
+    t0 = time.perf_counter()
+    outs = serve_batch(model, params, reqs, steps=args.steps,
+                       use_swa=cfg.swa_always)
+    dt = time.perf_counter() - t0
+    for i, o in enumerate(outs):
+        print(f"req[{i}] -> {o.tolist()}")
+    n_tok = args.batch * args.steps
+    print(f"# {n_tok} tokens in {dt:.1f}s ({1e3 * dt / n_tok:.1f} ms/tok) "
+          f"on {model.device.type}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--xmc", action="store_true",
@@ -271,8 +310,15 @@ def main() -> None:
                          "(lifecycle.refresh.CheckpointWatcher)")
     ap.add_argument("--watch-interval", type=float, default=2.0,
                     help="server mode: --watch poll interval, seconds")
-    ap.add_argument("--arch", default=None,
-                    help="LM mode: not ported (exits with an error)")
+    from repro_torch.configs.registry import ARCH_IDS
+    ap.add_argument("--arch", default=None, choices=list(ARCH_IDS),
+                    help="LM mode: architecture to serve")
+    ap.add_argument("--smoke", action="store_true",
+                    help="LM mode: the architecture's reduced config")
+    ap.add_argument("--steps", type=int, default=16,
+                    help="LM mode: tokens to generate per request")
+    ap.add_argument("--batch", type=int, default=4,
+                    help="LM mode: ragged prompts of 4-11 tokens")
     from repro_torch.serve.xmc import available_backends
     ap.add_argument("--backend", default="dense",
                     choices=available_backends(),
@@ -305,8 +351,10 @@ def main() -> None:
             serve_xmc(args)
     elif args.server:
         ap.error("--server requires --xmc (the LM path has no async server)")
+    elif args.arch is None:
+        ap.error("pass --xmc (XMC serving) or --arch ID (LM decode)")
     else:
-        ap.error(LM_NOT_PORTED)
+        serve_lm(args)
 
 
 if __name__ == "__main__":

@@ -15,7 +15,7 @@ Several workers on one --out (`--workers 2 --worker-id node0`, ...) claim
 label batches through the manifest's lease table and drain one queue into
 one checkpoint. Everything runs on the card unless `--device cpu` is
 given. `--mesh` (several GPUs) raises: it is ROADMAP Queue A item 6. LM
-training (`--arch`) is not ported (Queue A item 8) and exits with an
+training (`--arch`) is not ported (Queue A item 8b) and exits with an
 error. A port of the JAX package's launcher of the same name.
 """
 
@@ -28,7 +28,10 @@ import time
 
 import torch
 
-from repro_torch.launch.serve import LM_NOT_PORTED
+#: What LM mode answers: LM training is not ported.
+LM_NOT_PORTED = ("LM training (--arch) is not ported to PyTorch yet; see "
+                 "ROADMAP Queue A item 8b. This launcher trains XMC models "
+                 "only: pass --xmc")
 
 
 def train_xmc(args) -> None:
@@ -110,7 +113,7 @@ def main() -> None:
     ap.add_argument("--xmc", action="store_true",
                     help="run the streaming XMC pipeline")
     ap.add_argument("--arch", default=None,
-                    help="LM mode: not ported (exits with an error)")
+                    help="LM training: not ported (exits with an error)")
     ap.add_argument("--mesh", default=None,
                     help="e.g. 2x4 (data x model); several GPUs are not "
                          "ported and raise")

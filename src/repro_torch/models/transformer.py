@@ -1,0 +1,408 @@
+"""Decoder-only LM assembly: parameters, the serving cache, prefill and
+one-token decode.
+
+The port of the serving half of the JAX package's `models/transformer.py`
+for the `dense` and `hybrid` (hymba) families. The JAX package stacks the
+layers' parameters and scans over them; here a `ModuleList` of `Block`s
+holds them and a Python loop runs them, so each layer's attention window
+is a plain int, as the JAX package keeps it static. `state_dict` keys are
+the JAX parameter paths with the layer index spelled out
+(`blocks.3.attn.wq` is JAX's `blocks["attn"]["wq"][3]`).
+
+  prefill     — full-sequence forward that fills the serving cache and
+                returns the last position's top-k
+  decode_step — ONE token against the cache
+
+Long sequences (T > DENSE_ATTN_MAX_T) attend in bands where a layer's
+window cuts work (`layers.banded_attention`: the banded-attention kernel
+on the card), blockwise with an online softmax elsewhere. Every top-k goes
+through the port's top-k ops (the blocked top-k kernel on the card).
+
+The `moe` and `ssm` families, the encoder-decoder and modality prefixes
+raise NotImplementedError naming their ROADMAP item; `forward` and the
+training loss come with LM training. `prefill` and `decode_step` run
+under `torch.inference_mode`.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.head import init_head
+from repro_torch.kernels.topk import ops as topk_ops
+from repro_torch.models import layers, ssm
+from repro_torch.models.layers import matmul, param
+
+#: What the port does not run yet, by the ROADMAP item that ports it.
+NOT_PORTED = {
+    "moe": "the moe family (models/moe.py) is not ported yet: ROADMAP "
+           "Queue A item 8c",
+    "ssm": "the ssm family (xLSTM's mLSTM and sLSTM) is not ported yet: "
+           "ROADMAP Queue A item 8c",
+    "encdec": "encoder-decoder models (models/encdec.py) are not ported "
+              "yet: ROADMAP Queue A item 8c",
+    "prefix": "modality prefixes (VLM patches, audio frames) are not "
+              "ported yet: ROADMAP Queue A item 8c",
+    "train": "LM training (forward, train_loss, the OvR and softmax head "
+             "losses) is not ported yet: ROADMAP Queue A item 8b",
+}
+
+
+def check_ported(cfg: ArchConfig) -> None:
+    """Raise NotImplementedError for a config the port does not run."""
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError(f"{cfg.name}: {NOT_PORTED['encdec']}")
+    if cfg.n_prefix or cfg.modality != "text":
+        raise NotImplementedError(f"{cfg.name}: {NOT_PORTED['prefix']}")
+    if cfg.family in ("moe", "ssm"):
+        raise NotImplementedError(f"{cfg.name}: {NOT_PORTED[cfg.family]}")
+
+
+# ---------------------------------------------------------------------------
+# Block kinds and windows
+# ---------------------------------------------------------------------------
+
+def block_kind(cfg: ArchConfig, idx: int) -> str:
+    if cfg.family == "ssm":
+        pat = cfg.block_pattern or ("m",)
+        return {"m": "mlstm", "s": "slstm"}[pat[idx % len(pat)]]
+    if cfg.family == "hybrid":
+        return "hybrid"
+    return "attn"
+
+
+def uses_layer_scan(cfg: ArchConfig) -> bool:
+    """Every block has the same parameter structure (all but xLSTM): the
+    JAX package scans over such stacks; its caches stack over layers."""
+    return cfg.family != "ssm"
+
+
+def layer_windows_static(cfg: ArchConfig, *, use_swa: bool) -> tuple:
+    """Per-layer window sizes as Python ints; 0 = full attention.
+    hymba: SWA everywhere except global_attn_layers; mixtral: SWA
+    everywhere; dense --swa variant: SWA everywhere."""
+    w = cfg.sliding_window if (cfg.sliding_window and use_swa) else 0
+    wins = [w] * cfg.n_layers
+    for g in cfg.global_attn_layers:
+        if g < cfg.n_layers:
+            wins[g] = 0
+    return tuple(wins)
+
+
+def window_segments(cfg: ArchConfig, *, use_swa: bool) -> list:
+    """Maximal runs of consecutive layers sharing a window:
+    [(start, end, window), ...]."""
+    wins = layer_windows_static(cfg, use_swa=use_swa)
+    segs, s = [], 0
+    for i in range(1, len(wins) + 1):
+        if i == len(wins) or wins[i] != wins[s]:
+            segs.append((s, i, wins[s]))
+            s = i
+    return segs
+
+
+#: The window bound of a full-attention layer in one-token decode.
+FULL_WINDOW = 2 ** 30
+
+
+def layer_windows(cfg: ArchConfig, *, use_swa: bool) -> tuple:
+    """Per-layer window bound of the one-token decode, where the window is
+    only a mask bound: full-attention layers get FULL_WINDOW."""
+    return tuple(w if w > 0 else FULL_WINDOW
+                 for w in layer_windows_static(cfg, use_swa=use_swa))
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+def _dtype(cfg: ArchConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+class Block(nn.Module):
+    """norm1, attn [+ mamba for hybrid], norm2 + mlp (when d_ff > 0)."""
+
+    def __init__(self, cfg: ArchConfig, attn: layers.Attention,
+                 mamba: Optional[ssm.Mamba], mlp: Optional[layers.MLP],
+                 device=None):
+        super().__init__()
+        self.norm1 = layers.init_norm(cfg, cfg.d_model, device=device)
+        self.attn = attn
+        if mamba is not None:
+            self.mamba = mamba
+        if cfg.d_ff > 0:
+            self.norm2 = layers.init_norm(cfg, cfg.d_model, device=device)
+            self.mlp = mlp
+
+
+def _empty_block(cfg: ArchConfig, kind: str, dtype, device) -> Block:
+    return Block(
+        cfg, layers.Attention(cfg, dtype, device=device),
+        ssm.Mamba(cfg, dtype, cfg.d_model, device=device)
+        if kind == "hybrid" else None,
+        layers.MLP(cfg.d_model, cfg.d_ff, dtype, cfg.act, device=device)
+        if cfg.d_ff > 0 else None, device=device)
+
+
+def _init_block(cfg: ArchConfig, generator: torch.Generator, kind: str,
+                dtype) -> Block:
+    return Block(
+        cfg, layers.init_attention(cfg, generator, dtype),
+        ssm.init_mamba(cfg, generator, dtype, cfg.d_model)
+        if kind == "hybrid" else None,
+        layers.init_mlp(generator, cfg.d_model, cfg.d_ff, dtype, cfg.act)
+        if cfg.d_ff > 0 else None, device=generator.device)
+
+
+class LMParams(nn.Module):
+    """embed (Vp, d), final_norm, blocks (a ModuleList of n_layers Blocks)
+    and head (Vp, d) unless the embeddings are tied. With a generator the
+    values are drawn from it, on its device (embed, then the blocks in
+    order, then head); without one they are left unset for
+    `convert.lm_params_from_jax` to load."""
+
+    def __init__(self, cfg: ArchConfig, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        check_ported(cfg)
+        if generator is not None:
+            device = generator.device
+        dtype, Vp, d = _dtype(cfg), cfg.padded_vocab(), cfg.d_model
+        self.embed = param(
+            torch.empty((Vp, d), dtype=dtype, device=device)
+            if generator is None else
+            layers.normal(generator, (Vp, d), d ** -0.5, dtype))
+        self.final_norm = layers.init_norm(cfg, d, device=device)
+        self.blocks = nn.ModuleList(
+            _empty_block(cfg, block_kind(cfg, i), dtype, device)
+            if generator is None else
+            _init_block(cfg, generator, block_kind(cfg, i), dtype)
+            for i in range(cfg.n_layers))
+        if not cfg.tie_embeddings:
+            self.head = param(
+                torch.empty((Vp, d), dtype=dtype, device=device)
+                if generator is None else
+                init_head(generator, Vp, d, dtype))
+
+
+def init_params(cfg: ArchConfig, generator: torch.Generator) -> LMParams:
+    """Random parameters drawn from `generator`, on its device, with the
+    JAX package's distributions (not its numbers: the generators differ)."""
+    return LMParams(cfg, generator=generator)
+
+
+def head_weight(cfg: ArchConfig, params: LMParams) -> torch.Tensor:
+    return params.embed if cfg.tie_embeddings else params.head
+
+
+# ---------------------------------------------------------------------------
+# Full-sequence attention and mixing
+# ---------------------------------------------------------------------------
+
+def _attention_window(cfg: ArchConfig, p: layers.Attention, x: torch.Tensor,
+                      positions: torch.Tensor, window: int,
+                      project: bool = True, rope=None):
+    """Attention with a static window (0 = full) -> (out, k, v), k and v
+    for the cache. Long sequences go to banded_attention (only each
+    query's band of keys) when the window cuts work, else to the
+    online-softmax blockwise attention. project=False skips @wo (the
+    hybrid block fuses it with the mamba out-projection). `rope`: the
+    stack's `layers.rope_tables`."""
+    T = x.shape[1]
+    q, k, v = layers._qkv(cfg, p, x, positions, rope)
+    if T > layers.DENSE_ATTN_MAX_T:
+        if window and window < T:
+            out = layers.banded_attention(cfg, q, k, v, window=window)
+        else:
+            out = layers.blockwise_attention(cfg, q, k, v,
+                                             window=window or None)
+    else:
+        mask = layers.causal_mask(T, T, window=window or None,
+                                  device=x.device)
+        out = layers._sdpa(cfg, q, k, v, mask)
+    return (matmul(out, p.wo) if project else out), k, v
+
+
+def _hybrid_mix(cfg: ArchConfig, blk: Block, h: torch.Tensor,
+                positions: torch.Tensor, window: int, rope=None):
+    """hymba's parallel attention and mamba heads, mean-combined as
+    (0.5 * [ctx, y]) @ [[wo], [w_out]] -> (mix, k, v, mamba state)."""
+    ctx, k, v = _attention_window(cfg, blk.attn, h, positions, window,
+                                  project=False, rope=rope)   # (B,T,H*hd)
+    y, sst = ssm.mamba(cfg, blk.mamba, h, cfg.d_model, return_state=True,
+                       project=False)
+    w_cat = torch.cat([blk.attn.wo, blk.mamba.w_out], dim=0)
+    mixed = torch.cat([ctx, y.to(ctx.dtype)], dim=-1)
+    return matmul(0.5 * mixed, w_cat), k, v, sst
+
+
+def _ffn(cfg: ArchConfig, blk: Block, x: torch.Tensor) -> torch.Tensor:
+    if cfg.d_ff > 0:
+        x = x + layers.mlp(blk.mlp, layers.apply_norm(cfg, blk.norm2, x),
+                           cfg.act)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Serving: cache init, prefill, one-token decode
+# ---------------------------------------------------------------------------
+
+def decode_cache_len(cfg: ArchConfig, seq_len: int, *, use_swa: bool) -> int:
+    """Uniform per-layer cache length. Pure-SWA stacks (dense --swa)
+    ring-buffer at `window`; stacks with any global layer (hymba)
+    allocate full length (the window mask still applies per layer)."""
+    if cfg.sliding_window and use_swa and not cfg.global_attn_layers:
+        return min(cfg.sliding_window, seq_len)
+    return seq_len
+
+
+def init_cache(cfg: ArchConfig, B: int, seq_len: int, *, use_swa: bool,
+               dtype=torch.bfloat16, device=None) -> dict:
+    """Serving cache: "k", "v" (n_layers, B, T, KV, hd) and, for hybrid
+    stacks, "ssm" (a MambaState stacked over layers)."""
+    check_ported(cfg)
+    t_eff = decode_cache_len(cfg, seq_len, use_swa=use_swa)
+    L = cfg.n_layers
+    shape = (L, B, t_eff, cfg.n_kv_heads, cfg.head_dim)
+    cache = {"k": torch.zeros(shape, dtype=dtype, device=device),
+             "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if cfg.family == "hybrid":
+        st = ssm.mamba_init_state(cfg, B, cfg.d_model, device=device)
+        cache["ssm"] = ssm.MambaState(
+            *(torch.zeros((L,) + a.shape, dtype=a.dtype, device=device)
+              for a in st))
+    return cache
+
+
+def _decode_valid(T_max: int, pos: int, eff: int, device) -> torch.Tensor:
+    """(1, 1, 1, 1, T_max) mask of the cache slots the token at `pos`
+    attends to: slot s holds the absolute position p_s with
+    p_s % T_max == s; valid iff written and within the window `eff`."""
+    slots = torch.arange(T_max, device=device)
+    abs_pos = pos - (pos - slots) % T_max
+    valid = (abs_pos >= 0) & (abs_pos > pos - eff) & (abs_pos <= pos)
+    return valid[None, None, None, None, :]
+
+
+def _attention_decode_dyn(cfg: ArchConfig, p: layers.Attention,
+                          x: torch.Tensor, positions: torch.Tensor,
+                          k_cache: torch.Tensor, v_cache: torch.Tensor,
+                          pos: int, eff: int, valid=None,
+                          rope=None) -> torch.Tensor:
+    """One-token attention against one layer's cache (B, T_max, KV, hd),
+    written in place at slot pos % T_max; `eff` bounds the window. `valid`
+    (`_decode_valid`) and `rope` (`layers.rope_tables`), if the caller has
+    them, are shared by the layers of a step."""
+    T_max = k_cache.shape[1]
+    q, k, v = layers._qkv(cfg, p, x, positions, rope)
+    slot = pos % T_max
+    k_cache[:, slot] = k[:, 0].to(k_cache.dtype)
+    v_cache[:, slot] = v[:, 0].to(v_cache.dtype)
+    if valid is None:
+        valid = _decode_valid(T_max, pos, eff, x.device)
+    out = layers._sdpa(cfg, q, k_cache, v_cache, valid)
+    return matmul(out, p.wo)
+
+
+def _decode_block(cfg: ArchConfig, blk: Block, kind: str, x: torch.Tensor,
+                  positions: torch.Tensor, window: int, kc: torch.Tensor,
+                  vc: torch.Tensor, sst: Optional[ssm.MambaState],
+                  pos: int, valid=None, rope=None):
+    """One decode block: x (B, 1, d) -> (x, mamba state); kc and vc are
+    updated in place."""
+    h = layers.apply_norm(cfg, blk.norm1, x)
+    mix = _attention_decode_dyn(cfg, blk.attn, h, positions, kc, vc, pos,
+                                window, valid, rope)
+    if kind == "hybrid":
+        m, sst = ssm.mamba_decode(cfg, blk.mamba, h, sst, cfg.d_model)
+        mix = 0.5 * (mix + m)
+    return _ffn(cfg, blk, x + mix), sst
+
+
+def _tokens(tokens, device) -> torch.Tensor:
+    if not isinstance(tokens, torch.Tensor):
+        tokens = torch.from_numpy(np.array(tokens))     # a writable copy
+    return tokens.to(device=device, dtype=torch.long)
+
+
+def _top_k(cfg: ArchConfig, params: LMParams, x: torch.Tensor, k: int):
+    """Top-k of the head's logits for the features x (B, d), in float32:
+    the blocked top-k kernel on the card, the stable sort on the CPU."""
+    W = head_weight(cfg, params)
+    logits = x.float() @ W.float().T
+    return topk_ops.topk(logits, k)
+
+
+@torch.inference_mode()
+def decode_step(cfg: ArchConfig, params: LMParams, cache: dict, tokens,
+                pos: int, *, use_swa: bool = False, top_k: int = 5):
+    """ONE new token (B, 1) against the cache at position `pos` ->
+    (top-k values, top-k ids int32, cache), the cache updated in place."""
+    check_ported(cfg)
+    x = params.embed[_tokens(tokens, params.embed.device)]      # (B, 1, d)
+    B = x.shape[0]
+    pos = int(pos)
+    positions = torch.full((B, 1), pos, dtype=torch.long, device=x.device)
+    wins = layer_windows(cfg, use_swa=use_swa)
+    T_max = cache["k"].shape[2]
+    valid = {w: _decode_valid(T_max, pos, w, x.device) for w in set(wins)}
+    rope = layers.rope_tables(cfg, positions)
+    for i, blk in enumerate(params.blocks):
+        kind = block_kind(cfg, i)
+        sst = None
+        if kind == "hybrid":
+            sst = ssm.MambaState(cache["ssm"].h[i], cache["ssm"].conv[i])
+        x, sst = _decode_block(cfg, blk, kind, x, positions, wins[i],
+                               cache["k"][i], cache["v"][i], sst, pos,
+                               valid[wins[i]], rope)
+        if kind == "hybrid":
+            cache["ssm"].h[i].copy_(sst.h)
+            cache["ssm"].conv[i].copy_(sst.conv)
+    x = layers.apply_norm(cfg, params.final_norm, x)
+    vals, idx = _top_k(cfg, params, x[:, 0], top_k)
+    return vals, idx, cache
+
+
+@torch.inference_mode()
+def prefill(cfg: ArchConfig, params: LMParams, tokens,
+            prefix: Optional[torch.Tensor] = None, *, use_swa: bool = False,
+            top_k: int = 5):
+    """Full-sequence forward that fills the serving cache -> (top-k
+    values, top-k ids int32, cache) at the last position (k = 5, as the
+    JAX package fixes it). Cache length == prompt length (bf16, as the JAX
+    package stores it)."""
+    check_ported(cfg)
+    if prefix is not None:
+        raise NotImplementedError(NOT_PORTED["prefix"])
+    x = params.embed[_tokens(tokens, params.embed.device)]
+    B, T, _ = x.shape
+    positions = torch.arange(T, device=x.device).expand(B, T)
+    wins = layer_windows_static(cfg, use_swa=use_swa)
+    t_eff = decode_cache_len(cfg, T, use_swa=use_swa)
+    cache = init_cache(cfg, B, t_eff, use_swa=use_swa, device=x.device)
+    rope = layers.rope_tables(cfg, positions)
+    states = []
+    for i, blk in enumerate(params.blocks):
+        h = layers.apply_norm(cfg, blk.norm1, x)
+        if block_kind(cfg, i) == "hybrid":
+            mix, k, v, sst = _hybrid_mix(cfg, blk, h, positions, wins[i],
+                                         rope)
+            states.append(sst)
+        else:
+            mix, k, v = _attention_window(cfg, blk.attn, h, positions,
+                                          wins[i], rope=rope)
+        cache["k"][i].copy_(k[:, T - t_eff:])
+        cache["v"][i].copy_(v[:, T - t_eff:])
+        x = _ffn(cfg, blk, x + mix)
+    if states:
+        cache["ssm"] = ssm.MambaState(*(torch.stack(a) for a in
+                                        zip(*states)))
+    x = layers.apply_norm(cfg, params.final_norm, x)
+    vals, idx = _top_k(cfg, params, x[:, -1], top_k)
+    return vals, idx, cache

@@ -11,10 +11,14 @@ request-path server.
               multi-model routing (`ModelRouter`). Spec-driven entry:
               `CheckpointHandle.server()`.
   shortlist — the coarse candidate stage of two-stage scoring.
+  engine    — LM serving: greedy decode against the cache
+              (`generate`, `serve_batch`).
   batching  — the size-bucketed micro-batch queue with arrival timestamps
-              and deadline launch, and latency accounting.
+              and deadline launch, latency accounting, and LM token
+              padding.
 """
 
+from repro_torch.serve.engine import generate, serve_batch
 from repro_torch.serve.server import (ModelRouter, Rejected, XMCFuture,
                                       XMCServer)
 from repro_torch.serve.shortlist import (ShortlistArtifact,
@@ -36,4 +40,4 @@ __all__ = ["XMCEngine", "XMCResult", "XMCServer", "XMCFuture",
            "build_tree_shortlist", "coarse_scores",
            "cooccurrence_label_order", "make_backend", "register_backend",
            "unregister_backend", "available_backends", "reset_warmup_cache",
-           "warmup_cache_stats"]
+           "warmup_cache_stats", "generate", "serve_batch"]

@@ -1,8 +1,10 @@
-"""Request-side batching for XMC serving (numpy only).
+"""Request-side batching for serving (numpy only).
 
 A ragged request stream (variable instance counts) is packed into a small
 set of fixed shapes:
 
+  * `left_pad_tokens`   — ragged token id lists -> one (B, T) batch (LM
+                          decode).
   * `pick_bucket`       — smallest bucket covering n rows.
   * `pad_rows`          — zero-pad a feature batch up to its bucket size.
   * `MicroBatchQueue`   — FIFO micro-batcher: coalesces queued requests into
@@ -12,8 +14,9 @@ set of fixed shapes:
   * `LatencyStats`      — per-request latency percentiles (p50/p90/p99) over
                           enqueue -> completion spans.
 
-A copy of the JAX package's module of the same name, minus the LM-only
-token padding; `repro_torch.serve.xmc.XMCEngine` is a loop around it.
+A copy of the JAX package's module of the same name;
+`repro_torch.serve.xmc.XMCEngine` and `repro_torch.serve.engine` are
+loops around it.
 """
 
 from __future__ import annotations
@@ -26,6 +29,19 @@ from typing import Iterator, Optional, Sequence
 import numpy as np
 
 DEFAULT_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256)
+
+
+def left_pad_tokens(requests: Sequence[np.ndarray],
+                    pad_id: int = 0) -> np.ndarray:
+    """Ragged token id lists -> one left-padded (B, max_len) int32 batch.
+    The padding tokens are attended to like any other (no mask), as in
+    the JAX package."""
+    B = len(requests)
+    T0 = max(len(r) for r in requests)
+    toks = np.full((B, T0), pad_id, np.int32)
+    for i, r in enumerate(requests):
+        toks[i, T0 - len(r):] = r
+    return toks
 
 
 def pick_bucket(n: int, buckets: Sequence[int] = DEFAULT_BUCKETS) -> int:

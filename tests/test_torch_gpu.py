@@ -14,6 +14,7 @@ same reason; `act` identical wherever |z| > 1e-5; two launches on the
 same inputs identical bit for bit (no atomics, fixed summation order).
 """
 
+import copy
 import time
 
 import numpy as np
@@ -611,3 +612,107 @@ def test_fit_on_the_card(cuda, tmp_path):
     rows = (s[:, 4] - s[:, 5]) > 1e-4
     assert rows.sum() > 50
     np.testing.assert_array_equal(ids_a[rows], ids_c[rows])
+
+
+# ---------------------------------------------------------------------------
+# Banded attention (the LM's local layers) and the LM serving path.
+# Tolerances, those of the JAX kernel test: 2e-4 in float32 (the same fp32
+# products summed in another order); 3e-2 in bfloat16, where the plain
+# version rounds the softmax weights and the output to bf16 and the
+# kernel keeps them in fp32.
+# ---------------------------------------------------------------------------
+
+BANDED_CASES = [  # (B, T, H, KV, hd, window): the JAX kernel test's four,
+    (1, 256, 4, 2, 32, 64),                   # then hymba-1.5b's heads
+    (2, 512, 4, 4, 64, 128),
+    (1, 1024, 8, 2, 64, 256),
+    (2, 384, 6, 2, 32, 100),
+    (2, 2304, 25, 5, 64, 1024),
+]
+
+
+@pytest.mark.parametrize("B,T,H,KV,hd,window", BANDED_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_banded_kernel_matches_plain(cuda, B, T, H, KV, hd, window, dtype):
+    from repro_torch.kernels.banded_attn import ops as band_ops
+    from repro_torch.kernels.banded_attn import ref as band_ref
+    g = torch.Generator(device=cuda).manual_seed(T + window)
+    q = torch.randn((B, T, H, hd), generator=g, device=cuda).to(dtype)
+    k = torch.randn((B, T, KV, hd), generator=g, device=cuda).to(dtype)
+    v = torch.randn((B, T, KV, hd), generator=g, device=cuda).to(dtype)
+    before = band_ops.banded_attention_cuda.launches
+    got = band_ops.banded_attention(q, k, v, window=window)
+    again = band_ops.banded_attention(q, k, v, window=window)
+    want = band_ref.banded_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert band_ops.banded_attention_cuda.launches == before + 2
+    assert got.dtype == dtype and got.shape == (B, T, H * hd)
+    assert torch.equal(got, again)
+    tol = 2e-4 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_banded_kernel_window_beyond_t_and_ragged(cuda):
+    """A window wider than the sequence (plain causal attention) and a
+    length no tile divides."""
+    from repro_torch.kernels.banded_attn import ops as band_ops
+    from repro_torch.kernels.banded_attn import ref as band_ref
+    g = torch.Generator(device=cuda).manual_seed(1)
+    for T, window in ((300, 500), (777, 129)):
+        q = torch.randn((1, T, 10, 128), generator=g, device=cuda)
+        k = torch.randn((1, T, 2, 128), generator=g, device=cuda)
+        v = torch.randn((1, T, 2, 128), generator=g, device=cuda)
+        got = band_ops.banded_attention(q, k, v, window=window)
+        want = band_ref.banded_attention(q, k, v, window=window)
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+def test_banded_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    from repro_torch.kernels.banded_attn import ops as band_ops
+    q = torch.zeros((1, 16, 4, 32), device=cuda)
+    k = torch.zeros((1, 16, 2, 32), device=cuda)
+    with pytest.raises(ValueError, match="hd"):
+        band_ops.banded_attention_cuda(torch.zeros((1, 16, 4, 48),
+                                                   device=cuda),
+                                       torch.zeros((1, 16, 2, 48),
+                                                   device=cuda),
+                                       torch.zeros((1, 16, 2, 48),
+                                                   device=cuda), window=4)
+    with pytest.raises(ValueError, match="type"):
+        band_ops.banded_attention_cuda(q, k.bfloat16(), k, window=4)
+    with pytest.raises(ValueError, match="Tq <= Tk"):
+        band_ops.banded_attention_cuda(q, k[:, :8], k[:, :8], window=4)
+    with pytest.raises(ValueError, match="contiguous"):
+        band_ops.banded_attention_cuda(q.transpose(1, 2), k, k, window=4)
+
+
+def test_lm_prefill_and_decode_on_the_card(cuda):
+    """hymba-1.5b-smoke on the card against the same weights on the CPU:
+    prefill at T = 2,304 launches the banded kernel once per local layer
+    and gives the CPU's top-5 ids; two greedy decode steps follow."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.banded_attn import ops as band_ops
+    from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import layer_windows_static
+    cfg = get_config("hymba-1.5b", smoke=True)
+    card, host = build_model(cfg), build_model(cfg, device="cpu")
+    p_host = host.init(torch.Generator().manual_seed(0))
+    p_card = copy.deepcopy(p_host).to(cuda)
+    toks = np.random.default_rng(0).integers(2, cfg.vocab, size=(2, 2304))
+    n_local = sum(1 for w in layer_windows_static(cfg, use_swa=True) if w)
+    before = band_ops.banded_attention_cuda.launches
+    v, i, c = card.prefill(p_card, {"tokens": toks}, use_swa=True)
+    torch.cuda.synchronize()
+    assert band_ops.banded_attention_cuda.launches == before + n_local
+    hv, hi, hc = host.prefill(p_host, {"tokens": toks}, use_swa=True)
+    np.testing.assert_array_equal(i.cpu().numpy(), hi.numpy())
+    torch.testing.assert_close(v.cpu(), hv, rtol=1e-3, atol=1e-3)
+    for key in ("k", "v"):
+        torch.testing.assert_close(c[key].cpu().float(), hc[key].float(),
+                                   rtol=2.0 ** -6, atol=1e-3)
+    before = topk_ops.blocked_topk_cuda.launches
+    out = card.decode_step(p_card, {
+        **c, **{k: torch.nn.functional.pad(c[k], (0, 0, 0, 0, 0, 2))
+                for k in ("k", "v")}}, i[:, :1], 2304, use_swa=True)
+    assert topk_ops.blocked_topk_cuda.launches == before + 1
+    assert out[1].shape == (2, 5) and out[1].device.type == "cuda"

@@ -528,7 +528,12 @@ def test_train_then_serve_cli_on_the_cpu(tmp_path):
 @pytest.mark.parametrize("module", ["repro_torch.launch.serve",
                                     "repro_torch.launch.train"])
 def test_lm_mode_names_the_roadmap_item(module):
-    proc = _cli(module, "--arch", "qwen1.5-0.5b")
+    """What LM mode does not run names its ROADMAP item: LM training, and
+    in serving the families not ported yet (moe here)."""
+    args = {"repro_torch.launch.serve": ("--arch", "mixtral-8x22b",
+                                         "--smoke", "--device", "cpu"),
+            "repro_torch.launch.train": ("--arch", "qwen1.5-0.5b")}[module]
+    proc = _cli(module, *args)
     text, _ = proc.communicate(timeout=120)
     assert proc.returncode != 0
     assert "Queue A item 8" in text
