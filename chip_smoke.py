@@ -37,7 +37,9 @@ seed:
                and the per-query kernels at n = 1 the shared ones, bit for
                bit, and the per-query int8 kernel over full lists the
                exhaustive int8 one; empty row blocks and the sentinel
-               score exact zeros; timed like 3;
+               score exact zeros; the gathered, gathered int8 and
+               per-query int8 kernels repeat bit for bit over 50 launches
+               and over launches on two streams at once; timed like 3;
   4c. serve: shortlist, shortlist per-query, shortlist int8, shortlist
                int8 per-query, int8 — the same checkpoint and requests
                through each of those `ServeSpec`s: each configuration's
@@ -455,6 +457,28 @@ def sparse_bsr(blocks, cols, crow, shape):
     return lambda x: (A @ x.T).T
 
 
+def repeat_check(name: str, kernel, n: int, launches: int = 50,
+                 pairs: int = 10) -> None:
+    """`launches` launches of `kernel` on one input, then `pairs` pairs on
+    two streams at once: each output equal to the first bit for bit (the
+    kernels use no atomics and sum in a fixed order, so a race would
+    show)."""
+    first = kernel()
+    outs = [kernel() for _ in range(launches)]
+    torch.cuda.synchronize()
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    for _ in range(pairs):
+        for s in streams:
+            with torch.cuda.stream(s):
+                outs.append(kernel())
+    torch.cuda.synchronize()
+    same = sum(torch.equal(o, first) for o in outs)
+    _need(same == len(outs), f"{name} at n={n}: {len(outs) - same} of "
+          f"{len(outs)} repeated launches differ from the first")
+    print(f"   {name} n={n:3d}: {launches} launches and {pairs} pairs on "
+          "two streams equal to the first bit for bit", flush=True)
+
+
 def check_shortlist_int8(model, q, centroids, X, flush) -> dict:
     """Kernels 4-8 against their plain versions on the serving model, at
     the selection the checkpoint's centroid coarse stage gives at the
@@ -608,6 +632,8 @@ def check_shortlist_int8(model, q, centroids, X, flush) -> dict:
         print(f"   n={n:3d}: contracts (a) to (e) hold bit for bit; "
               f"shared selection {ns} blocks, per-query union {nu} blocks",
               flush=True)
+        for name in ("bsr_gather", "bsr_gather_int8", "bsr_gather_pq_int8"):
+            repeat_check(name, cases[name][0], n)
     # Row block 0 emptied (its packed blocks dropped) and the sentinel.
     p1 = int(ptr[1])
     e_ptr = (ptr - p1).clamp_min(0).int()
@@ -719,7 +745,7 @@ def plain_engine_topk(engine, x: np.ndarray):
     return np.concatenate(vs), np.concatenate(ids)
 
 
-def breakdown(engine, x: np.ndarray, reps: int = 5) -> dict:
+def breakdown(engine, x: np.ndarray, reps: int = 21) -> dict:
     """Where one request's time goes, stage by stage as `XMCEngine.step`
     runs it (median of `reps`, host clock, each stage synchronised)."""
     stages = {"queue_and_pad": [], "host_to_card": [], "card_topk": [],

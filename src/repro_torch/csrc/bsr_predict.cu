@@ -1,7 +1,8 @@
 // Block-sparse (BSR) predict for Hopper: scores = x @ W_pruned^T over the
 // packed surviving blocks of a Delta-pruned DiSMEC model, in six variants
-// of one loop (weights fp32 or int8 with per-block scales; every row block,
-// a shared selection of row blocks, or each query's own selection).
+// of one loop, in two kernels (weights fp32 or int8 with per-block scales;
+// every row block, a shared selection of row blocks, or each query's own
+// selection).
 //
 // Replaces the TPU kernels of src/repro/kernels/bsr_predict/kernel.py:
 //   bsr_predict_f32        `_bsr_kernel`               (exhaustive, fp32)
@@ -13,8 +14,8 @@
 // Those walk the packed blocks in order on one core (a static grid whose
 // padding steps are clamped and gated off) and keep a row's (n, bl) output
 // tile resident across the row's blocks. Here blocks run in parallel and in
-// no order, so one CTA owns one (output slot, label tile of 128, tile of TN
-// instance rows) and loops over row_ptr[r] .. row_ptr[r+1] of its own row
+// no order, so one CTA owns one (output slot, label tile, tile of instance
+// rows) and loops over row_ptr[r] .. row_ptr[r+1] of its own row
 // block r itself; the output tile lives in registers and is written once.
 // The slot is the row block itself (exhaustive), sel[i] (shared selection:
 // output columns [i*bl, (i+1)*bl)), or sel[q, i] with one x row (per
@@ -23,38 +24,74 @@
 // selected id outside [0, R).
 //
 // Every variant runs the same per-element FFMA sequence: a thread owns
-// (row, label) pairs and adds their products in packed-block order, 16
-// features at a time in ascending order, whatever TN is. So a sorted full
-// selection reproduces the exhaustive kernel bit for bit, and the per-query
-// kernel at n = 1 reproduces the shared one (both at TN = 8, rows 1-7
-// zero-filled), in fp32 and in int8 alike. Int8 weights arrive through the
-// same cp.async pipeline (16 features in one 16-byte piece) and are
-// widened to fp32 in registers; each block's fp32 partial dot is kept
-// apart, multiplied by the block's scale when the block ends and then
-// added to the running output, with no FMA contraction: o += scale *
-// dot(x, q), as the TPU kernels compute it. No atomics and no split-K:
-// every sum runs in a fixed order.
+// (row, label) pairs and adds their products in packed-block order,
+// features in ascending order, one FFMA each, whatever the tile. Both
+// kernels below split only labels and rows across threads and CTAs, never
+// a row block's blocks or features (no split-K); `bsr_kernel`'s zero-filled
+// features past bd add an exact +0, and `gather_kernel` stops at bd. So a
+// sorted full selection reproduces the exhaustive kernel bit for bit, and
+// the per-query kernel at n = 1 reproduces the shared one, in fp32 and in
+// int8 alike. Int8 weights are widened to fp32 exactly; each block's fp32
+// partial dot is kept apart, multiplied by the block's scale when the
+// block ends and then added to the running output, with no FMA
+// contraction: o += scale * dot(x, q), as the TPU kernels compute it. No
+// atomics: every sum runs in a fixed order.
 //
 // What bounds it on an H100: at serving batch sizes (n <= 32) the weight
 // stream, every packed block it visits read once (632 MB fp32 at Wiki10-31K
 // width, 0.19 ms at 3.35 TB/s; a quarter of that in int8); at n = 256 the
 // fp32 FMAs (81 GFLOP, 1.2 ms at 67 TFLOP/s), which int8 does not reduce.
-// The design: a 3-stage cp.async pipeline runs over the flat (block,
-// 16-feature chunk) sequence of the row, so loads of the next blocks are in
-// flight while the current chunk is multiplied, with no bubble at block
-// boundaries; the CTA's TN row tiles of one row block are neighbours in
-// launch order and share each weight block through L2. Each thread
-// accumulates a (TN/8 rows x 4 labels) tile with FFMA (not TF32) from
-// 16-byte shared-memory reads: fp32 weight rows are padded to 20 floats so
-// the reads of a quarter warp hit distinct banks, int8 rows are 16
-// contiguous bytes, and x reads broadcast. A selection of B row blocks
-// launches only B * label tiles * row tiles CTAs (31 at n <= 8 with B = 31
-// on 132 SMs), so the gathered kernels sit far from their bound at small n.
+// `bsr_kernel`, the design of every variant but the gathered one at n <= 64:
+// a 3-stage cp.async pipeline runs over the flat (block, 16-feature chunk)
+// sequence of the row, so loads of the next blocks are in flight while the
+// current chunk is multiplied, with no bubble at block boundaries; the
+// CTA's TN row tiles of one row block are neighbours in launch order and
+// share each weight block through L2. Each thread accumulates a (TN/8 rows
+// x 4 labels) tile with FFMA (not TF32) from 16-byte shared-memory reads:
+// fp32 weight rows are padded to 20 floats so the reads of a quarter warp
+// hit distinct banks, int8 rows are 16 contiguous bytes (16 features in one
+// cp.async piece, widened in registers), and x reads broadcast.
+//
+// `gather_kernel`, the gathered (shared selection) kernels at n <= 64, the
+// fine stage of shortlist serving. A selection of B = 31 of 242 row blocks
+// is ~1,240 blocks (81 MB fp32, 20 MB int8). `bsr_kernel`'s 128-label tile
+// gave it 31 CTAs on 132 SMs with 2 x 8 KB in flight each: latency-bound
+// at a tenth of the memory rate. Here:
+//   - one CTA owns (slot, 32 labels) and all n rows: 124 CTAs at B = 31,
+//     bl = 128, each streaming its 32 label rows of each block;
+//   - thread 0 fills a ring of stages, each one block's 128 features, with
+//     two TMA box copies (a tensor map over blocks as (nb * bl, bd) and one
+//     over x), completing on an mbarrier: 8 stages at n <= 8, 4 above, so
+//     ~119 KB (fp32) or ~36 KB (int8) of weights are in flight per SM,
+//     several times what Little's law asks at ~1 us. Per-row 1D bulk
+//     copies (33 a stage) and per-thread 16-byte cp.async copies were
+//     tried first: both stalled on the number of requests, not bytes, at
+//     under 1 TB/s. The boxes are 16 bytes wider than the stage, which
+//     pads their rows in shared memory so lanes reading 8 rows at one
+//     feature hit distinct banks; past bd, n and Dp they arrive as zeros;
+//   - block_cols (and the int8 scales) of the row block are staged in
+//     shared memory once a pass of up to 256 blocks, while the first
+//     stages' weight copies (which need the block, not its column) are in
+//     flight; a longer row takes more passes;
+//   - at n <= 8 lanes map to labels and each warp to one row (n warps, no
+//     padded row), and a lane widens its own int8 row in registers; at
+//     9 <= n <= 64 lanes form 8 labels x 4 rows, a thread owning 4 labels
+//     x RN rows (RN = 1 to n = 16, else 2), and each int8 stage is widened
+//     once a CTA into an fp32 tile. Widening is a byte permute and an FADD
+//     (exact) instead of an I2F at a quarter of their rate.
+// What bounds it after that, on an H100 at 700 W: the weight stream at
+// n = 1 fp32 (~2.1 TB/s reached); the one dependent chain of 40 x 128
+// FFMAs per output element at n = 1 int8 (>= 11.7 us at 4 cycles each,
+// with the launch and the first loads ~16 us); shared-memory reads per
+// FFMA (3 bytes a thread-FFMA at RN = 2) at n = 32 and 64.
+// At n > 64 the gathered kernels run `bsr_kernel` at TN = 64, whose
+// 128 x 64 tile needs fewer shared-memory reads per FFMA once n fills it.
 //
 // Offsets into blocks, x and out are 64-bit: nb * bl * bd passes 2^31 at
 // WikiLSHTC-325K scale. Requires bd % 4 == 0 (fp32) or bd % 16 == 0 (int8)
 // for 16-byte copies.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -295,32 +332,461 @@ void launch(const float* x, const WT* blocks, const float* scales,
       slots, bl, bd, n_tiles, label_tiles);
 }
 
-// Checks the shape, picks TN by n (8 / 32 / 64; 8 per query) and launches
-// on `stream` of `device`; returns cudaGetLastError() after the launch.
+// ---- `gather_kernel`: the shared selection at n <= 64 (see the note) ----
+
+constexpr int kGLabels = 32;            // label tile: a weight box's rows
+constexpr int kGStaged = 256;           // block_cols (and scales) a pass
+constexpr int kGMaxWarps = 8;
+constexpr int kGMaxRows = 64;           // n the kernel serves
+
+// A stage is kGFeatures features of one block (a whole row at the usual bd
+// = 128): a weight box of 32 label rows and an x box of the CTA's rows,
+// one TMA copy each. Both boxes are 16 bytes wider than the stage (their
+// pitch), which pads their rows in shared memory: 8 lanes reading 16 bytes
+// of 8 rows at one feature hit distinct banks. The extra features are
+// never read.
+constexpr int kGFeatures = 128;
+constexpr int kXPitch = kGFeatures + 4;                 // floats
+template <typename WT> struct Gather;
+template <> struct Gather<float> {
+  static constexpr int kPitch = kGFeatures + 4;         // elements
+  static constexpr CUtensorMapDataType kType =
+      CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+};
+template <> struct Gather<int8_t> {
+  static constexpr int kPitch = kGFeatures + 16;
+  static constexpr CUtensorMapDataType kType = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+};
+
+// Ring depth: 8 stages at n <= 8 (at most 22 KB each); 4 above, where an
+// x box of up to 64 rows takes 33 KB.
+template <int LANES_L>
+__host__ __device__ constexpr int gather_stages() {
+  return LANES_L == 32 ? 8 : 4;
+}
+
+__host__ __device__ constexpr int round_kb(int bytes) {
+  return (bytes + 1023) / 1024 * 1024;
+}
+
+// Shared-memory bytes of one stage's weight and x boxes (each started on a
+// 1 KB boundary), and of one widened fp32 tile.
+template <typename WT>
+__host__ __device__ constexpr int wbox_bytes() {
+  return round_kb(kGLabels * Gather<WT>::kPitch *
+                  static_cast<int>(sizeof(WT)));
+}
+__host__ __device__ constexpr int xbox_bytes(int rows_box) {
+  return round_kb(rows_box * kXPitch * 4);
+}
+constexpr int kWideBytes = kGLabels * kXPitch * 4;
+
+// Dynamic shared memory for x boxes of `rows_box` rows: 1 KB of slack to
+// align the boxes, the ring's boxes, two widened fp32 tiles (int8 at
+// n > 8), the ring's barriers, and the staged columns and scales.
+template <typename WT, int LANES_L>
+int gather_smem(int rows_box) {
+  constexpr bool widen = sizeof(WT) == 1 && LANES_L != 32;
+  return 1024 +
+         gather_stages<LANES_L>() *
+             (wbox_bytes<WT>() + xbox_bytes(rows_box) + 8) +
+         (widen ? 2 * kWideBytes : 0) + 2 * kGStaged * 4;
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+               :: "r"(smem_u32(bar)));
+}
+
+// One arrival that also expects `bytes` of copies to complete the phase.
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// Waits for phase `parity` of `bar` to complete. A copy that never lands
+// (a fault in this file) traps after 2^26 polls instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  for (unsigned polls = 0;; ++polls) {
+    unsigned done;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n" : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+    if (done) return;
+    if (polls == (1u << 26)) __trap();
+  }
+}
+
+// Box (c0, c1) of a 2D tensor map into shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0),
+         "r"(c1), "r"(smem_u32(bar)) : "memory");
+}
+
+// Four int8 weights (one 32-bit word, lowest byte first) as fp32, exactly:
+// byte b ^ 0x80 is b + 128 in [0, 255]; placed under the exponent of 2^23
+// (0x4b0000xx) it reads 2^23 + b + 128, and subtracting 2^23 + 128 leaves
+// b. A byte permute and an FADD per weight, where a cast is an I2F at a
+// quarter of their rate.
+__device__ __forceinline__ float widen_byte(unsigned biased, unsigned sel) {
+  return __fsub_rn(__uint_as_float(__byte_perm(biased, 0x4b000000u, sel)),
+                   8388736.0f);
+}
+
+__device__ __forceinline__ float4 widen_exact(int v) {
+  const unsigned u = static_cast<unsigned>(v) ^ 0x80808080u;
+  return make_float4(widen_byte(u, 0x7440), widen_byte(u, 0x7441),
+                     widen_byte(u, 0x7442), widen_byte(u, 0x7443));
+}
+
+__device__ __forceinline__ void fma4(float& t, const float4 x,
+                                     const float4 w) {
+  t = fmaf(x.x, w.x, t);
+  t = fmaf(x.y, w.y, t);
+  t = fmaf(x.z, w.z, t);
+  t = fmaf(x.w, w.w, t);
+}
+
+// Features k .. k+3 into a thread's (RN rows x LN labels) tile, from fp32
+// rows: its labels' weight rows LANES_L rows apart from `w` (rows wpitch
+// floats apart), its x rows 32 / LANES_L rows apart from `xr` (xpitch).
+template <int LANES_L, int RN, int LN>
+__device__ __forceinline__ void ffma_step(float (&t)[RN][LN], const float* w,
+                                          const float* xr, int wpitch,
+                                          int xpitch, int k) {
+  float4 wv[LN], xv[RN];
+#pragma unroll
+  for (int q = 0; q < LN; ++q)
+    wv[q] = *reinterpret_cast<const float4*>(w + q * LANES_L * wpitch + k);
+#pragma unroll
+  for (int p = 0; p < RN; ++p)
+    xv[p] = *reinterpret_cast<const float4*>(xr + p * (32 / LANES_L) *
+                                                      xpitch + k);
+#pragma unroll
+  for (int p = 0; p < RN; ++p)
+#pragma unroll
+    for (int q = 0; q < LN; ++q) fma4(t[p][q], xv[p], wv[q]);
+}
+
+// Grid: slots x label tiles of 32. Block: warps of 32 lanes, LANES_L along
+// labels and 32 / LANES_L along rows; a thread owns RN rows and
+// 32 / LANES_L labels, each strided by its lanes, so a warp covers
+// 32 / LANES_L * RN consecutive rows and all 32 labels. Thread 0 issues
+// every copy: each stage's weight box of rows (block, l0 .. l0 + 31) and
+// x box of rows 0 .. rows_box - 1, zero-filled past bd, n and Dp.
+template <typename WT, int LANES_L, int RN>
+__global__ void __launch_bounds__(kGMaxWarps * 32)
+gather_kernel(const __grid_constant__ CUtensorMap wmap,
+              const __grid_constant__ CUtensorMap xmap,
+              const float* __restrict__ scales,
+              const int* __restrict__ block_cols,
+              const int* __restrict__ row_ptr, const int* __restrict__ sel,
+              float* __restrict__ out, int n, int out_cols, int R, int bl,
+              int bd, int label_tiles, int rows_box) {
+  constexpr bool kInt8 = sizeof(WT) == 1;
+  constexpr bool kWiden = kInt8 && LANES_L != 32;   // widen once a CTA
+  constexpr int F = kGFeatures;
+  constexpr int WP = Gather<WT>::kPitch;
+  constexpr int XP = kXPitch;
+  constexpr int S = gather_stages<LANES_L>();
+  constexpr int LN = 32 / LANES_L;     // labels a thread
+  constexpr int LR = 32 / LANES_L;     // lanes along rows
+  constexpr int WR = LR * RN;          // rows a warp
+  constexpr int WB = wbox_bytes<WT>();
+  const int XB = xbox_bytes(rows_box);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring_w =
+      smem_raw + (1024 - smem_u32(smem_raw) % 1024) % 1024;
+  unsigned char* ring_x = ring_w + S * WB;
+  float* wide = reinterpret_cast<float*>(ring_x + S * XB);
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      reinterpret_cast<unsigned char*>(wide) + (kWiden ? 2 * kWideBytes : 0));
+  int* cols_s = reinterpret_cast<int*>(full + S);
+  float* scl_s = reinterpret_cast<float*>(cols_s + kGStaged);
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int ll = lane % LANES_L;
+  const int row0 = warp * WR + lane / LANES_L;
+  const int slot = blockIdx.x / label_tiles;
+  const int l0 = (blockIdx.x % label_tiles) * kGLabels;
+  const int r = sel[slot];
+  const bool in_range = r >= 0 && r < R;
+  const int p_begin = in_range ? row_ptr[r] : 0;
+  const int p_end = in_range ? row_ptr[r + 1] : 0;
+  const int kchunks = (bd + F - 1) / F;
+  const unsigned stage_bytes =
+      kGLabels * WP * sizeof(WT) + rows_box * XP * 4;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) mbar_init(&full[s]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+
+  float acc[RN][LN], part[RN][LN];
+#pragma unroll
+  for (int p = 0; p < RN; ++p)
+#pragma unroll
+    for (int q = 0; q < LN; ++q) acc[p][q] = part[p][q] = 0.0f;
+
+  // Stage g of the CTA (over all passes) sits in ring slot g % S, and its
+  // barrier completes phase g / S.
+  unsigned g = 0;
+  for (int pc = p_begin; pc < p_end; pc += kGStaged) {
+    const int nblk = min(kGStaged, p_end - pc);
+    const int total = nblk * kchunks;   // this pass's stages
+    auto issue_w = [&](int it) {
+      const int s = (g + it) % S;
+      mbar_expect(&full[s], stage_bytes);
+      tma_load(ring_w + s * WB, &wmap, it % kchunks * F,
+               (pc + it / kchunks) * bl + l0, &full[s]);
+    };
+    auto issue_x = [&](int it) {
+      const int s = (g + it) % S;
+      tma_load(ring_x + s * XB, &xmap,
+               cols_s[it / kchunks] * bd + it % kchunks * F, 0, &full[s]);
+    };
+
+    __syncthreads();        // barriers set up; the last pass is done
+    // The first stages' weights need the block, not its column: in flight
+    // while the columns (and scales) are staged.
+    if (threadIdx.x == 0) {
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      for (int it = 0; it < S - 1 && it < total; ++it) issue_w(it);
+    }
+    for (int i = threadIdx.x; i < nblk; i += blockDim.x) {
+      cols_s[i] = block_cols[pc + i];
+      if constexpr (kInt8) scl_s[i] = scales[pc + i];
+    }
+    __syncthreads();
+    if (threadIdx.x == 0)
+      for (int it = 0; it < S - 1 && it < total; ++it) issue_x(it);
+
+    for (int it = 0; it < total; ++it) {
+      const unsigned gs = g + it;
+      const int s = gs % S;
+      const int k0 = it % kchunks * F;
+      const int kend = min(F, bd - k0);
+      mbar_wait(&full[s], (gs / S) & 1);
+      const WT* wst = reinterpret_cast<const WT*>(ring_w + s * WB);
+      const float* xst =
+          reinterpret_cast<const float*>(ring_x + s * XB) + row0 * XP;
+      const float* wf = reinterpret_cast<const float*>(wst);
+      if constexpr (kWiden) {   // the int8 box -> an fp32 tile, once a CTA
+        float* wd = wide + (gs & 1) * (kWideBytes / 4);
+        for (int e = threadIdx.x; e < kGLabels * F / 16; e += blockDim.x) {
+          const int j = e % kGLabels, k = e / kGLabels * 16;   // lanes: rows
+          const int4 v = *reinterpret_cast<const int4*>(
+              reinterpret_cast<const int8_t*>(wst) + j * WP + k);
+          float4* d = reinterpret_cast<float4*>(wd + j * XP + k);
+          d[0] = widen_exact(v.x);
+          d[1] = widen_exact(v.y);
+          d[2] = widen_exact(v.z);
+          d[3] = widen_exact(v.w);
+        }
+        wf = wd;
+      }
+      __syncthreads();      // stage `it` ready to read; stage it-1 done
+      if (threadIdx.x == 0 && it + S - 1 < total) {
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        issue_w(it + S - 1);
+        issue_x(it + S - 1);
+      }
+      float (&t)[RN][LN] = kInt8 ? part : acc;
+      if constexpr (kInt8 && !kWiden) {
+        // One label a lane (LANES_L == 32): the lane widens its own row,
+        // 16 features at a time.
+        const int8_t* wr = reinterpret_cast<const int8_t*>(wst) + ll * WP;
+        auto step16 = [&](int k) {
+          const int4 v = *reinterpret_cast<const int4*>(wr + k);
+          const int vw[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int h = 0; h < 4; ++h) {
+            const float4 w = widen_exact(vw[h]);
+#pragma unroll
+            for (int p = 0; p < RN; ++p)
+              fma4(t[p][0], *reinterpret_cast<const float4*>(
+                                xst + p * XP + k + 4 * h), w);
+          }
+        };
+        if (kend == F) {
+#pragma unroll
+          for (int k = 0; k < F; k += 16) step16(k);
+        } else {
+          for (int k = 0; k < kend; k += 16) step16(k);
+        }
+      } else {
+        constexpr int wpitch = kInt8 ? XP : WP;   // fp32 rows of wf
+        const float* wl = wf + ll * wpitch;
+        if (kend == F) {
+#pragma unroll
+          for (int k = 0; k < F; k += 4)
+            ffma_step<LANES_L>(t, wl, xst, wpitch, XP, k);
+        } else {
+          for (int k = 0; k < kend; k += 4)
+            ffma_step<LANES_L>(t, wl, xst, wpitch, XP, k);
+        }
+      }
+      if constexpr (kInt8) {
+        if (k0 + F >= bd) {         // the block ends: o = o + s * dot
+          const float sc = scl_s[it / kchunks];
+#pragma unroll
+          for (int p = 0; p < RN; ++p)
+#pragma unroll
+            for (int q = 0; q < LN; ++q) {
+              acc[p][q] = __fadd_rn(acc[p][q], __fmul_rn(sc, part[p][q]));
+              part[p][q] = 0.0f;
+            }
+        }
+      }
+    }
+    g += total;
+  }
+
+#pragma unroll
+  for (int p = 0; p < RN; ++p) {
+    const int row = row0 + LR * p;
+#pragma unroll
+    for (int q = 0; q < LN; ++q) {
+      const int l = l0 + ll + LANES_L * q;
+      if (row < n && l < bl)
+        out[static_cast<int64_t>(row) * out_cols +
+            static_cast<int64_t>(slot) * bl + l] = acc[p][q];
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, found through the runtime (no -lcuda).
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+EncodeTiled tensor_map_encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A 2D row-major tensor (outer x inner elements, rows row_bytes apart)
+// read in boxes of box_outer x box_inner, stored densely; what lies
+// outside the tensor arrives as zeros.
+bool tensor_map(CUtensorMap* map, CUtensorMapDataType type,
+                const void* base, uint64_t inner, uint64_t outer,
+                uint64_t row_bytes, uint32_t box_inner, uint32_t box_outer) {
+  const EncodeTiled encode = tensor_map_encoder();
+  const cuuint64_t dims[2] = {inner, outer};
+  const cuuint64_t strides[1] = {row_bytes};
+  const cuuint32_t box[2] = {box_inner, box_outer};
+  const cuuint32_t unit[2] = {1, 1};
+  return encode != nullptr &&
+         encode(map, type, 2, const_cast<void*>(base), dims, strides, box,
+                unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Launches gather_kernel over ceil(n / rows a warp) <= 8 warps.
+template <typename WT, int LANES_L, int RN>
+cudaError_t launch_gather(const float* x, const WT* blocks,
+                          const float* scales, const int* block_cols,
+                          const int* row_ptr, const int* sel, float* out,
+                          int n, int Dp, int out_cols, int R, int slots,
+                          int nb, int bl, int bd, cudaStream_t stream) {
+  constexpr int WR = 32 / LANES_L * RN;
+  const int warps = (n + WR - 1) / WR;
+  const int rows_box = warps * WR;
+  const int label_tiles = (bl + kGLabels - 1) / kGLabels;
+  CUtensorMap wmap, xmap;
+  if (!tensor_map(&wmap, Gather<WT>::kType, blocks, bd,
+                  static_cast<uint64_t>(nb) * bl, bd * sizeof(WT),
+                  Gather<WT>::kPitch, kGLabels) ||
+      !tensor_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, x, Dp, n,
+                  static_cast<uint64_t>(Dp) * 4, kXPitch, rows_box))
+    return cudaErrorInvalidValue;
+  // The most any n asks, set at every launch: a thread launching at another
+  // n meanwhile can only set the same value.
+  const cudaError_t err = cudaFuncSetAttribute(
+      gather_kernel<WT, LANES_L, RN>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      gather_smem<WT, LANES_L>(LANES_L == 32 ? kGMaxWarps : kGMaxRows));
+  if (err != cudaSuccess) return err;
+  gather_kernel<WT, LANES_L, RN>
+      <<<static_cast<unsigned>(slots) * label_tiles, warps * 32,
+         gather_smem<WT, LANES_L>(rows_box), stream>>>(
+          wmap, xmap, scales, block_cols, row_ptr, sel, out, n, out_cols, R,
+          bl, bd, label_tiles, rows_box);
+  return cudaSuccess;
+}
+
+// Checks the shape, picks the kernel and its tile by n and launches on
+// `stream` of `device`; returns cudaGetLastError() after the launch. The
+// shared selection at n <= 64 runs gather_kernel (RN = 1 at n <= 8, else
+// 8); every other launch bsr_kernel at TN = 8 / 32 / 64 (8 per query).
 template <typename WT, int MODE>
 int run(const float* x, const WT* blocks, const float* scales,
         const int* block_cols, const int* row_ptr, const int* sel,
-        float* out, int n, int Dp, int R, int slots, int bl, int bd,
+        float* out, int n, int Dp, int R, int slots, int nb, int bl, int bd,
         int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int label_tiles = (bl + kLabelTile - 1) / kLabelTile;
-  const int64_t tiles = static_cast<int64_t>(slots) * label_tiles *
-                        (MODE == kPerQuery ? n : (n + 7) / 8);
+  int64_t tiles = static_cast<int64_t>(slots) * label_tiles *
+                  (MODE == kPerQuery ? n : (n + 7) / 8);
+  const int64_t gather_tiles =
+      static_cast<int64_t>(slots) * ((bl + kGLabels - 1) / kGLabels);
+  if (MODE == kShared && gather_tiles > tiles) tiles = gather_tiles;
   const int piece = sizeof(WT) == 1 ? 16 : 4;
   if (n < 1 || slots < 1 || R < 1 || bd % piece != 0 || tiles > 0x7fffffff)
     return static_cast<int>(cudaErrorInvalidValue);
   const int out_cols = slots * bl;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (MODE == kPerQuery || n <= 8)
+  if constexpr (MODE == kShared) {
+    if (n <= kGMaxWarps)
+      err = launch_gather<WT, 32, 1>(x, blocks, scales, block_cols, row_ptr,
+                                     sel, out, n, Dp, out_cols, R, slots, nb,
+                                     bl, bd, s);
+    else if (n <= 16)
+      err = launch_gather<WT, 8, 1>(x, blocks, scales, block_cols, row_ptr,
+                                    sel, out, n, Dp, out_cols, R, slots, nb,
+                                    bl, bd, s);
+    else if (n <= kGMaxRows)
+      err = launch_gather<WT, 8, 2>(x, blocks, scales, block_cols, row_ptr,
+                                    sel, out, n, Dp, out_cols, R, slots, nb,
+                                    bl, bd, s);
+    else
+      launch<WT, 64, MODE>(x, blocks, scales, block_cols, row_ptr, sel, out,
+                           n, Dp, out_cols, R, slots, bl, bd, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  } else if (MODE == kPerQuery || n <= 8) {
     launch<WT, 8, MODE>(x, blocks, scales, block_cols, row_ptr, sel, out, n,
                         Dp, out_cols, R, slots, bl, bd, s);
-  else if (n <= 32)
+  } else if (n <= 32) {
     launch<WT, 32, MODE>(x, blocks, scales, block_cols, row_ptr, sel, out,
                          n, Dp, out_cols, R, slots, bl, bd, s);
-  else
+  } else {
     launch<WT, 64, MODE>(x, blocks, scales, block_cols, row_ptr, sel, out,
                          n, Dp, out_cols, R, slots, bl, bd, s);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -336,7 +802,7 @@ extern "C" int bsr_predict_f32(const float* x, const float* blocks,
   if (Lp != n_row_blocks * bl)
     return static_cast<int>(cudaErrorInvalidValue);
   return run<float, kAll>(x, blocks, nullptr, block_cols, row_ptr, nullptr,
-                          out, n, Dp, n_row_blocks, n_row_blocks, bl, bd,
+                          out, n, Dp, n_row_blocks, n_row_blocks, -1, bl, bd,
                           device, stream);
 }
 
@@ -347,19 +813,19 @@ extern "C" int bsr_predict_int8(const float* x, const int8_t* blocks,
                                 int Dp, int n_row_blocks, int bl, int bd,
                                 int device, void* stream) {
   return run<int8_t, kAll>(x, blocks, scales, block_cols, row_ptr, nullptr,
-                           out, n, Dp, n_row_blocks, n_row_blocks, bl, bd,
-                           device, stream);
+                           out, n, Dp, n_row_blocks, n_row_blocks, -1, bl,
+                           bd, device, stream);
 }
 
 // sel (B,) i32 row-block ids, any order -> out (n, B * bl) f32: columns
-// [i*bl, (i+1)*bl) hold row block sel[i]'s scores.
+// [i*bl, (i+1)*bl) hold row block sel[i]'s scores. nb: blocks' first dim.
 extern "C" int bsr_gather_f32(const float* x, const float* blocks,
                               const int* block_cols, const int* row_ptr,
                               const int* sel, float* out, int n, int Dp,
-                              int n_row_blocks, int B, int bl, int bd,
-                              int device, void* stream) {
+                              int n_row_blocks, int B, int nb, int bl,
+                              int bd, int device, void* stream) {
   return run<float, kShared>(x, blocks, nullptr, block_cols, row_ptr, sel,
-                             out, n, Dp, n_row_blocks, B, bl, bd, device,
+                             out, n, Dp, n_row_blocks, B, nb, bl, bd, device,
                              stream);
 }
 
@@ -368,11 +834,11 @@ extern "C" int bsr_gather_int8(const float* x, const int8_t* blocks,
                                const float* scales, const int* block_cols,
                                const int* row_ptr, const int* sel,
                                float* out, int n, int Dp, int n_row_blocks,
-                               int B, int bl, int bd, int device,
+                               int B, int nb, int bl, int bd, int device,
                                void* stream) {
   return run<int8_t, kShared>(x, blocks, scales, block_cols, row_ptr, sel,
-                              out, n, Dp, n_row_blocks, B, bl, bd, device,
-                              stream);
+                              out, n, Dp, n_row_blocks, B, nb, bl, bd,
+                              device, stream);
 }
 
 // sel (n, B) i32, row q's own row-block ids -> out (n, B * bl) f32: row q's
@@ -383,8 +849,8 @@ extern "C" int bsr_gather_pq_f32(const float* x, const float* blocks,
                                  int n_row_blocks, int B, int bl, int bd,
                                  int device, void* stream) {
   return run<float, kPerQuery>(x, blocks, nullptr, block_cols, row_ptr, sel,
-                               out, n, Dp, n_row_blocks, B, bl, bd, device,
-                               stream);
+                               out, n, Dp, n_row_blocks, B, -1, bl, bd,
+                               device, stream);
 }
 
 // As bsr_gather_pq_f32 over int8 blocks with fp32 per-block scales (nb,).
@@ -395,8 +861,8 @@ extern "C" int bsr_gather_pq_int8(const float* x, const int8_t* blocks,
                                   int n_row_blocks, int B, int bl, int bd,
                                   int device, void* stream) {
   return run<int8_t, kPerQuery>(x, blocks, scales, block_cols, row_ptr, sel,
-                                out, n, Dp, n_row_blocks, B, bl, bd, device,
-                                stream);
+                                out, n, Dp, n_row_blocks, B, -1, bl, bd,
+                                device, stream);
 }
 
 extern "C" const char* kernel_error_string(int code) {

@@ -238,6 +238,91 @@ def test_gather_kernels_match_plain(cuda, L, D, density, block, n):
             x[q:q + 1].contiguous(), *args, sel_pq[q].contiguous()))
 
 
+# (L, D, block): bl of 8, 48 and 256 against the gathered kernels' label
+# tile of 32; bd of 16 and 32; at D = 4,800 and bd = 16 a row block of 300
+# blocks, more than the 256 whose columns one pass stages.
+GATHER_EDGES = [(90, 300, (8, 32)), (300, 520, (48, 16)),
+                (600, 512, (256, 32)), (384, 4800, (128, 16))]
+
+
+@pytest.mark.parametrize("L,D,block", GATHER_EDGES)
+@pytest.mark.parametrize("n", [1, 8, 9, 32, 33, 64, 65])
+def test_gather_kernels_at_tile_edges(cuda, L, D, block, n):
+    """Kernels 5 and 6 at the edges of their tiles, ring and passes: row
+    block 0 emptied, 1 with exactly one packed block, 2 with every column
+    block (more stages than the ring holds). Against their plain versions;
+    B = R bit for bit equal to kernels 3 and 4 (contracts a, b); B = 1
+    equal to its slot of a longer selection; ids outside [0, R) and the
+    emptied row block exact zeros, the other slots unchanged by them."""
+    bl, bd = block
+    rng = np.random.default_rng(L + D + n)
+    rb, cb = -(-L // bl), -(-D // bd)
+    keep = rng.random((rb, cb)) < 0.3
+    keep[0] = keep[1] = False
+    keep[1, cb // 2] = keep[2] = True
+    W = (0.1 * rng.normal(size=(L, D))).astype(np.float32)
+    W *= np.kron(keep, np.ones(block, np.float32))[:L, :D]
+    model = to_block_sparse(W, block, device=cuda)
+    q = quantize_block_sparse(model)
+    R = model.shape[0] // bl
+    counts = (model.row_ptr[1:] - model.row_ptr[:-1]).tolist()
+    assert counts[:3] == [0, 1, cb]
+    x = _x(n, model.shape[1], n, cuda)
+    fp = (model.blocks, model.block_cols, model.row_ptr)
+    i8 = (q.blocks, q.scales, q.block_cols, q.row_ptr)
+    full = torch.arange(R, dtype=torch.int32, device=cuda)
+    assert torch.equal(bsr_ops.bsr_predict_gather_cuda(x, *fp, full),
+                       bsr_ops.bsr_predict_cuda(x, *fp, R))
+    assert torch.equal(bsr_ops.bsr_predict_gather_int8_cuda(x, *i8, full),
+                       bsr_ops.bsr_predict_int8_cuda(x, *i8, R))
+    sel = torch.tensor([R - 1, 2, 1, 0], dtype=torch.int32, device=cuda)
+    mixed = torch.tensor([R - 1, 2, -1, 1, 0, R], dtype=torch.int32,
+                         device=cuda)
+    for kernel, plain, args in (
+            (bsr_ops.bsr_predict_gather_cuda, bsr_ref.bsr_predict_gather,
+             fp),
+            (bsr_ops.bsr_predict_gather_int8_cuda,
+             bsr_ref.bsr_predict_gather_int8, i8)):
+        absargs = (args[0].abs(),) + args[1:]
+        g = kernel(x, *args, sel)
+        _within(g, plain(x, *args, sel), plain(x.abs(), *absargs, sel))
+        assert torch.equal(kernel(x, *args, sel[1:2]), g[:, bl:2 * bl])
+        m = kernel(x, *args, mixed).reshape(n, 6, bl)
+        torch.cuda.synchronize()
+        assert torch.equal(m[:, [0, 1, 3]], g.reshape(n, 4, bl)[:, :3])
+        assert bool((m[:, [2, 4, 5]] == 0).all())
+
+
+def test_gathered_kernels_repeat_bit_for_bit(cuda):
+    """Kernels 5, 6 and 8 (which share their source): 100 launches on one
+    input, then pairs of launches on two streams at once, each equal to
+    the first bit for bit (no atomics, a fixed order: a race would show)."""
+    model = _model(1000, 4096, 0.3, (128, 128), seed=5, device=cuda)
+    q = quantize_block_sparse(model)
+    fp = (model.blocks, model.block_cols, model.row_ptr)
+    i8 = (q.blocks, q.scales, q.block_cols, q.row_ptr)
+    sel = torch.tensor([7, 0, 3, 5, 1], dtype=torch.int32, device=cuda)
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    for n in (1, 32, 65):
+        x = _x(n, model.shape[1], n, cuda)
+        sel_pq = sel.repeat(n, 1).contiguous()
+        for fn in (
+                lambda: bsr_ops.bsr_predict_gather_cuda(x, *fp, sel),
+                lambda: bsr_ops.bsr_predict_gather_int8_cuda(x, *i8, sel),
+                lambda: bsr_ops.bsr_predict_gather_pq_int8_cuda(x, *i8,
+                                                                sel_pq)):
+            first = fn()
+            outs = [fn() for _ in range(100)]
+            torch.cuda.synchronize()
+            for _ in range(10):
+                with torch.cuda.stream(s1):
+                    outs.append(fn())
+                with torch.cuda.stream(s2):
+                    outs.append(fn())
+            torch.cuda.synchronize()
+            assert all(torch.equal(o, first) for o in outs)
+
+
 @pytest.mark.parametrize("L,D,density,block", [
     (300, 520, 0.3, (16, 16)), (256, 1024, 0.2, (128, 128)),
     (500, 256, 0.5, (256, 64)), (90, 300, 0.4, (8, 32))])
