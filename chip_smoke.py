@@ -58,7 +58,15 @@ Then training, on the port's synthetic power-law data at Wiki10-31K width
   6. train kernels — the hinge kernel (at W = 0 and at a random W) and the
                      HVP kernel (at a random V, with the hinge kernel's
                      mask) against their plain versions at (1,024, 14,146,
-                     101,938), two launches bit-identical, timed like 3;
+                     101,938), X in `fit`'s layout (16-byte-aligned rows),
+                     two launches bit-identical, timed like 3 beside both
+                     bounds (split fp32 on the tensor cores, FFMA); grad
+                     and Hv of kernel and plain version against fp64
+                     products over the first 128 labels; the HGMMA count
+                     of each library's SASS (> 0); each kernel's passes
+                     timed apart under `torch.profiler`; the hinge kernel
+                     on a contiguous X (its wrapper copies it into aligned
+                     rows) timed and equal bit for bit;
   7. TRON          — batched TRON on the kernel ops against the plain ops
                      at (256, 4,096, 16,384): per-label Newton and CG
                      counts equal on >= 99% of labels, f within 1e-4;
@@ -147,6 +155,7 @@ import argparse
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -246,6 +255,8 @@ LM_CACHE = 2e-1
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12                       # dense, tensor cores
+TF32_FLOPS_PER_S = 495e12                       # dense, tensor cores
+TF32_PRODUCTS = 3         # split fp32: small.big + big.small + big.big
 
 
 def _need(cond: bool, msg: str) -> None:
@@ -905,9 +916,72 @@ def share(diff: torch.Tensor, mag: torch.Tensor) -> float:
     return float((diff.abs() / mag.clamp_min(1e-30)).max())
 
 
+def hgmma_count(name: str) -> int:
+    """HGMMA (wgmma) instructions in kernel library `name`'s SASS."""
+    from repro_torch.kernels import _build
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(_build.library_path(name))],
+                          capture_output=True, text=True, check=True).stdout
+    return sass.count("HGMMA")
+
+
+def fp64_shares(W, X, S, V, act, C, g, g_p, hv, hv_p, rows: int = 128):
+    """The largest |error| / magnitude of the kernels' and the plain
+    versions' grad and Hv against fp64 products of the same fp32 inputs,
+    over the first `rows` labels."""
+    Wd, Vd, Sd, ad = (t[:rows].double() for t in (W, V, S, act))
+    Xd = X.double()
+    out = {}
+    for key, A, kern, plain, shift in (("grad", Wd, g, g_p, Sd),
+                                       ("hvp", Vd, hv, hv_p, None)):
+        scores = A @ Xd.T
+        inner = ad * (scores - shift if shift is not None else scores)
+        exact = 2.0 * A + 2.0 * C * (inner @ Xd)
+        m = A.abs() @ Xd.abs().T
+        if shift is not None:
+            m = m + shift.abs()
+        mag = (2.0 * A.abs() + 2.0 * C * ((ad * m) @ Xd.abs())).clamp_min(
+            1e-300)
+        out[key] = {
+            "kernel": float(((kern[:rows].double() - exact).abs()
+                             / mag).max()),
+            "plain": float(((plain[:rows].double() - exact).abs()
+                            / mag).max())}
+        del scores, inner, exact, m, mag
+    del Xd
+    torch.cuda.empty_cache()
+    return out
+
+
+def pass_ms(fn, launches: int = 3) -> dict:
+    """Median device ms of each CUDA kernel that `fn` launches (a training
+    kernel's split and passes), over `launches` calls under
+    `torch.profiler`, largest first."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    times: dict = {}
+    for _ in range(launches):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            us = getattr(e, "device_time_total",
+                         getattr(e, "cuda_time_total", 0.0))
+            if us > 0:
+                key = re.sub(r"^void |\(anonymous namespace\)::|"
+                             r"split_tf32::|\(.*$", "", e.key)
+                times.setdefault(key, []).append(us / 1e3)
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    return dict(sorted(med.items(), key=lambda kv: -kv[1]))
+
+
 def check_train_kernels(X, S, gen, flush) -> dict:
     """Hinge and HVP kernels against their plain versions at the trainer's
-    shape (L, N, D) = (1,024, 14,146, 101,938), with times."""
+    shape (L, N, D) = (1,024, 14,146, 101,938), with times. X comes in the
+    layout `fit` gives it (16-byte-aligned rows, read by TMA); the same
+    launches on a contiguous copy (which the wrapper copies into aligned
+    rows) must give the same bits."""
     from repro_torch.kernels.hinge import ops as hinge_ops
     from repro_torch.kernels.hinge import ref as hinge_ref
     from repro_torch.kernels.hvp import ops as hvp_ops
@@ -916,10 +990,15 @@ def check_train_kernels(X, S, gen, flush) -> dict:
     L, (N, D) = S.shape[0], X.shape
     print("   tolerance: f, grad and Hv within 1e-5 of the same sums over "
           "absolute values, per element, because both sides sum the same "
-          "fp32 products in another order (FFMA in the kernels, fp32 GEMM "
-          "with TF32 off in the plain versions); act identical wherever "
-          "|z| > 1e-5, where no such rounding can flip it; two launches "
-          "identical bit for bit (no atomics, fixed order)")
+          "fp32 products in another order (split fp32, three TF32 products "
+          "a k-step, in the kernels; fp32 GEMM with TF32 off in the plain "
+          "versions); act identical wherever |z| > 1e-5, where no such "
+          "rounding can flip it; two launches identical bit for bit (no "
+          "atomics, fixed order)")
+    hgmma = {k: hgmma_count(k) for k in ("hinge", "hvp")}
+    print(f"   HGMMA instructions in the SASS (cuobjdump -sass): {hgmma}")
+    _need(all(v > 0 for v in hgmma.values()),
+          f"a training kernel library has no HGMMA instruction: {hgmma}")
     out = {}
     W_rand = torch.randn((L, D), device="cuda", generator=gen)
     for tag, W in (("W=0", torch.zeros((L, D), device="cuda")),
@@ -949,10 +1028,8 @@ def check_train_kernels(X, S, gen, flush) -> dict:
               f"{float(act.mean()):.4f}; two launches identical",
               flush=True)
         out[tag] = err
-        del f_p, g_p, act_p, f_mag, g_mag, z, decided, again
+        del f_p, act_p, f_mag, g_mag, z, decided, again
     W = W_rand
-    f, g, act = hinge_ops.hinge_obj_grad_cuda(W, X, S, C)
-    del f, g
     V = torch.randn((L, D), device="cuda", generator=gen)
     hv = hvp_ops.hvp_cuda(V, X, act, C)
     hv_p = hvp_ref.hessian_vp(V, X, act, C)
@@ -968,13 +1045,21 @@ def check_train_kernels(X, S, gen, flush) -> dict:
     print(f"   hvp: max|kernel-plain| {out['hvp']:.3e} (largest share of "
           f"the magnitude {hv_err:.2e}); two launches identical",
           flush=True)
-    del hv, hv_p, mag, again
+    del mag, again
+    f64 = fp64_shares(W, X, S, V, act, C, g, g_p, hv, hv_p)
+    print("   against fp64 products over the first 128 labels, largest "
+          "share of the magnitude: grad kernel {:.2e}, plain {:.2e}; Hv "
+          "kernel {:.2e}, plain {:.2e}".format(
+              f64["grad"]["kernel"], f64["grad"]["plain"],
+              f64["hvp"]["kernel"], f64["hvp"]["plain"]), flush=True)
+    del g_p, hv_p
 
     r = act * (W @ X.T - S)
     u = act * (V @ X.T)
     n_ops = 2 * 2 * L * N * D                 # two dense contractions each
     hinge_bytes = 4 * (2 * L * D + N * D + 2 * L * N + L)
     hvp_bytes = 4 * (2 * L * D + N * D + L * N)
+    ffma_ms = n_ops / FP32_FLOPS_PER_S * 1e3
     times = {}
     for name, fn, plain, lib, n_bytes in (
             ("hinge", lambda: hinge_ops.hinge_obj_grad_cuda(W, X, S, C),
@@ -986,16 +1071,44 @@ def check_train_kernels(X, S, gen, flush) -> dict:
         ms = cuda_ms(fn, 3, flush)
         plain_ms = cuda_ms(plain, 3, flush)
         lib_ms = cuda_ms(lib, 3, flush)
-        b_ms, b_by = bound(n_bytes, n_ops)
+        b_ms, b_by = bound(n_bytes, TF32_PRODUCTS * n_ops, TF32_FLOPS_PER_S)
         times[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                            bound_ms=b_ms, bound_by=b_by,
-                           tflops=n_ops / ms / 1e9)
+                           bound_ffma_ms=ffma_ms,
+                           tflops=n_ops / ms / 1e9,
+                           tf32_tflops=TF32_PRODUCTS * n_ops / ms / 1e9,
+                           fp64_share=f64["grad" if name == "hinge"
+                                          else "hvp"])
         print(f"   {name} ({L}, {N}, {D}): kernel {ms:.3f} ms "
-              f"({n_ops / ms / 1e9:.1f} TFLOP/s)  plain {plain_ms:.3f} ms  "
-              f"two torch.matmul {lib_ms:.3f} ms  bound {b_ms:.3f} ms "
-              f"({b_by}, {n_ops / 1e12:.2f} TFLOP, {n_bytes / 1e9:.2f} GB)",
-              flush=True)
-    return dict(err=out, times=times, shape=(L, N, D))
+              f"({n_ops / ms / 1e9:.1f} TFLOP/s of fp32 work; "
+              f"{TF32_PRODUCTS * n_ops / ms / 1e9:.1f} TFLOP/s of TF32 "
+              f"products)  plain {plain_ms:.3f} ms  two torch.matmul "
+              f"{lib_ms:.3f} ms  bounds: split fp32 at 495 TFLOP/s "
+              f"{b_ms:.3f} ms ({b_by}, {TF32_PRODUCTS * n_ops / 1e12:.2f} "
+              f"TFLOP; kernel at {b_ms / ms:.1%} of it), FFMA at 67 "
+              f"TFLOP/s {ffma_ms:.3f} ms ({n_ops / 1e12:.2f} TFLOP); "
+              f"{n_bytes / 1e9:.2f} GB", flush=True)
+        times[name]["pass_ms"] = passes = pass_ms(fn)
+        print(f"   {name} passes (torch.profiler, median of 3): " + (
+            ", ".join(f"{k} {v:.3f} ms" for k, v in passes.items())
+            or "no device time in the trace"), flush=True)
+    del r, u
+    torch.cuda.empty_cache()
+    Xc = X.contiguous()                       # rows 8-byte aligned only
+    ms_c = cuda_ms(lambda: hinge_ops.hinge_obj_grad_cuda(W, Xc, S, C), 3,
+                   flush)
+    same = all(torch.equal(a, b) for a, b in zip(
+        hinge_ops.hinge_obj_grad_cuda(W, Xc, S, C),
+        hinge_ops.hinge_obj_grad_cuda(W, X, S, C)))
+    _need(same, "the hinge kernel gives other bits on a contiguous X")
+    times["hinge"]["contiguous_x_ms"] = ms_c
+    print(f"   hinge on a contiguous X (row stride {D}, copied by the "
+          f"wrapper into aligned rows): {ms_c:.3f} ms, the same bits as on "
+          "the 16-byte-aligned rows", flush=True)
+    del Xc
+    torch.cuda.empty_cache()
+    return dict(err=out, times=times, shape=(L, N, D), hgmma=hgmma,
+                fp64=f64)
 
 
 def check_tron(X, Y) -> dict:
@@ -2049,6 +2162,7 @@ def main() -> None:
         del model, requests, X
 
         from repro_torch.data.xmc import make_xmc_dataset
+        from repro_torch.kernels.hinge.ops import aligned_rows
         with phase("train data: Wiki10-31K width"):
             data = make_xmc_dataset(n_train=TRAIN_N, n_test=TEST_N,
                                     n_features=N_FEATURES,
@@ -2065,7 +2179,7 @@ def main() -> None:
                    "(1,024, 14,146, 101,938)"):
             flush = torch.empty(64 * 2**20, device="cuda")       # 256 MB
             gen = torch.Generator(device="cuda").manual_seed(args.seed)
-            Xd = torch.from_numpy(data.X_train).cuda()
+            Xd = aligned_rows(data.X_train, "cuda")   # as fit places it
             Sd = (2.0 * torch.from_numpy(
                 data.Y_train[:, :TRAIN_BATCH].T.astype(np.float32))
                 - 1.0).cuda().contiguous()
@@ -2164,7 +2278,10 @@ def main() -> None:
             max_abs_err=train_k["err"][err_key], ms=t["ms"],
             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=t["library_ms"],
-            library="the two torch.matmul products, TF32 off", at=at))
+            library="the two torch.matmul products, TF32 off", at=at,
+            bound_note="TF32 products of split fp32 (3 per fp32 product) "
+            "at 495 TFLOP/s", bound_ffma_ms=t["bound_ffma_ms"],
+            hgmma=train_k["hgmma"][key], fp64_share=t["fp64_share"]))
     config_of = {kernel: name for name, _, kernel in SERVE_CONFIGS}
     for name, replaces in (("bsr_predict_int8", 70), ("bsr_gather", 122),
                            ("bsr_gather_int8", 192), ("bsr_gather_pq", 256),

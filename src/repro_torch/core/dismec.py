@@ -95,6 +95,21 @@ def _kernel_solver_ops(X: torch.Tensor, S: torch.Tensor, cfg: DiSMECConfig):
     return obj_grad, hvp
 
 
+def solver_x(X, cfg: DiSMECConfig, device=None) -> torch.Tensor:
+    """X (N, D), a tensor or an array, as float32 on `device` (X's own when
+    None) in the layout the solver ops of `cfg` read in place: rows that
+    start 16-byte aligned for the kernels on the card (`aligned_rows`; a
+    host array goes over in pieces, with no second device copy),
+    contiguous otherwise. Placed once per solver, so no launch copies X."""
+    if not isinstance(X, torch.Tensor):
+        X = torch.from_numpy(np.asarray(X))
+    dev = X.device if device is None else torch.device(device)
+    if dev.type == "cuda" and cfg.ops_kind() == "pallas":
+        from repro_torch.kernels.hinge.ops import aligned_rows
+        return aligned_rows(X, dev)
+    return X.to(dev, torch.float32).contiguous()
+
+
 def _make_fns(X: torch.Tensor, S: torch.Tensor, cfg: DiSMECConfig):
     """The (obj_grad, hvp) pair of the registered kind `cfg.ops_kind()`."""
     kind = cfg.ops_kind()
@@ -133,6 +148,7 @@ def train_label_batch(X: torch.Tensor, S: torch.Tensor, cfg: DiSMECConfig,
     """Solve all labels in S at once (layer 2). A non-None W0 is a warm
     start: the relative stopping rule is anchored at the cold-start
     gradient ||g(0)|| (one extra obj/grad evaluation)."""
+    X = solver_x(X, cfg)
     L = S.shape[0]
     D = X.shape[1]
     obj_grad, hvp = _make_fns(X, S, cfg)
@@ -179,10 +195,12 @@ def balance_permutation(Y, n_shards: int) -> np.ndarray:
     return np.asarray([lab for m in members for lab in m], dtype=np.int64)
 
 
-def make_batch_solver(X: torch.Tensor, cfg: DiSMECConfig, mesh=None, *,
-                      shard_data: bool = False, warm: bool = False):
+def make_batch_solver(X, cfg: DiSMECConfig, mesh=None, *,
+                      shard_data: bool = False, warm: bool = False,
+                      device=None):
     """Layer 2 of Algorithm 1 as a reusable solver: (S (rows, N), W0 (rows,
-    D) or None) -> Delta-pruned W (rows, D), on X's device.
+    D) or None) -> Delta-pruned W (rows, D), on `device` (X's own when
+    None), where X is placed once in the solver ops' layout (`solver_x`).
 
     warm=True: the solver expects warm-start W0s (a prior checkpoint's
     rows) and anchors TRON's relative stopping rule at ||g(0)||, the
@@ -199,7 +217,7 @@ def make_batch_solver(X: torch.Tensor, cfg: DiSMECConfig, mesh=None, *,
             "make_batch_solver: label/instance sharding over several GPUs "
             "(mesh, shard_data) is not ported yet; see ROADMAP Queue A "
             "item 6 (multi-GPU)")
-    X = X.float().contiguous()
+    X = solver_x(X, cfg, device)
     D = X.shape[1]
 
     def solve(S: torch.Tensor, W0: Optional[torch.Tensor] = None

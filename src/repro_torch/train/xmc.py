@@ -222,14 +222,10 @@ class XMCTrainJob:
                 meta=meta_full, label_order=label_order)
             done = writer.done_batches
 
-        if isinstance(X, torch.Tensor):
-            X_dev = X.to(device, torch.float32)
-        else:
-            X_dev = torch.as_tensor(np.asarray(X_host, np.float32),
-                                    device=device)
-        solver = make_batch_solver(X_dev, self.cfg, self.mesh,
-                                   shard_data=self.shard_data,
-                                   warm=init_from is not None)
+        solver = make_batch_solver(
+            X if isinstance(X, torch.Tensor) else X_host, self.cfg,
+            self.mesh, shard_data=self.shard_data,
+            warm=init_from is not None, device=device)
 
         host_blocks: dict[int, np.ndarray] = {}
         solved: list[int] = []
