@@ -20,7 +20,9 @@ seed:
                256; blocked top-k at (256, 30,976), k = 5; rows of exact
                zeros where tie order decides), timed with CUDA events over
                cold-L2 launches beside its bound, its plain version and one
-               PyTorch library call computing the same function;
+               PyTorch library call computing the same function; the int8
+               BSR kernel's two designs (`gather_kernel`, `bsr_kernel`)
+               timed apart at n = 1, 8, 16, 32, 64, the same bits;
   4. serve   — the model packed label batch by label batch, saved with
                `save_block_sparse`, then `CheckpointHandle.open(dir)
                .engine()` on the default `bsr` backend serving ragged
@@ -39,7 +41,8 @@ seed:
                exhaustive int8 one; empty row blocks and the sentinel
                score exact zeros; the gathered, gathered int8 and
                per-query int8 kernels repeat bit for bit over 50 launches
-               and over launches on two streams at once; timed like 3;
+               and over launches on two streams at once, and so does the
+               int8 BSR kernel; timed like 3;
   4c. serve: shortlist, shortlist per-query, shortlist int8, shortlist
                int8 per-query, int8 — the same checkpoint and requests
                through each of those `ServeSpec`s: each configuration's
@@ -124,13 +127,18 @@ drawn from the seed:
                    1,024): (B, T) = (1, 32,768) and (2, 2,304) in bf16,
                    (2, 2,304) in fp32, (1, 768) with the window beyond T;
                    within 3e-2 (bf16) and 2e-4 (fp32), two launches bit
-                   for bit, timed like 3 beside its bound and
-                   `F.scaled_dot_product_attention` with a band mask;
+                   for bit, timed like 3 beside its bound (TFLOP/s and the
+                   share of the bound printed) and
+                   `F.scaled_dot_product_attention` with a band mask; the
+                   HGMMA count of the library's SASS (> 0: bf16 runs on
+                   the tensor cores);
  14. lm prefill  — `build_model(cfg).prefill` at (1, 32,768) on the
                    kernel (launched exactly 29 times), on the plain
                    version and on the plain version in fp32: tokens/s,
                    peak memory, top-5 ids on a decisive row, every layer's
-                   k/v caches;
+                   k/v caches; then one kernel prefill under
+                   `torch.profiler`: the ten device operations that take
+                   the most time, with their totals;
  15. lm decode   — (a) `prefill` at (2, 2,304) against 2,304
                    teacher-forced `decode_step`s on a cache of 2,304: every
                    layer's k/v caches and the last position's top-5 ids
@@ -416,6 +424,49 @@ def check_bsr(model, X, flush) -> dict:
     return dict(library=library, sweep=sweep)
 
 
+INT8_DESIGN_N = (1, 8, 16, 32, 64)              # phase 3's design sweep
+
+
+def check_int8_designs(model, X, flush) -> dict:
+    """Kernel 4's two designs timed apart at n = 1, 8, 16, 32, 64 on the
+    serving model quantized to int8: `gather_kernel` (each row block its
+    own slot) and `bsr_kernel`, forced through the wrapper's switch
+    `INT8_GATHER_MAX_N`, beside the design the switch picks; both must
+    give the same bits."""
+    from unittest import mock
+
+    from repro_torch.core.pruning import quantize_block_sparse
+    from repro_torch.kernels.bsr_predict import ops as bsr_ops
+    q = quantize_block_sparse(model)
+    R = model.shape[0] // model.block_shape[0]
+    args = (q.blocks, q.scales, q.block_cols, q.row_ptr, R)
+    Dp = model.shape[1]
+    rows = []
+    for n in INT8_DESIGN_N:
+        x = torch.nn.functional.pad(torch.from_numpy(X[:n]).cuda(),
+                                    (0, Dp - N_FEATURES)).contiguous()
+        times, outs = {}, {}
+        for design, switch in (("gather_kernel", 64), ("bsr_kernel", 0)):
+            with mock.patch.object(bsr_ops, "INT8_GATHER_MAX_N", switch):
+                outs[design] = bsr_ops.bsr_predict_int8_cuda(x, *args)
+                times[design] = cuda_ms(
+                    lambda: bsr_ops.bsr_predict_int8_cuda(x, *args), 20,
+                    flush)
+        torch.cuda.synchronize()
+        _need(torch.equal(outs["gather_kernel"], outs["bsr_kernel"]),
+              f"kernel 4's two designs give other bits at n={n}")
+        picked = ("gather_kernel" if n <= bsr_ops.INT8_GATHER_MAX_N
+                  else "bsr_kernel")
+        rows.append(dict(n=n, gather_ms=times["gather_kernel"],
+                         bsr_kernel_ms=times["bsr_kernel"], picked=picked))
+        print(f"   bsr_predict_int8 n={n:2d}: gather_kernel "
+              f"{times['gather_kernel']:.4f} ms, bsr_kernel "
+              f"{times['bsr_kernel']:.4f} ms, the same bits; dispatched: "
+              f"{picked}", flush=True)
+    del q
+    return dict(switch=bsr_ops.INT8_GATHER_MAX_N, rows=rows)
+
+
 def check_topk(scores, flush) -> dict:
     """Blocked top-k kernel vs its plain version on the serving path's
     scores at (256, 30,976), k = 5, plus rows where ties decide. Values
@@ -643,7 +694,8 @@ def check_shortlist_int8(model, q, centroids, X, flush) -> dict:
         print(f"   n={n:3d}: contracts (a) to (e) hold bit for bit; "
               f"shared selection {ns} blocks, per-query union {nu} blocks",
               flush=True)
-        for name in ("bsr_gather", "bsr_gather_int8", "bsr_gather_pq_int8"):
+        for name in ("bsr_predict_int8", "bsr_gather", "bsr_gather_int8",
+                     "bsr_gather_pq_int8"):
             repeat_check(name, cases[name][0], n)
     # Row block 0 emptied (its packed blocks dropped) and the sentinel.
     p1 = int(ptr[1])
@@ -1792,13 +1844,19 @@ def check_banded(cfg, gen, flush) -> dict:
         rows.append(dict(B=B, T=T, dtype=dt_name, window=w,
                          max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
                          bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                         tflops=n_ops / ms / 1e9))
+                         tflops=n_ops / ms / 1e9, bound_share=b_ms / ms))
         print(f"   ({B}, {T:,}) {dt_name}: kernel {ms:.4f} ms "
-              f"({n_ops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f}, "
+              f"({n_ops / ms / 1e9:.1f} TFLOP/s, {100 * b_ms / ms:.1f}% of "
+              f"the bound), plain {plain_ms:.4f}, "
               f"sdpa {lib_ms if lib_ms is None else f'{lib_ms:.4f}'}, "
               f"bound {b_ms:.4f} ms ({b_by}); max |err| {err:.3e} "
               f"(tol {tol})", flush=True)
-    return dict(rows=rows, shape=(H, KV, hd, w))
+    hgmma = hgmma_count("banded_attn")
+    _need(hgmma > 0, "the banded_attn library has no HGMMA: the bf16 "
+          "kernel is not on the tensor cores")
+    print(f"   banded_attn library: {hgmma} HGMMA instructions in its SASS",
+          flush=True)
+    return dict(rows=rows, shape=(H, KV, hd, w), hgmma=hgmma)
 
 
 def decisive_ids(vals_a, ids_a, vals_b, ids_b) -> dict:
@@ -1910,9 +1968,10 @@ def lm_prefill(model, params, rng) -> dict:
         del pcache
         torch.cuda.empty_cache()
     del cache
+    profile = profile_prefill(model, params, batch)
     out = dict(B=B, T=T, wall_s=wall, tokens_per_s=B * T / wall,
                peak_gib=peak, launches=launches, n_local_layers=n_local,
-               ids=i[0, :5].tolist(), vs=runs)
+               ids=i[0, :5].tolist(), vs=runs, profile=profile)
     print(f"   prefill ({B}, {T:,}): {wall:.3f} s on the kernel "
           f"({B * T / wall:,.0f} tokens/s); peak {peak:.2f} GiB; launches "
           f"{launches}; top-5 ids {i[0, :5].tolist()}", flush=True)
@@ -1926,6 +1985,34 @@ def lm_prefill(model, params, rng) -> dict:
               f"), ssm {e.get('ssm_0', 0):.2e} / {e.get('ssm_1', 0):.2e}",
               flush=True)
     return out
+
+
+def profile_prefill(model, params, batch, top: int = 10) -> dict:
+    """One more kernel prefill under `torch.profiler` (device activity
+    only): the device time of the `top` device operations that take the
+    most, their launch counts, and the prefill's device total and wall."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.prefill(params, batch, use_swa=True, top_k=6)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    def device_us(e):
+        return getattr(e, "device_time_total",
+                       getattr(e, "cuda_time_total", 0.0))
+    events = [e for e in prof.key_averages() if device_us(e) > 0]
+    total = sum(map(device_us, events)) / 1e3
+    ops = [dict(op=re.sub(r"^void |\(anonymous namespace\)::|\(.*$", "",
+                          e.key)[:100], ms=device_us(e) / 1e3, count=e.count)
+           for e in sorted(events, key=lambda e: -device_us(e))[:top]]
+    print(f"   profiled prefill: {total:.1f} ms of device time against "
+          f"{1e3 * wall:.1f} ms of wall (traced); the {top} device "
+          "operations that take the most:", flush=True)
+    for o in ops:
+        print(f"     {o['ms']:9.2f} ms  {o['count']:6d} x  {o['op']}",
+              flush=True)
+    return dict(device_ms=total, traced_wall_ms=1e3 * wall, top=ops)
 
 
 def lm_decode(model, params, rng) -> dict:
@@ -2124,6 +2211,7 @@ def main() -> None:
             scores = bsr_ops.bsr_predict(x, gpu_model)
             scores[:, N_LABELS:] = -3.0e38
             topk = check_topk(scores, flush)
+            int8_designs = check_int8_designs(gpu_model, X, flush)
             del gpu_model, scores, x, flush
             torch.cuda.empty_cache()
             smi_run = subprocess.run(
@@ -2303,6 +2391,10 @@ def main() -> None:
             ("selected blocks" if "gather" in name else "blocks"),
             at=f"n={HEADLINE_N}, B={sl['B']} of {sl['R']} row blocks"
             if "gather" in name else f"n={HEADLINE_N}", sweep=sweep))
+    k4 = next(k for k in kernels if k["name"] == "bsr_predict_int8")
+    k4.update(design=f"gather_kernel (each row block its own slot) at n <= "
+              f"{int8_designs['switch']}, bsr_kernel above", redesigned=True,
+              designs=int8_designs["rows"])
     band = banded["rows"][0]
     kernels.append(dict(
         name="banded_attention", route="cuda",
@@ -2316,6 +2408,8 @@ def main() -> None:
         "boolean band mask, k and v repeated to the query heads",
         at="(B, T, H, KV, hd, window) = ({}, {}, {}, {}, {}, {}), {}".format(
             band["B"], band["T"], *banded["shape"], band["dtype"]),
+        design="bf16: wgmma (m64n64k16 Q.K^T, P.V with P from registers) on "
+        "TMA tiles; fp32: FFMA", redesigned=True, hgmma=banded["hgmma"],
         sweep=banded["rows"]))
     print(json.dumps({"kernels": kernels, "serve": {
         k: served[k] for k in ("p50_ms", "p99_ms", "load_s", "warmup_s",

@@ -41,21 +41,23 @@
 // stream, every packed block it visits read once (632 MB fp32 at Wiki10-31K
 // width, 0.19 ms at 3.35 TB/s; a quarter of that in int8); at n = 256 the
 // fp32 FMAs (81 GFLOP, 1.2 ms at 67 TFLOP/s), which int8 does not reduce.
-// `bsr_kernel`, the design of every variant but the gathered one at n <= 64:
-// a 3-stage cp.async pipeline runs over the flat (block, 16-feature chunk)
-// sequence of the row, so loads of the next blocks are in flight while the
-// current chunk is multiplied, with no bubble at block boundaries; the
-// CTA's TN row tiles of one row block are neighbours in launch order and
-// share each weight block through L2. Each thread accumulates a (TN/8 rows
-// x 4 labels) tile with FFMA (not TF32) from 16-byte shared-memory reads:
-// fp32 weight rows are padded to 20 floats so the reads of a quarter warp
-// hit distinct banks, int8 rows are 16 contiguous bytes (16 features in one
+// `bsr_kernel`, the design of every variant but the gathered ones at small n
+// (below): a 3-stage cp.async pipeline runs over the flat (block, 16-feature
+// chunk) sequence of the row, so loads of the next blocks are in flight while
+// the current chunk is multiplied, with no bubble at block boundaries; the
+// CTA's TN row tiles of one row block are neighbours in launch order and share
+// each weight block through L2. Each thread accumulates a (TN/8 rows x 4
+// labels) tile with FFMA (not TF32) from 16-byte shared-memory reads: fp32
+// weight rows are padded to 20 floats so the reads of a quarter warp hit
+// distinct banks, int8 rows are 16 contiguous bytes (16 features in one
 // cp.async piece, widened in registers), and x reads broadcast.
 //
-// `gather_kernel`, the gathered (shared selection) kernels at n <= 64, the
-// fine stage of shortlist serving. A selection of B = 31 of 242 row blocks
-// is ~1,240 blocks (81 MB fp32, 20 MB int8). `bsr_kernel`'s 128-label tile
-// gave it 31 CTAs on 132 SMs with 2 x 8 KB in flight each: latency-bound
+// `gather_kernel`, the gathered (shared selection) kernels at n <= 64, the fine
+// stage of shortlist serving, and the exhaustive int8 kernel at n up to the
+// switch its caller passes (each row block its own slot: 968 CTAs at R = 242,
+// bl = 128, where `bsr_kernel` ran 242). A selection of B = 31 of 242 row
+// blocks is ~1,240 blocks (81 MB fp32, 20 MB int8). `bsr_kernel`'s 128-label
+// tile gave it 31 CTAs on 132 SMs with 2 x 8 KB in flight each: latency-bound
 // at a tenth of the memory rate. Here:
 //   - one CTA owns (slot, 32 labels) and all n rows: 124 CTAs at B = 31,
 //     bl = 128, each streaming its 32 label rows of each block;
@@ -95,7 +97,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace hopper;
 
 constexpr int kThreads = 256;
 constexpr int kLabelTile = 128;       // 32 lanes x 4 labels
@@ -393,47 +399,6 @@ int gather_smem(int rows_box) {
          (widen ? 2 * kWideBytes : 0) + 2 * kGStaged * 4;
 }
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
-               :: "r"(smem_u32(bar)));
-}
-
-// One arrival that also expects `bytes` of copies to complete the phase.
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-// Waits for phase `parity` of `bar` to complete. A copy that never lands
-// (a fault in this file) traps after 2^26 polls instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  for (unsigned polls = 0;; ++polls) {
-    unsigned done;
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n" : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
-    if (done) return;
-    if (polls == (1u << 26)) __trap();
-  }
-}
-
-// Box (c0, c1) of a 2D tensor map into shared memory, completing on `bar`.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         int c0, int c1, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n"
-      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0),
-         "r"(c1), "r"(smem_u32(bar)) : "memory");
-}
-
 // Four int8 weights (one 32-bit word, lowest byte first) as fp32, exactly:
 // byte b ^ 0x80 is b + 128 in [0, 255]; placed under the exponent of 2^23
 // (0x4b0000xx) it reads 2^23 + b + 128, and subtracting 2^23 + 128 leaves
@@ -521,7 +486,7 @@ gather_kernel(const __grid_constant__ CUtensorMap wmap,
   const int row0 = warp * WR + lane / LANES_L;
   const int slot = blockIdx.x / label_tiles;
   const int l0 = (blockIdx.x % label_tiles) * kGLabels;
-  const int r = sel[slot];
+  const int r = sel != nullptr ? sel[slot] : slot;   // null: exhaustive
   const bool in_range = r >= 0 && r < R;
   const int p_begin = in_range ? row_ptr[r] : 0;
   const int p_end = in_range ? row_ptr[r + 1] : 0;
@@ -529,7 +494,7 @@ gather_kernel(const __grid_constant__ CUtensorMap wmap,
   const unsigned stage_bytes =
       kGLabels * WP * sizeof(WT) + rows_box * XP * 4;
   if (threadIdx.x == 0) {
-    for (int s = 0; s < S; ++s) mbar_init(&full[s]);
+    for (int s = 0; s < S; ++s) mbar_init(&full[s], 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
 
@@ -666,43 +631,17 @@ gather_kernel(const __grid_constant__ CUtensorMap wmap,
   }
 }
 
-// cuTensorMapEncodeTiled, found through the runtime (no -lcuda).
-using EncodeTiled = CUresult (*)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-EncodeTiled tensor_map_encoder() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
 // A 2D row-major tensor (outer x inner elements, rows row_bytes apart)
 // read in boxes of box_outer x box_inner, stored densely; what lies
 // outside the tensor arrives as zeros.
 bool tensor_map(CUtensorMap* map, CUtensorMapDataType type,
                 const void* base, uint64_t inner, uint64_t outer,
                 uint64_t row_bytes, uint32_t box_inner, uint32_t box_outer) {
-  const EncodeTiled encode = tensor_map_encoder();
   const cuuint64_t dims[2] = {inner, outer};
   const cuuint64_t strides[1] = {row_bytes};
   const cuuint32_t box[2] = {box_inner, box_outer};
-  const cuuint32_t unit[2] = {1, 1};
-  return encode != nullptr &&
-         encode(map, type, 2, const_cast<void*>(base), dims, strides, box,
-                unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                CU_TENSOR_MAP_SWIZZLE_NONE,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return encode_map(map, type, 2, base, dims, strides, box,
+                    CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
 // Launches gather_kernel over ceil(n / rows a warp) <= 8 warps.
@@ -739,28 +678,31 @@ cudaError_t launch_gather(const float* x, const WT* blocks,
 }
 
 // Checks the shape, picks the kernel and its tile by n and launches on
-// `stream` of `device`; returns cudaGetLastError() after the launch. The
-// shared selection at n <= 64 runs gather_kernel (RN = 1 at n <= 8, else
-// 8); every other launch bsr_kernel at TN = 8 / 32 / 64 (8 per query).
+// `stream` of `device`; returns cudaGetLastError() after the launch.
+// gather_kernel serves n <= min(gather_max_n, 64) (RN = 1 at n <= 16, else
+// 2): the shared selection up to 64 and the exhaustive int8 kernel up to
+// the caller's switch. Every other launch runs bsr_kernel at TN = 8 / 32 /
+// 64 (8 per query; 64 for the shared selection).
 template <typename WT, int MODE>
 int run(const float* x, const WT* blocks, const float* scales,
         const int* block_cols, const int* row_ptr, const int* sel,
         float* out, int n, int Dp, int R, int slots, int nb, int bl, int bd,
-        int device, void* stream) {
+        int gather_max_n, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int label_tiles = (bl + kLabelTile - 1) / kLabelTile;
-  int64_t tiles = static_cast<int64_t>(slots) * label_tiles *
-                  (MODE == kPerQuery ? n : (n + 7) / 8);
-  const int64_t gather_tiles =
-      static_cast<int64_t>(slots) * ((bl + kGLabels - 1) / kGLabels);
-  if (MODE == kShared && gather_tiles > tiles) tiles = gather_tiles;
+  const bool gather = MODE != kPerQuery && n <= gather_max_n &&
+                      n <= kGMaxRows;
+  const int64_t tiles =
+      gather ? static_cast<int64_t>(slots) * ((bl + kGLabels - 1) / kGLabels)
+             : static_cast<int64_t>(slots) *
+                   ((bl + kLabelTile - 1) / kLabelTile) *
+                   (MODE == kPerQuery ? n : (n + 7) / 8);
   const int piece = sizeof(WT) == 1 ? 16 : 4;
   if (n < 1 || slots < 1 || R < 1 || bd % piece != 0 || tiles > 0x7fffffff)
     return static_cast<int>(cudaErrorInvalidValue);
   const int out_cols = slots * bl;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if constexpr (MODE == kShared) {
+  if (gather) {
     if (n <= kGMaxWarps)
       err = launch_gather<WT, 32, 1>(x, blocks, scales, block_cols, row_ptr,
                                      sel, out, n, Dp, out_cols, R, slots, nb,
@@ -769,14 +711,14 @@ int run(const float* x, const WT* blocks, const float* scales,
       err = launch_gather<WT, 8, 1>(x, blocks, scales, block_cols, row_ptr,
                                     sel, out, n, Dp, out_cols, R, slots, nb,
                                     bl, bd, s);
-    else if (n <= kGMaxRows)
+    else
       err = launch_gather<WT, 8, 2>(x, blocks, scales, block_cols, row_ptr,
                                     sel, out, n, Dp, out_cols, R, slots, nb,
                                     bl, bd, s);
-    else
-      launch<WT, 64, MODE>(x, blocks, scales, block_cols, row_ptr, sel, out,
-                           n, Dp, out_cols, R, slots, bl, bd, s);
     if (err != cudaSuccess) return static_cast<int>(err);
+  } else if (MODE == kShared) {
+    launch<WT, 64, MODE>(x, blocks, scales, block_cols, row_ptr, sel, out, n,
+                         Dp, out_cols, R, slots, bl, bd, s);
   } else if (MODE == kPerQuery || n <= 8) {
     launch<WT, 8, MODE>(x, blocks, scales, block_cols, row_ptr, sel, out, n,
                         Dp, out_cols, R, slots, bl, bd, s);
@@ -803,18 +745,22 @@ extern "C" int bsr_predict_f32(const float* x, const float* blocks,
     return static_cast<int>(cudaErrorInvalidValue);
   return run<float, kAll>(x, blocks, nullptr, block_cols, row_ptr, nullptr,
                           out, n, Dp, n_row_blocks, n_row_blocks, -1, bl, bd,
-                          device, stream);
+                          0, device, stream);
 }
 
-// As bsr_predict_f32 over int8 blocks with fp32 per-block scales (nb,).
+// As bsr_predict_f32 over int8 blocks with fp32 per-block scales (nb,),
+// nb the blocks' first dim. n <= gather_max_n (at most 64) runs
+// gather_kernel with each row block as its own slot, larger n bsr_kernel:
+// the same bits either way.
 extern "C" int bsr_predict_int8(const float* x, const int8_t* blocks,
                                 const float* scales, const int* block_cols,
                                 const int* row_ptr, float* out, int n,
-                                int Dp, int n_row_blocks, int bl, int bd,
-                                int device, void* stream) {
+                                int Dp, int n_row_blocks, int nb, int bl,
+                                int bd, int gather_max_n, int device,
+                                void* stream) {
   return run<int8_t, kAll>(x, blocks, scales, block_cols, row_ptr, nullptr,
-                           out, n, Dp, n_row_blocks, n_row_blocks, -1, bl,
-                           bd, device, stream);
+                           out, n, Dp, n_row_blocks, n_row_blocks, nb, bl,
+                           bd, gather_max_n, device, stream);
 }
 
 // sel (B,) i32 row-block ids, any order -> out (n, B * bl) f32: columns
@@ -825,8 +771,8 @@ extern "C" int bsr_gather_f32(const float* x, const float* blocks,
                               int n_row_blocks, int B, int nb, int bl,
                               int bd, int device, void* stream) {
   return run<float, kShared>(x, blocks, nullptr, block_cols, row_ptr, sel,
-                             out, n, Dp, n_row_blocks, B, nb, bl, bd, device,
-                             stream);
+                             out, n, Dp, n_row_blocks, B, nb, bl, bd,
+                             kGMaxRows, device, stream);
 }
 
 // As bsr_gather_f32 over int8 blocks with fp32 per-block scales (nb,).
@@ -838,7 +784,7 @@ extern "C" int bsr_gather_int8(const float* x, const int8_t* blocks,
                                void* stream) {
   return run<int8_t, kShared>(x, blocks, scales, block_cols, row_ptr, sel,
                               out, n, Dp, n_row_blocks, B, nb, bl, bd,
-                              device, stream);
+                              kGMaxRows, device, stream);
 }
 
 // sel (n, B) i32, row q's own row-block ids -> out (n, B * bl) f32: row q's
@@ -849,7 +795,7 @@ extern "C" int bsr_gather_pq_f32(const float* x, const float* blocks,
                                  int n_row_blocks, int B, int bl, int bd,
                                  int device, void* stream) {
   return run<float, kPerQuery>(x, blocks, nullptr, block_cols, row_ptr, sel,
-                               out, n, Dp, n_row_blocks, B, -1, bl, bd,
+                               out, n, Dp, n_row_blocks, B, -1, bl, bd, 0,
                                device, stream);
 }
 
@@ -861,7 +807,7 @@ extern "C" int bsr_gather_pq_int8(const float* x, const int8_t* blocks,
                                   int n_row_blocks, int B, int bl, int bd,
                                   int device, void* stream) {
   return run<int8_t, kPerQuery>(x, blocks, scales, block_cols, row_ptr, sel,
-                                out, n, Dp, n_row_blocks, B, -1, bl, bd,
+                                out, n, Dp, n_row_blocks, B, -1, bl, bd, 0,
                                 device, stream);
 }
 

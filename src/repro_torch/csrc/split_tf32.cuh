@@ -48,7 +48,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace split_tf32 {
+
+using namespace hopper;
 
 constexpr int kBM = 128;                 // A rows per CTA (2 x wgmma M)
 constexpr int kBN = 128;                 // B rows per CTA (wgmma N)
@@ -78,10 +82,6 @@ constexpr int kSmemBytes = 1024 + kOffBar + 2 * kStages * 8;
 // tensor map needs. The Python wrappers allocate with the same rule.
 inline int padded(int n) { return (n + 3) / 4 * 4; }
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
 // x = big + small: big exactly TF32 (truncated), small = x - big (exact)
 // rounded to TF32.
 __device__ __forceinline__ void split(float x, unsigned& big,
@@ -92,38 +92,6 @@ __device__ __forceinline__ void split(float x, unsigned& big,
 }
 
 // ---------------------------------------------------------------- barriers
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(count));
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(smem_u32(bar)) : "memory");
-}
-
-// One arrival that also expects `bytes` of copies to complete the phase.
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-// Waits for phase `parity` of `bar` to complete. A copy that never lands
-// (a fault in this file) traps after 2^26 polls instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  for (unsigned polls = 0;; ++polls) {
-    unsigned done;
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n" : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
-    if (done) return;
-    if (polls == (1u << 26)) __trap();
-  }
-}
 
 __device__ __forceinline__ unsigned cluster_rank() {
   unsigned rank;
@@ -157,16 +125,6 @@ __device__ __forceinline__ void consumer_sync() {
 
 // ------------------------------------------------------------------ copies
 
-// Box (c0, c1) of a 2D tensor map into shared memory, completing on `bar`.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         int c0, int c1, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n"
-      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0),
-         "r"(c1), "r"(smem_u32(bar)) : "memory");
-}
-
 // The same box into this offset of both CTAs' shared memory, completing
 // on the barrier at the same offset in each.
 __device__ __forceinline__ void tma_load_both(void* dst,
@@ -194,23 +152,6 @@ __device__ __forceinline__ int a_index(int m, int k) {
 __device__ __forceinline__ uint64_t sw128_desc(const void* p) {
   return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
          (1ull << 16) | (64ull << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keeps the compiler from moving reads or writes of d across the
-// asynchronous wgmma region.
-__device__ __forceinline__ void fence_operands(float (&d)[kAcc]) {
-#pragma unroll
-  for (int i = 0; i < kAcc; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
 }
 
 // d (+)= A (64 x 8, this thread's fragment a) . B (128 x 8 at desc)^T;
@@ -472,42 +413,16 @@ reg_plus_rx_kernel(const __grid_constant__ CUtensorMap rbig,
 
 // ------------------------------------------------------------------- host
 
-// cuTensorMapEncodeTiled, found through the runtime (no -lcuda).
-using EncodeTiled = CUresult (*)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-inline EncodeTiled tensor_map_encoder() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
 // An (rows, K) fp32 array, rows ld floats apart, read in box_rows x 32-k
 // boxes with the 128-byte swizzle; what lies outside arrives as zeros.
 inline bool operand_map(CUtensorMap* map, const float* base, int K,
                         int rows, int64_t ld, int box_rows) {
-  const EncodeTiled encode = tensor_map_encoder();
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K),
                               static_cast<cuuint64_t>(rows)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * 4};
   const cuuint32_t box[2] = {kBK, static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t unit[2] = {1, 1};
-  return encode != nullptr &&
-         encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
-                const_cast<float*>(base), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, base, dims,
+                    strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // Splits src (L, D) into big and small (L, padded(D)).

@@ -5,7 +5,10 @@ CPU tensor; any other device raises.
 The kernel tiles the band itself, so every window and sequence length go
 to it: there is no budget to fall back from, and no padding or transpose
 around it. It reads q, k and v in the (B, T, heads, hd) layout the
-attention projections produce and writes (B, Tq, H * hd).
+attention projections produce and writes (B, Tq, H * hd). bf16 runs on the
+tensor cores (wgmma, tiles by TMA), fp32 on the FFMA kernel. TMA needs each
+bf16 tensor to start on a 16-byte boundary: `banded_attention_cuda`
+refuses one that does not, and `banded_attention` copies it first.
 """
 
 from __future__ import annotations
@@ -62,6 +65,11 @@ def banded_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"{name}: needs 1 <= Tq <= Tk, window >= 1 and "
                          f"B * KV <= 65535; got Tq={Tq}, Tk={Tk}, "
                          f"window={window}, B={B}, KV={KV}")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16
+                                         for t in (q, k, v)):
+        raise ValueError(f"{name}: bf16 q, k and v must start on a 16-byte "
+                         "boundary (TMA reads them); got data_ptr() % 16 = "
+                         f"{[t.data_ptr() % 16 for t in (q, k, v)]}")
     out = torch.empty((B, Tq, H * hd), dtype=q.dtype, device=q.device)
     fn = _build.function("banded_attn", "banded_attn", _ARGTYPES)
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -85,6 +93,11 @@ def banded_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return ref.banded_attention(q, k, v, window=window, q_chunk=q_chunk,
                                     softcap=softcap)
-    return banded_attention_cuda(q.contiguous(), k.contiguous(),
-                                 v.contiguous(), window=window,
+    return banded_attention_cuda(*map(_aligned, (q, k, v)), window=window,
                                  softcap=softcap)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t contiguous and starting on a 16-byte boundary: itself, or a copy."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()

@@ -31,10 +31,16 @@ from repro_torch.kernels.bsr_predict import ref
 from repro_torch.kernels.topk import ops as topk_ops
 from repro_torch.kernels.topk.ref import NEG_INF
 
+#: The exhaustive int8 kernel runs the gathered design (`gather_kernel`,
+#: each row block its own slot) up to this many rows and `bsr_kernel` above
+#: it; both give the same bits. Set where the two designs' times cross on
+#: an H100 (PERF.md, kernel 4).
+INT8_GATHER_MAX_N = 16
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
     "bsr_predict_f32": [_P] * 5 + [_I] * 7 + [_P],
-    "bsr_predict_int8": [_P] * 6 + [_I] * 6 + [_P],
+    "bsr_predict_int8": [_P] * 6 + [_I] * 8 + [_P],
     "bsr_gather_f32": [_P] * 6 + [_I] * 8 + [_P],
     "bsr_gather_int8": [_P] * 7 + [_I] * 8 + [_P],
     "bsr_gather_pq_f32": [_P] * 6 + [_I] * 7 + [_P],
@@ -83,10 +89,11 @@ def _launch(symbol: str, x: torch.Tensor, blocks: torch.Tensor,
                       else []) + [n_row_blocks]
     if sel is not None:
         dims.append(slots)
-    if symbol in ("bsr_gather_f32", "bsr_gather_int8"):
+    if symbol in ("bsr_gather_f32", "bsr_gather_int8", "bsr_predict_int8"):
         dims.append(nb)                   # the extent of their tensor map
+    tail = [INT8_GATHER_MAX_N] if symbol == "bsr_predict_int8" else []
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    _build.check(fn, fn(*ptrs, out.data_ptr(), *dims, bl, bd,
+    _build.check(fn, fn(*ptrs, out.data_ptr(), *dims, bl, bd, *tail,
                         x.device.index or 0, stream))
     return out
 

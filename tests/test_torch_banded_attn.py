@@ -10,7 +10,13 @@ Tolerances, those of the JAX kernel test: 2e-4 (relative and absolute)
 in float32, where only the order of the f32 sums differs; 3e-2 in
 bfloat16, where the plain version rounds the softmax weights and the
 output to bf16 and the oracle does not.
+
+The bf16 CUDA kernel runs only on a card; `_kernel_arithmetic` repeats its
+per-tile arithmetic here, so that its one new rounding (the probabilities
+to bf16 before P.V) is held against the JAX oracle on the CPU.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -63,6 +69,81 @@ def _oracle(q, k, v, window):
                                 jnp.asarray(v3), window=window)
     out = np.asarray(out).reshape(B, KV, G, T, hd).transpose(0, 3, 1, 2, 4)
     return out.reshape(B, T, H * hd)
+
+
+def _oracle_by_group(q, k, v, window):
+    """`_oracle`, one (sequence, KV head) group at a time: the dense
+    oracle's (T, T) scores of all groups at once would take gigabytes."""
+    B, T, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    out = np.empty((B, T, H * hd), np.float32)
+    for b in range(B):
+        for j in range(KV):
+            heads = slice(j * G * hd, (j + 1) * G * hd)
+            out[b:b + 1, :, heads] = _oracle(
+                q[b:b + 1, :, j * G:(j + 1) * G], k[b:b + 1, :, j:j + 1],
+                v[b:b + 1, :, j:j + 1], window)
+    return out
+
+
+# The bf16 kernel's tiles (csrc/banded_attn.cu, `wgmma_kernel`).
+KERNEL_QUERIES, KERNEL_KEYS = 128, 64
+
+
+def _kernel_arithmetic(q, k, v, window):
+    """The bf16 kernel's arithmetic in torch, on bf16 q, k, v: per tile of
+    128 query positions, the key tiles of 64 from the band's start rounded
+    down to 64; scores in fp32 in the log2 domain, masked to -inf; an
+    online softmax with running max m (0 in its place while it is -inf)
+    and running sum l of the fp32 probabilities; the probabilities rounded
+    to bf16 before P.V, whose products and sums are fp32; out = acc / l,
+    rounded to bf16."""
+    B, T, H, hd = q.shape
+    G = H // k.shape[2]
+    qf = q.float()
+    kf, vf = (a.float().repeat_interleave(G, dim=2) for a in (k, v))
+    scale = math.log2(math.e) / math.sqrt(hd)
+    out = torch.empty((B, T, H, hd))
+    for q0 in range(0, T, KERNEL_QUERIES):
+        rows = torch.arange(q0, min(q0 + KERNEL_QUERIES, T))
+        m = torch.full((B, H, rows.numel()), -math.inf)
+        l = torch.zeros((B, H, rows.numel()))
+        acc = torch.zeros((B, H, rows.numel(), hd))
+        lo = max(0, q0 - window + 1) // KERNEL_KEYS * KERNEL_KEYS
+        for j0 in range(lo, int(rows[-1]) + 1, KERNEL_KEYS):
+            keys = torch.arange(j0, min(j0 + KERNEL_KEYS, T))
+            s = torch.einsum("bqhd,bkhd->bhqk", qf[:, rows],
+                             kf[:, keys]) * scale
+            ok = (keys[None, :] <= rows[:, None]) & \
+                 (keys[None, :] > rows[:, None] - window)
+            s = torch.where(ok, s, -math.inf)
+            m_new = torch.maximum(m, s.amax(-1))
+            m_use = torch.where(m_new == -math.inf, 0.0, m_new)
+            corr = torch.exp2(m - m_use)
+            p = torch.exp2(s - m_use[..., None])
+            l = l * corr + p.sum(-1)
+            m = m_new
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhqk,bkhd->bhqd", p.bfloat16().float(), vf[:, keys])
+        out[:, rows] = (acc / l[..., None]).permute(0, 2, 1, 3)
+    return out.reshape(B, T, H * hd).bfloat16()
+
+
+@pytest.mark.parametrize("B,T,H,KV,hd,window", [
+    (1, 256, 4, 2, 32, 64), (2, 512, 4, 4, 64, 128),   # the JAX kernel
+    (1, 1024, 8, 2, 64, 256), (2, 384, 6, 2, 32, 100),  # test's four
+    (1, 1100, 25, 5, 64, 1024)])                        # hymba-1.5b's heads
+def test_bf16_kernel_arithmetic_matches_jax_oracle(B, T, H, KV, hd, window):
+    """The bf16 kernel's rounding choice (P to bf16, fp32 statistics)
+    within the bf16 tolerance, 3e-2, of the JAX oracle on the same
+    bf16-rounded inputs."""
+    q, k, v = (_round(a, torch.bfloat16)
+               for a in _qkv(B, T, H, KV, hd, 3 * T + window))
+    got = _kernel_arithmetic(q, k, v, window)
+    want = _oracle_by_group(*(a.float().numpy() for a in (q, k, v)), window)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=3e-2,
+                               atol=3e-2)
 
 
 def _round(a, tdt):

@@ -174,10 +174,14 @@ INT8_CASES = [(300, 520, 0.3, (16, 16)), (256, 1024, 0.2, (128, 128)),
 
 
 @pytest.mark.parametrize("L,D,density,block", INT8_CASES)
-@pytest.mark.parametrize("n", [1, 9, 64])
-def test_int8_kernels_match_plain(cuda, L, D, density, block, n):
+@pytest.mark.parametrize("n", [1, 8, 9, 16, 17, 32, 64, 65, 256])
+def test_int8_kernels_match_plain(cuda, L, D, density, block, n,
+                                  monkeypatch):
     """Kernels 4 and 6 against their plain versions; kernel 6 with a sorted
-    full selection equals kernel 4 bit for bit (contract b)."""
+    full selection equals kernel 4 bit for bit (contract b); kernel 4's
+    two designs (`gather_kernel` up to `INT8_GATHER_MAX_N` rows,
+    `bsr_kernel` above) give the same bits at every n; the emptied row
+    block 0 scores exact zeros."""
     q = _int8_model(L, D, density, block, seed=L + n, device=cuda)
     x = _x(n, q.shape[1], n, cuda)
     R = q.shape[0] // block[0]
@@ -188,6 +192,12 @@ def test_int8_kernels_match_plain(cuda, L, D, density, block, n):
                                           q.block_rows, q.block_cols, R),
             bsr_ref.bsr_predict_int8(x.abs(), absq, q.scales, q.block_rows,
                                      q.block_cols, R))
+    assert bool((got[:, :block[0]] == 0).all())             # row block 0
+    for switch in (0, 64):
+        monkeypatch.setattr(bsr_ops, "INT8_GATHER_MAX_N", switch)
+        assert torch.equal(got, bsr_ops.bsr_predict_int8_cuda(
+            x, q.blocks, q.scales, q.block_cols, q.row_ptr, R))
+    monkeypatch.undo()
     full = torch.arange(R, dtype=torch.int32, device=cuda)
     assert torch.equal(got, bsr_ops.bsr_predict_gather_int8_cuda(
         x, q.blocks, q.scales, q.block_cols, q.row_ptr, full))
@@ -770,17 +780,33 @@ def test_fit_on_the_card(cuda, tmp_path):
 # Banded attention (the LM's local layers) and the LM serving path.
 # Tolerances, those of the JAX kernel test: 2e-4 in float32 (the same fp32
 # products summed in another order); 3e-2 in bfloat16, where the plain
-# version rounds the softmax weights and the output to bf16 and the
-# kernel keeps them in fp32.
+# version rounds the softmax weights and the output to bf16 and the bf16
+# kernel rounds the unnormalized probabilities and the output.
 # ---------------------------------------------------------------------------
 
 BANDED_CASES = [  # (B, T, H, KV, hd, window): the JAX kernel test's four,
-    (1, 256, 4, 2, 32, 64),                   # then hymba-1.5b's heads
-    (2, 512, 4, 4, 64, 128),
-    (1, 1024, 8, 2, 64, 256),
-    (2, 384, 6, 2, 32, 100),
-    (2, 2304, 25, 5, 64, 1024),
+    (1, 256, 4, 2, 32, 64),                   # then hymba-1.5b's heads,
+    (2, 512, 4, 4, 64, 128),                  # then the bf16 kernel's tile
+    (1, 1024, 8, 2, 64, 256),                 # edges: T no tile divides,
+    (2, 384, 6, 2, 32, 100),                  # window 1, window under the
+    (2, 2304, 25, 5, 64, 1024),               # 64-key tile, window >= T;
+    (1, 300, 5, 1, 16, 33),                   # G of 1, 5 and 8; hd of 16,
+    (2, 200, 8, 1, 64, 1),                    # 32, 64 and 128
+    (1, 200, 8, 8, 32, 50),
+    (1, 777, 10, 2, 128, 129),
+    (1, 300, 10, 2, 128, 500),
+    (1, 65, 3, 3, 16, 7),
 ]
+
+
+def _band_inputs(B, Tq, Tk, H, KV, hd, dtype, seed, device):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return (torch.randn((B, Tq, H, hd), generator=g, device=device)
+            .to(dtype),
+            torch.randn((B, Tk, KV, hd), generator=g, device=device)
+            .to(dtype),
+            torch.randn((B, Tk, KV, hd), generator=g, device=device)
+            .to(dtype))
 
 
 @pytest.mark.parametrize("B,T,H,KV,hd,window", BANDED_CASES)
@@ -788,10 +814,7 @@ BANDED_CASES = [  # (B, T, H, KV, hd, window): the JAX kernel test's four,
 def test_banded_kernel_matches_plain(cuda, B, T, H, KV, hd, window, dtype):
     from repro_torch.kernels.banded_attn import ops as band_ops
     from repro_torch.kernels.banded_attn import ref as band_ref
-    g = torch.Generator(device=cuda).manual_seed(T + window)
-    q = torch.randn((B, T, H, hd), generator=g, device=cuda).to(dtype)
-    k = torch.randn((B, T, KV, hd), generator=g, device=cuda).to(dtype)
-    v = torch.randn((B, T, KV, hd), generator=g, device=cuda).to(dtype)
+    q, k, v = _band_inputs(B, T, T, H, KV, hd, dtype, T + window, cuda)
     before = band_ops.banded_attention_cuda.launches
     got = band_ops.banded_attention(q, k, v, window=window)
     again = band_ops.banded_attention(q, k, v, window=window)
@@ -817,6 +840,52 @@ def test_banded_kernel_window_beyond_t_and_ragged(cuda):
         got = band_ops.banded_attention(q, k, v, window=window)
         want = band_ref.banded_attention(q, k, v, window=window)
         torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_banded_kernel_softcap_and_fewer_queries(cuda, dtype):
+    """A tanh softcap at B = 2, and Tq < Tk (the queries are the first Tq
+    positions)."""
+    from repro_torch.kernels.banded_attn import ops as band_ops
+    from repro_torch.kernels.banded_attn import ref as band_ref
+    tol = 2e-4 if dtype == torch.float32 else 3e-2
+    for Tq, Tk, softcap in ((300, 300, 5.0), (200, 333, None)):
+        q, k, v = _band_inputs(2, Tq, Tk, 4, 2, 64, dtype, Tq + Tk, cuda)
+        got = band_ops.banded_attention(q, k, v, window=100, softcap=softcap)
+        want = band_ref.banded_attention(q, k, v, window=100,
+                                         softcap=softcap)
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+
+
+def test_banded_kernel_repeats_bit_for_bit(cuda):
+    """20 launches of the bf16 kernel at hymba-1.5b's heads, each equal to
+    the first (no atomics, a fixed order)."""
+    from repro_torch.kernels.banded_attn import ops as band_ops
+    q, k, v = _band_inputs(2, 2304, 2304, 25, 5, 64, torch.bfloat16, 3,
+                           cuda)
+    first = band_ops.banded_attention(q, k, v, window=1024)
+    outs = [band_ops.banded_attention(q, k, v, window=1024)
+            for _ in range(19)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, first) for o in outs)
+
+
+def test_banded_kernel_takes_a_misaligned_view(cuda):
+    """A contiguous bf16 view 2 bytes past a 16-byte boundary, which a
+    tensor map cannot describe: `banded_attention_cuda` refuses it with a
+    ValueError, `banded_attention` copies it and gives the aligned copy's
+    bits."""
+    from repro_torch.kernels.banded_attn import ops as band_ops
+    q, k, v = _band_inputs(1, 200, 200, 4, 2, 64, torch.bfloat16, 9, cuda)
+    flat = torch.empty(q.numel() + 1, dtype=torch.bfloat16, device=cuda)
+    view = flat[1:].view(q.shape)
+    view.copy_(q)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    with pytest.raises(ValueError, match="16-byte"):
+        band_ops.banded_attention_cuda(view, k, v, window=50)
+    assert torch.equal(band_ops.banded_attention(view, k, v, window=50),
+                       band_ops.banded_attention(q, k, v, window=50))
 
 
 def test_banded_wrapper_refuses_what_the_kernel_does_not_take(cuda):

@@ -343,10 +343,14 @@ def test_build_hash_covers_included_headers(tmp_path, monkeypatch):
     shutil.copytree(_build.CSRC, csrc)
     monkeypatch.setattr(_build, "CSRC", csrc)
     assert {"hinge", "hvp"} <= set(_build.KERNELS)
-    assert [p.name for p in _build.sources("hinge")] == ["hinge.cu",
-                                                         "split_tf32.cuh"]
-    assert [p.name for p in _build.sources("hvp")] == ["hvp.cu",
-                                                       "split_tf32.cuh"]
+    # split_tf32.cuh includes hopper.cuh: followed transitively.
+    assert [p.name for p in _build.sources("hinge")] == [
+        "hinge.cu", "split_tf32.cuh", "hopper.cuh"]
+    assert [p.name for p in _build.sources("hvp")] == [
+        "hvp.cu", "split_tf32.cuh", "hopper.cuh"]
+    for name in ("bsr_predict", "banded_attn"):
+        assert [p.name for p in _build.sources(name)] == [f"{name}.cu",
+                                                          "hopper.cuh"]
     assert [p.name for p in _build.sources("topk")] == ["topk.cu"]
     before = {k: _build.library_path(k) for k in _build.KERNELS}
     header = csrc / "split_tf32.cuh"
@@ -356,3 +360,10 @@ def test_build_hash_covers_included_headers(tmp_path, monkeypatch):
     assert after["hvp"] != before["hvp"]
     assert after["topk"] == before["topk"]
     assert after["bsr_predict"] == before["bsr_predict"]
+    assert after["banded_attn"] == before["banded_attn"]
+    shared = csrc / "hopper.cuh"
+    shared.write_text(shared.read_text() + "\n// edited\n")
+    last = {k: _build.library_path(k) for k in _build.KERNELS}
+    assert all(last[k] != after[k] for k in ("hinge", "hvp", "bsr_predict",
+                                             "banded_attn"))
+    assert last["topk"] == after["topk"]
