@@ -34,15 +34,19 @@ seed:
                BSR kernels against their plain versions on the same model
                (int8 from `quantize_block_sparse`), at the selection the
                checkpoint's centroid coarse stage gives at the default
-               B = 31 of 242 row blocks, n = 1, 32, 256; the gathered
-               kernels at a sorted full selection equal the exhaustive ones
-               and the per-query kernels at n = 1 the shared ones, bit for
-               bit, and the per-query int8 kernel over full lists the
-               exhaustive int8 one; empty row blocks and the sentinel
-               score exact zeros; the gathered, gathered int8 and
-               per-query int8 kernels repeat bit for bit over 50 launches
-               and over launches on two streams at once, and so does the
-               int8 BSR kernel; timed like 3;
+               B = 31 of 242 row blocks, n = 1, 32, 256; bit for bit:
+               the gathered kernels at a sorted full selection equal the
+               exhaustive ones, each checked row of a per-query batch
+               (every row to n = 32, 32 rows spread over n = 256) equals
+               that row run alone, per query and through the shared
+               kernel, the per-query kernels over full lists equal the
+               exhaustive ones and, with every row at the shared
+               selection, the shared ones; empty row blocks and the
+               sentinel score exact zeros; the int8, gathered, gathered
+               int8, per-query and per-query int8 kernels repeat bit for
+               bit over 50 launches and over launches on two streams at
+               once; timed like 3; the per-query kernels timed at n =
+               1, 8, 32, 64, 256 beside their bounds;
   4c. serve: shortlist, shortlist per-query, shortlist int8, shortlist
                int8 per-query, int8 — the same checkpoint and requests
                through each of those `ServeSpec`s: each configuration's
@@ -425,6 +429,7 @@ def check_bsr(model, X, flush) -> dict:
 
 
 INT8_DESIGN_N = (1, 8, 16, 32, 64)              # phase 3's design sweep
+PQ_SWEEP_N = (1, 8, 32, 64, 256)                # phase 4b's, kernels 7, 8
 
 
 def check_int8_designs(model, X, flush) -> dict:
@@ -539,6 +544,79 @@ def repeat_check(name: str, kernel, n: int, launches: int = 50,
           f"{len(outs)} repeated launches differ from the first")
     print(f"   {name} n={n:3d}: {launches} launches and {pairs} pairs on "
           "two streams equal to the first bit for bit", flush=True)
+
+
+def pq_contracts(x, sel, sel_pq, full, fp, i8, R: int) -> int:
+    """Contracts (c) to (e) of kernels 7 and 8 and the skewed case, bit for
+    bit (torch.equal): (c), (d) each checked row's per-query scores in the
+    batch equal the row run alone, per query and through the shared
+    kernel 5 or 6; every row at n <= 32, 32 rows spread over a larger n;
+    (e) per query over full lists equals kernel 3 or 4 at n; skewed, every
+    row given the shared selection, equals kernel 5 or 6 at n. Returns
+    the rows checked."""
+    from repro_torch.kernels.bsr_predict import ops as bsr_ops
+    n = x.shape[0]
+    rows = (range(n) if n <= 32 else
+            np.linspace(0, n - 1, 32).round().astype(int).tolist())
+    for tag, pq, shared, exhaustive, args in (
+            ("(c) per-query", bsr_ops.bsr_predict_gather_pq_cuda,
+             bsr_ops.bsr_predict_gather_cuda, bsr_ops.bsr_predict_cuda, fp),
+            ("(d) per-query int8", bsr_ops.bsr_predict_gather_pq_int8_cuda,
+             bsr_ops.bsr_predict_gather_int8_cuda,
+             bsr_ops.bsr_predict_int8_cuda, i8)):
+        batch = pq(x, *args, sel_pq)
+        for i in rows:
+            xi = x[i:i + 1].contiguous()
+            alone = pq(xi, *args, sel_pq[i:i + 1])
+            _need(torch.equal(batch[i:i + 1], alone)
+                  and torch.equal(alone, shared(xi, *args,
+                                                sel_pq[i].contiguous())),
+                  f"{tag}: row {i} of {n} differs from the row run alone")
+        _need(torch.equal(pq(x, *args, full.repeat(n, 1).contiguous()),
+                          exhaustive(x, *args, R)),
+              f"(e) {tag[4:]} over full lists != exhaustive at n={n}")
+        _need(torch.equal(pq(x, *args, sel.repeat(n, 1).contiguous()),
+                          shared(x, *args, sel)),
+              f"{tag[4:]}: every row at the shared selection != shared at "
+              f"n={n}")
+    return len(rows)
+
+
+def check_pq_sweep(model, q, centroids, X, flush) -> list:
+    """Kernels 7 and 8 at n = 1, 8, 32, 64, 256 on the serving model at the
+    centroid selection, timed like phase 3 beside the bound."""
+    from repro_torch.kernels.bsr_predict import ops as bsr_ops
+    from repro_torch.kernels.bsr_predict import ref as bsr_ref
+    from repro_torch.serve import xmc
+    bl, bd = model.block_shape
+    Lp, Dp = model.shape
+    R = Lp // bl
+    B = -(-R // 8)
+    ptr = model.row_ptr
+    rows = []
+    for n in PQ_SWEEP_N:
+        x = torch.nn.functional.pad(torch.from_numpy(X[:n]).cuda(),
+                                    (0, Dp - N_FEATURES)).contiguous()
+        sel_pq = xmc._shortlist_select_pq(x, centroids, B).contiguous()
+        nu = int(torch.unique(bsr_ref.selected_blocks(
+            ptr, sel_pq.reshape(-1))[0]).numel())
+        common = 4 * n * Dp + 4 * (R + 1) + 4 * n * B + 4 * n * B * bl
+        for name, kernel, n_bytes in (
+                ("bsr_gather_pq", lambda: bsr_ops.bsr_predict_gather_pq_cuda(
+                    x, model.blocks, model.block_cols, ptr, sel_pq),
+                 4 * nu * bl * bd + 4 * nu + common),
+                ("bsr_gather_pq_int8",
+                 lambda: bsr_ops.bsr_predict_gather_pq_int8_cuda(
+                     x, q.blocks, q.scales, q.block_cols, ptr, sel_pq),
+                 nu * bl * bd + 8 * nu + common)):
+            ms = cuda_ms(kernel, 20, flush)
+            b_ms, b_by = bound(n_bytes, bsr_ops.gather_pq_flops(model,
+                                                                sel_pq))
+            rows.append(dict(name=name, n=n, ms=ms, bound_ms=b_ms,
+                             bound_by=b_by))
+            print(f"   {name} n={n:3d}: {ms:.4f} ms; bound {b_ms:.4f} ms "
+                  f"({b_by})", flush=True)
+    return rows
 
 
 def check_shortlist_int8(model, q, centroids, X, flush) -> dict:
@@ -671,31 +749,14 @@ def check_shortlist_int8(model, q, centroids, X, flush) -> dict:
             x, qb, qs, cols, ptr, full),
             bsr_ops.bsr_predict_int8_cuda(x, qb, qs, cols, ptr, R)),
             f"(b) gathered int8 at arange(R) != int8 at n={n}")
-        for i in range(min(n, 4)):
-            xi = x[i:i + 1].contiguous()
-            _need(torch.equal(
-                bsr_ops.bsr_predict_gather_pq_cuda(xi, blocks, cols, ptr,
-                                                   sel_pq[i:i + 1]),
-                bsr_ops.bsr_predict_gather_cuda(xi, blocks, cols, ptr,
-                                                sel_pq[i].contiguous())),
-                f"(c) per-query at n=1 != shared at n=1 (row {i} of {n})")
-            _need(torch.equal(
-                bsr_ops.bsr_predict_gather_pq_int8_cuda(xi, qb, qs, cols,
-                                                        ptr, sel_pq[i:i + 1]),
-                bsr_ops.bsr_predict_gather_int8_cuda(xi, qb, qs, cols, ptr,
-                                                     sel_pq[i].contiguous())),
-                f"(d) per-query int8 at n=1 != shared int8 at n=1 (row {i} "
-                f"of {n})")
-        _need(torch.equal(
-            bsr_ops.bsr_predict_gather_pq_int8_cuda(
-                x, qb, qs, cols, ptr, full.repeat(n, 1).contiguous()),
-            bsr_ops.bsr_predict_int8_cuda(x, qb, qs, cols, ptr, R)),
-            f"(e) per-query int8 over full lists != int8 at n={n}")
-        print(f"   n={n:3d}: contracts (a) to (e) hold bit for bit; "
-              f"shared selection {ns} blocks, per-query union {nu} blocks",
-              flush=True)
+        checked = pq_contracts(x, sel, sel_pq, full, (blocks, cols, ptr),
+                               (qb, qs, cols, ptr), R)
+        print(f"   n={n:3d}: contracts (a), (b), (c) and (d) on {checked} "
+              "rows, (e) in fp32 and int8, and every row at the shared "
+              f"selection hold bit for bit; shared selection {ns} blocks, "
+              f"per-query union {nu} blocks", flush=True)
         for name in ("bsr_predict_int8", "bsr_gather", "bsr_gather_int8",
-                     "bsr_gather_pq_int8"):
+                     "bsr_gather_pq", "bsr_gather_pq_int8"):
             repeat_check(name, cases[name][0], n)
     # Row block 0 emptied (its packed blocks dropped) and the sentinel.
     p1 = int(ptr[1])
@@ -2240,6 +2301,7 @@ def main() -> None:
             centroids = torch.as_tensor(load_shortlist(ckpt).centroids,
                                         device="cuda")
             sl = check_shortlist_int8(gpu_model, q, centroids, X, flush)
+            pq_sweep = check_pq_sweep(gpu_model, q, centroids, X, flush)
             del gpu_model, q, centroids, flush
             torch.cuda.empty_cache()
 
@@ -2395,6 +2457,12 @@ def main() -> None:
     k4.update(design=f"gather_kernel (each row block its own slot) at n <= "
               f"{int8_designs['switch']}, bsr_kernel above", redesigned=True,
               designs=int8_designs["rows"])
+    for k in kernels:
+        if "pq" in k["name"]:
+            k.update(design="pq_kernel (a CTA per row block, chunk of up "
+                     "to 64 of its (query, slot) pairs and label tile)",
+                     redesigned=True, timed=[
+                         r for r in pq_sweep if r["name"] == k["name"]])
     band = banded["rows"][0]
     kernels.append(dict(
         name="banded_attention", route="cuda",

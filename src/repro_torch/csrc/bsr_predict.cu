@@ -1,8 +1,8 @@
 // Block-sparse (BSR) predict for Hopper: scores = x @ W_pruned^T over the
 // packed surviving blocks of a Delta-pruned DiSMEC model, in six variants
-// of one loop, in two kernels (weights fp32 or int8 with per-block scales;
-// every row block, a shared selection of row blocks, or each query's own
-// selection).
+// of one loop, in three kernels (weights fp32 or int8 with per-block
+// scales; every row block, a shared selection of row blocks, or each
+// query's own selection).
 //
 // Replaces the TPU kernels of src/repro/kernels/bsr_predict/kernel.py:
 //   bsr_predict_f32        `_bsr_kernel`               (exhaustive, fp32)
@@ -14,26 +14,26 @@
 // Those walk the packed blocks in order on one core (a static grid whose
 // padding steps are clamped and gated off) and keep a row's (n, bl) output
 // tile resident across the row's blocks. Here blocks run in parallel and in
-// no order, so one CTA owns one (output slot, label tile, tile of instance
-// rows) and loops over row_ptr[r] .. row_ptr[r+1] of its own row
-// block r itself; the output tile lives in registers and is written once.
-// The slot is the row block itself (exhaustive), sel[i] (shared selection:
-// output columns [i*bl, (i+1)*bl)), or sel[q, i] with one x row (per
-// query). A row block with no packed blocks writes exact zeros, which is
-// also what the fully pruned sentinel (row_ptr all zeros) gives; so does a
+// no order, so one CTA owns one (row block r, label tile, tile of rows)
+// and loops over row_ptr[r] .. row_ptr[r+1] itself; the output tile lives
+// in registers and is written once. r is the output slot itself
+// (exhaustive) or sel[i] (shared selection: output columns [i*bl,
+// (i+1)*bl)); per query, the rows are the (query, slot) pairs that chose
+// r. A row block with no packed blocks writes exact zeros, which is also
+// what the fully pruned sentinel (row_ptr all zeros) gives; so does a
 // selected id outside [0, R).
 //
 // Every variant runs the same per-element FFMA sequence: a thread owns
 // (row, label) pairs and adds their products in packed-block order,
-// features in ascending order, one FFMA each, whatever the tile. Both
+// features in ascending order, one FFMA each, whatever the tile. The
 // kernels below split only labels and rows across threads and CTAs, never
 // a row block's blocks or features (no split-K); `bsr_kernel`'s zero-filled
-// features past bd add an exact +0, and `gather_kernel` stops at bd. So a
-// sorted full selection reproduces the exhaustive kernel bit for bit, and
-// the per-query kernel at n = 1 reproduces the shared one, in fp32 and in
-// int8 alike. Int8 weights are widened to fp32 exactly; each block's fp32
-// partial dot is kept apart, multiplied by the block's scale when the
-// block ends and then added to the running output, with no FMA
+// features past bd add an exact +0, and the others stop at bd. So a sorted
+// full selection reproduces the exhaustive kernel bit for bit, and each row
+// of the per-query kernel reproduces the shared one on that row alone, in
+// fp32 and in int8 alike. Int8 weights are widened to fp32 exactly; each
+// block's fp32 partial dot is kept apart, multiplied by the block's scale
+// when the block ends and then added to the running output, with no FMA
 // contraction: o += scale * dot(x, q), as the TPU kernels compute it. No
 // atomics: every sum runs in a fixed order.
 //
@@ -41,7 +41,7 @@
 // stream, every packed block it visits read once (632 MB fp32 at Wiki10-31K
 // width, 0.19 ms at 3.35 TB/s; a quarter of that in int8); at n = 256 the
 // fp32 FMAs (81 GFLOP, 1.2 ms at 67 TFLOP/s), which int8 does not reduce.
-// `bsr_kernel`, the design of every variant but the gathered ones at small n
+// `bsr_kernel`, the exhaustive kernels and the shared selection at n > 64
 // (below): a 3-stage cp.async pipeline runs over the flat (block, 16-feature
 // chunk) sequence of the row, so loads of the next blocks are in flight while
 // the current chunk is multiplied, with no bubble at block boundaries; the
@@ -89,6 +89,51 @@
 // At n > 64 the gathered kernels run `bsr_kernel` at TN = 64, whose
 // 128 x 64 tile needs fewer shared-memory reads per FFMA once n fills it.
 //
+// `pq_kernel`, the per-query kernels (sel (n, B): each query its own B row
+// blocks, the fine stage of per-query shortlist serving). The TPU kernels
+// step through (query, slot, block), and `bsr_kernel` ran one CTA per
+// (query, slot) until this design: each streamed its row block's ~40
+// blocks for one x row, n * B * 40 blocks of 64 KB at n = 256, B = 31
+// (20.8 GB of fp32 weights, read again once per query, where the union of
+// the selected row blocks is under 0.74 GB), and 7 of its 8 warps
+// multiplied zero-filled rows. Here the row block comes first:
+//   - one CTA per (row block r, chunk of up to 8 * RN of the (query, slot)
+//     pairs that chose r, label tile of 32 * LN labels), the label tile
+//     fastest in launch order and then the chunk, so the CTAs of one r
+//     share its blocks through L2; r = R stands for every id outside
+//     [0, R) and writes their zeros, so every output element is written;
+//   - the CTA finds its pairs itself: it scans sel (n * B int32, 31 KB at
+//     n = 256) in passes of 8,192 entries, each thread keeping the warp
+//     ballot of 32 of them, and a CTA-wide prefix of their counts places
+//     the chunk's pairs in (q, i) order; no sort and no other launch. A row
+//     block chosen more often than the grid's chunks hold (repeated ids)
+//     is served by the same CTAs in further rounds;
+//   - r's packed blocks stream once a CTA through a TMA ring, as in
+//     gather_kernel; a stage's x rows (x[q] at the block's column) are no
+//     box, and TMA has no row gather, so warp 0 issues a one-row box a pair
+//     (512 bytes, each 128-byte aligned as TMA asks);
+//   - a lane owns LN labels 32 apart and warp w pairs w, w + 8, ..., so x
+//     reads broadcast; a chunk of np pairs spreads over min(np, 8) warps,
+//     each multiplying only the ceil(np / 8) rows it holds (rounded up to
+//     a power of two), and the other warps only wait; a lane widens its own
+//     int8 rows in registers;
+//   - (LN, RN) by n: (1, 1) at n <= 8, (1, 4) at n <= 32, (2, 8) above, the
+//     64-label tile halving how often each x row is read where the chunks
+//     fill (32- and 64-label tiles at every n measured once, PERF.md).
+// What bounds it after that, on an H100 at 700 W (times in PERF.md): at
+// n <= 64 the weight stream of the union of the selected row blocks, and in
+// int8 at n <= 8 each CTA's dependent chain of 5,120 FFMAs (hence three
+// CTAs an SM there); at n = 256 the FFMAs, well under the fp32 peak: a
+// chunk of ~33 pairs multiplies 8 rows a warp where 5 hold pairs, and each
+// stage's x rows are ~33 TMA requests (neither share measured apart).
+// The scan's cost grows with R: every one of the (R + 1) * chunks * label
+// tiles CTAs reads all of sel, (R + 1) * chunks * tiles * n * B * 4 bytes
+// from L2 a launch: 62 MB at n = 256 and Wiki10-31K width (R = 242, B =
+// 31), but 6.6 GB at WikiLSHTC-325K's (R = 2,540, B = 318), likely more
+// than the weight stream there. Only Wiki10-31K width is measured; past
+// it, a pre-pass that buckets sel by row block (its time counted in the
+// kernel's) would read sel once.
+//
 // Offsets into blocks, x and out are 64-bit: nb * bl * bd passes 2^31 at
 // WikiLSHTC-325K scale. Requires bd % 4 == 0 (fp32) or bd % 16 == 0 (int8)
 // for 16-byte copies.
@@ -108,7 +153,7 @@ constexpr int kLabelTile = 128;       // 32 lanes x 4 labels
 constexpr int kChunk = 16;            // features per pipeline stage
 constexpr int kStages = 3;
 
-enum Mode { kAll = 0, kShared = 1, kPerQuery = 2 };
+enum Mode { kAll = 0, kShared = 1 };
 
 // Shared-memory layout of one stage's weight tile, per weight type.
 template <typename WT> struct Tile;
@@ -210,7 +255,7 @@ bsr_kernel(const float* __restrict__ x, const WT* __restrict__ blocks,
            const int* __restrict__ block_cols,
            const int* __restrict__ row_ptr, const int* __restrict__ sel,
            float* __restrict__ out, int n, int Dp, int out_cols, int R,
-           int B, int bl, int bd, int n_tiles, int label_tiles) {
+           int bl, int bd, int n_tiles, int label_tiles) {
   using T = Tile<WT>;
   constexpr bool kInt8 = sizeof(WT) == 1;
   constexpr int RN = TN / 8;   // rows per thread: warp w owns rows w + 8p
@@ -224,17 +269,8 @@ bsr_kernel(const float* __restrict__ x, const WT* __restrict__ blocks,
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 
-  // Per query: tile nt is query q, one x row; otherwise TN rows from n0.
-  int r = slot, n0 = nt * TN, n_rows = n;
-  int64_t out_row0 = 0;
-  if constexpr (MODE == kShared) r = sel[slot];
-  if constexpr (MODE == kPerQuery) {
-    r = sel[static_cast<int64_t>(nt) * B + slot];
-    x += static_cast<int64_t>(nt) * Dp;
-    n0 = 0;
-    n_rows = 1;
-    out_row0 = nt;
-  }
+  const int n0 = nt * TN;
+  const int r = MODE == kShared ? sel[slot] : slot;
   const bool in_range = r >= 0 && r < R;
   const int p_begin = in_range ? row_ptr[r] : 0;
   const int kchunks = (bd + kChunk - 1) / kChunk;
@@ -250,7 +286,7 @@ bsr_kernel(const float* __restrict__ x, const WT* __restrict__ blocks,
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < total)
       load_stage<WT, TN>(ws[s], xs[s], s, x, blocks, block_cols, p_begin,
-                         kchunks, n_rows, n0, l0, Dp, bl, bd);
+                         kchunks, n, n0, l0, Dp, bl, bd);
     cp_async_commit();
   }
   for (int it = 0; it < total; ++it) {
@@ -259,7 +295,7 @@ bsr_kernel(const float* __restrict__ x, const WT* __restrict__ blocks,
     const int nxt = it + kStages - 1;
     if (nxt < total)
       load_stage<WT, TN>(ws[nxt % kStages], xs[nxt % kStages], nxt, x,
-                         blocks, block_cols, p_begin, kchunks, n_rows, n0,
+                         blocks, block_cols, p_begin, kchunks, n, n0,
                          l0, Dp, bl, bd);
     cp_async_commit();
     const WT* wsb = ws[it % kStages];
@@ -317,9 +353,9 @@ bsr_kernel(const float* __restrict__ x, const WT* __restrict__ blocks,
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       const int l = l0 + lane + 32 * q;
-      if (row < n_rows && l < bl)
-        out[(out_row0 + row) * out_cols + static_cast<int64_t>(slot) * bl +
-            l] = acc[p][q];
+      if (row < n && l < bl)
+        out[static_cast<int64_t>(row) * out_cols +
+            static_cast<int64_t>(slot) * bl + l] = acc[p][q];
     }
   }
 }
@@ -329,13 +365,13 @@ void launch(const float* x, const WT* blocks, const float* scales,
             const int* block_cols, const int* row_ptr, const int* sel,
             float* out, int n, int Dp, int out_cols, int R, int slots,
             int bl, int bd, cudaStream_t stream) {
-  const int n_tiles = MODE == kPerQuery ? n : (n + TN - 1) / TN;
+  const int n_tiles = (n + TN - 1) / TN;
   const int label_tiles = (bl + kLabelTile - 1) / kLabelTile;
   const unsigned grid = static_cast<unsigned>(slots) * label_tiles *
                         n_tiles;   // < 2^31: checked by run()
   bsr_kernel<WT, TN, MODE><<<grid, kThreads, 0, stream>>>(
       x, blocks, scales, block_cols, row_ptr, sel, out, n, Dp, out_cols, R,
-      slots, bl, bd, n_tiles, label_tiles);
+      bl, bd, n_tiles, label_tiles);
 }
 
 // ---- `gather_kernel`: the shared selection at n <= 64 (see the note) ----
@@ -677,12 +713,372 @@ cudaError_t launch_gather(const float* x, const WT* blocks,
   return cudaSuccess;
 }
 
+// ---- `pq_kernel`: the per-query selection, row block first (the note) ----
+
+constexpr int kPQWarps = 8;
+constexpr int kPQThreads = kPQWarps * 32;
+constexpr int kScanPass = kPQThreads * 32;   // sel entries a scan pass reads
+
+template <int V> struct Rows { static constexpr int value = V; };
+
+// Calls f(Rows<E>()) with E the least of 1, 2, 4, ..., RN that is >= rows:
+// a warp multiplies only as many of its RN pair rows as the chunk fills.
+template <int RN, typename Fn>
+__device__ __forceinline__ void with_rows(int rows, Fn&& f) {
+  if constexpr (RN > 1) {
+    if (rows <= RN / 2) {
+      with_rows<RN / 2>(rows, f);
+      return;
+    }
+  }
+  f(Rows<RN>());
+}
+
+// One configuration: LN labels a lane (a label tile of 32 * LN), RN pair
+// rows a warp (a chunk of 8 * RN pairs). A stage is one block's 128
+// features: a weight box of the tile's label rows (padded rows, as in
+// gather_kernel) and one 512-byte row a pair, each 128-byte aligned as TMA
+// asks. The ring takes what fits in kBudget bytes, 2 to 8 stages: one CTA
+// an SM at 64-label tiles or 64 rows; two at 32 rows; at 8 rows two in
+// fp32, whose weight stream wants the deeper ring, and three in int8, whose
+// CTAs each wait on a dependent FFMA chain that more CTAs overlap.
+template <typename WT, int LN, int RN>
+struct PQ {
+  static constexpr int kLabels = 32 * LN;
+  static constexpr int kRows = kPQWarps * RN;
+  static constexpr int kWB = round_kb(kLabels * Gather<WT>::kPitch *
+                                      static_cast<int>(sizeof(WT)));
+  static constexpr int kXB = kRows * kGFeatures * 4;
+  static constexpr int kBudget =
+      (LN == 2 || RN == 8 ? 200 : RN == 1 && sizeof(WT) == 1 ? 64 : 100) *
+      1024;
+  static constexpr int kS = kBudget / (kWB + kXB);
+  static constexpr int kStages = kS < 2 ? 2 : kS > 8 ? 8 : kS;
+  // Slack to align the ring, the ring and its barriers, the staged columns
+  // and scales, the chunk's pairs (flat index and query) and the scan's
+  // warp totals.
+  static constexpr int kSmem = 1024 + kStages * (kWB + kXB + 8) +
+                               2 * kGStaged * 4 + 2 * kRows * 4 +
+                               kPQWarps * 4;
+};
+
+// Grid: (row block r, chunk c, label tile) with the label tile fastest,
+// r = R standing for every id outside [0, R). The CTA scans sel for its
+// pairs j = q * B + i with sel[q, i] == r (in j order, by warp ballots),
+// keeps those of rank c * rows .. + rows - 1, streams r's packed blocks
+// once through a TMA ring and gathers each stage's x rows (x[q] at the
+// block's column) as one-row boxes, a lane a row. A lane owns LN labels
+// (32 apart) and warp w pairs w, w + 8, ..., of which it multiplies only
+// the ceil(np / 8) the chunk's np pairs need (rounded up to a power of
+// two); warps past np only wait. Out element (q, i * bl + l) is out[j * bl + l]. A
+// selection with more than `chunks` * rows pairs for one r (duplicate ids)
+// is served by the same CTAs, chunk c + chunks after chunk c.
+template <typename WT, int LN, int RN>
+__global__ void __launch_bounds__(kPQThreads)
+pq_kernel(const __grid_constant__ CUtensorMap wmap,
+          const __grid_constant__ CUtensorMap xmap,
+          const float* __restrict__ scales,
+          const int* __restrict__ block_cols,
+          const int* __restrict__ row_ptr, const int* __restrict__ sel,
+          float* __restrict__ out, int n, int R, int B, int bl, int bd,
+          int label_tiles, int chunks) {
+  using P = PQ<WT, LN, RN>;
+  constexpr bool kInt8 = sizeof(WT) == 1;
+  constexpr int F = kGFeatures;
+  constexpr int WP = Gather<WT>::kPitch;
+  constexpr int S = P::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring_w =
+      smem_raw + (1024 - smem_u32(smem_raw) % 1024) % 1024;
+  unsigned char* ring_x = ring_w + S * P::kWB;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring_x + S * P::kXB);
+  int* cols_s = reinterpret_cast<int*>(full + S);
+  float* scl_s = reinterpret_cast<float*>(cols_s + kGStaged);
+  int* pair_j = reinterpret_cast<int*>(scl_s + kGStaged);
+  int* pair_q = pair_j + P::kRows;
+  int* warp_sum = pair_q + P::kRows;
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int l0 = (blockIdx.x % label_tiles) * P::kLabels;
+  const int rc = blockIdx.x / label_tiles;
+  const int r = rc / chunks;
+  const bool real = r < R;
+  const int p_begin = real ? row_ptr[r] : 0;
+  const int p_end = real ? row_ptr[r + 1] : 0;
+  const int kchunks = (bd + F - 1) / F;
+  const int entries = n * B;
+
+  // Fills pair_j / pair_q with the pairs of rank lo .. lo + rows - 1 and
+  // returns how many pairs r has. Thread t ends a pass holding the ballot
+  // of entries base + 32 t .. + 31, so thread order is j order.
+  auto scan = [&](int lo) {
+    int total = 0;
+    for (int base = 0; base < entries; base += kScanPass) {
+      unsigned mine = 0;
+#pragma unroll
+      for (int k = 0; k < 32; ++k) {
+        const int e = base + ((warp * 32 + k) << 5) + lane;
+        const int v = e < entries ? sel[e] : 0;
+        const bool hit = e < entries && (real ? v == r : v < 0 || v >= R);
+        const unsigned b = __ballot_sync(0xffffffffu, hit);
+        if (lane == k) mine = b;
+      }
+      const int cnt = __popc(mine);
+      int incl = cnt;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int v = __shfl_up_sync(0xffffffffu, incl, d);
+        if (lane >= d) incl += v;
+      }
+      if (lane == 31) warp_sum[warp] = incl;
+      __syncthreads();
+      int rank = total + incl - cnt, pass = 0;
+      for (int w = 0; w < kPQWarps; ++w) {
+        if (w < warp) rank += warp_sum[w];
+        pass += warp_sum[w];
+      }
+      for (unsigned bits = mine; bits != 0; bits &= bits - 1, ++rank)
+        if (rank >= lo && rank < lo + P::kRows) {
+          const int j = base + (threadIdx.x << 5) + __ffs(bits) - 1;
+          pair_j[rank - lo] = j;
+          pair_q[rank - lo] = j / B;
+        }
+      total += pass;
+      __syncthreads();        // warp_sum is rewritten by the next pass
+    }
+    return total;
+  };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) mbar_init(&full[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  int lo = rc % chunks * P::kRows;
+  const int pairs = scan(lo);   // its barriers publish the mbarrier init
+
+  float acc[RN][LN], part[RN][LN];
+  // Stage g of the CTA (over all chunks and passes) sits in ring slot
+  // g % S, and its barrier completes phase g / S.
+  unsigned g = 0;
+  while (lo < pairs) {
+    const int np = min(P::kRows, pairs - lo);   // this chunk's pairs
+    const int rows = (np + kPQWarps - 1) / kPQWarps;   // rows a warp needs
+    const bool active = warp < np;
+#pragma unroll
+    for (int p = 0; p < RN; ++p)
+#pragma unroll
+      for (int q = 0; q < LN; ++q) acc[p][q] = part[p][q] = 0.0f;
+    const unsigned stage_bytes =
+        P::kLabels * WP * sizeof(WT) + np * F * 4;
+    for (int pc = p_begin; pc < p_end; pc += kGStaged) {
+      const int nblk = min(kGStaged, p_end - pc);
+      const int total = nblk * kchunks;   // this pass's stages
+      auto issue_w = [&](int it) {        // one thread
+        const int s = (g + it) % S;
+        mbar_expect(&full[s], stage_bytes);
+        tma_load(ring_w + s * P::kWB, &wmap, it % kchunks * F,
+                 (pc + it / kchunks) * bl + l0, &full[s]);
+      };
+      auto issue_x = [&](int it) {        // warp 0, a pair a lane
+        const int s = (g + it) % S;
+        const int col = cols_s[it / kchunks] * bd + it % kchunks * F;
+        for (int i = lane; i < np; i += 32)
+          tma_load(ring_x + s * P::kXB + i * F * 4, &xmap, col, pair_q[i],
+                   &full[s]);
+      };
+
+      __syncthreads();      // the last pass (or chunk) is read
+      if (threadIdx.x == 0) {
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        for (int it = 0; it < S - 1 && it < total; ++it) issue_w(it);
+      }
+      for (int i = threadIdx.x; i < nblk; i += blockDim.x) {
+        cols_s[i] = block_cols[pc + i];
+        if constexpr (kInt8) scl_s[i] = scales[pc + i];
+      }
+      __syncthreads();
+      if (warp == 0) {
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        for (int it = 0; it < S - 1 && it < total; ++it) issue_x(it);
+      }
+
+      for (int it = 0; it < total; ++it) {
+        const unsigned gs = g + it;
+        const int s = gs % S;
+        const int k0 = it % kchunks * F;
+        const int kend = min(F, bd - k0);
+        mbar_wait(&full[s], (gs / S) & 1);
+        __syncthreads();    // stage `it` ready to read; stage it-1 done
+        if (warp == 0 && it + S - 1 < total) {
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+          if (lane == 0) issue_w(it + S - 1);
+          __syncwarp();     // the expect precedes every x copy of the stage
+          issue_x(it + S - 1);
+        }
+        if (!active) continue;
+        // This warp's first pair row; its others are 8 rows apart.
+        const float* xst =
+            reinterpret_cast<const float*>(ring_x + s * P::kXB) + warp * F;
+        with_rows<RN>(rows, [&](auto rows_c) {
+          constexpr int RE = decltype(rows_c)::value;
+          if constexpr (kInt8) {
+            // A lane widens its own label rows, 16 features at a time.
+            const int8_t* wr =
+                reinterpret_cast<const int8_t*>(ring_w + s * P::kWB) +
+                lane * WP;
+            auto step16 = [&](int k) {
+              int4 v[LN];
+#pragma unroll
+              for (int q = 0; q < LN; ++q)
+                v[q] = *reinterpret_cast<const int4*>(wr + q * 32 * WP + k);
+#pragma unroll
+              for (int h = 0; h < 4; ++h) {
+                float4 xv[RE];
+#pragma unroll
+                for (int p = 0; p < RE; ++p)
+                  xv[p] = *reinterpret_cast<const float4*>(
+                      xst + p * kPQWarps * F + k + 4 * h);
+#pragma unroll
+                for (int q = 0; q < LN; ++q) {
+                  const float4 w = widen_exact(h == 0   ? v[q].x
+                                               : h == 1 ? v[q].y
+                                               : h == 2 ? v[q].z
+                                                        : v[q].w);
+#pragma unroll
+                  for (int p = 0; p < RE; ++p) fma4(part[p][q], xv[p], w);
+                }
+              }
+            };
+            if (kend == F) {
+#pragma unroll
+              for (int k = 0; k < F; k += 16) step16(k);
+            } else {
+              for (int k = 0; k < kend; k += 16) step16(k);
+            }
+          } else {
+            const float* wl =
+                reinterpret_cast<const float*>(ring_w + s * P::kWB) +
+                lane * WP;
+            auto step4 = [&](int k) {
+              float4 wv[LN], xv[RE];
+#pragma unroll
+              for (int q = 0; q < LN; ++q)
+                wv[q] = *reinterpret_cast<const float4*>(wl + q * 32 * WP +
+                                                         k);
+#pragma unroll
+              for (int p = 0; p < RE; ++p)
+                xv[p] = *reinterpret_cast<const float4*>(
+                    xst + p * kPQWarps * F + k);
+#pragma unroll
+              for (int p = 0; p < RE; ++p)
+#pragma unroll
+                for (int q = 0; q < LN; ++q) fma4(acc[p][q], xv[p], wv[q]);
+            };
+            if (kend == F) {
+#pragma unroll
+              for (int k = 0; k < F; k += 4) step4(k);
+            } else {
+              for (int k = 0; k < kend; k += 4) step4(k);
+            }
+          }
+        });
+        if (kInt8 && k0 + F >= bd) {   // the block ends: o = o + s * dot
+          const float sc = scl_s[it / kchunks];
+#pragma unroll
+          for (int p = 0; p < RN; ++p)
+#pragma unroll
+            for (int q = 0; q < LN; ++q) {
+              acc[p][q] = __fadd_rn(acc[p][q], __fmul_rn(sc, part[p][q]));
+              part[p][q] = 0.0f;
+            }
+        }
+      }
+      g += total;
+    }
+
+    if (active) {
+#pragma unroll
+      for (int p = 0; p < RN; ++p) {
+        const int row = warp + kPQWarps * p;
+        if (row >= np) break;
+        const int64_t o = static_cast<int64_t>(pair_j[row]) * bl;
+#pragma unroll
+        for (int q = 0; q < LN; ++q) {
+          const int l = l0 + lane + 32 * q;
+          if (l < bl) out[o + l] = acc[p][q];
+        }
+      }
+    }
+    lo += chunks * P::kRows;
+    if (lo < pairs) {
+      __syncthreads();      // every read of the pair list is done
+      scan(lo);
+    }
+  }
+}
+
+// Launches pq_kernel over (R + 1) x ceil(n / rows) x label tiles CTAs.
+template <typename WT, int LN, int RN>
+cudaError_t launch_pq(const float* x, const WT* blocks, const float* scales,
+                      const int* block_cols, const int* row_ptr,
+                      const int* sel, float* out, int n, int Dp, int R,
+                      int B, int nb, int bl, int bd, cudaStream_t stream) {
+  using P = PQ<WT, LN, RN>;
+  const int label_tiles = (bl + P::kLabels - 1) / P::kLabels;
+  const int chunks = (n + P::kRows - 1) / P::kRows;
+  const int64_t grid = static_cast<int64_t>(R + 1) * chunks * label_tiles;
+  CUtensorMap wmap, xmap;
+  if (grid > 0x7fffffff || static_cast<int64_t>(n) * B > 0x7fffffff ||
+      !tensor_map(&wmap, Gather<WT>::kType, blocks, bd,
+                  static_cast<uint64_t>(nb) * bl, bd * sizeof(WT),
+                  Gather<WT>::kPitch, P::kLabels) ||
+      !tensor_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, x, Dp, n,
+                  static_cast<uint64_t>(Dp) * 4, kGFeatures, 1))
+    return cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      pq_kernel<WT, LN, RN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      P::kSmem);
+  if (err != cudaSuccess) return err;
+  pq_kernel<WT, LN, RN><<<static_cast<unsigned>(grid), kPQThreads,
+                          P::kSmem, stream>>>(
+      wmap, xmap, scales, block_cols, row_ptr, sel, out, n, R, B, bl, bd,
+      label_tiles, chunks);
+  return cudaSuccess;
+}
+
+// The per-query launch: pq_kernel with (LN, RN) = (1, 1) at n <= 8, (1, 4)
+// at n <= 32, else (2, 8): the 64-label tile only where chunks of 64
+// pairs fill, halving how often each x row is read.
+template <typename WT>
+int run_pq(const float* x, const WT* blocks, const float* scales,
+           const int* block_cols, const int* row_ptr, const int* sel,
+           float* out, int n, int Dp, int R, int B, int nb, int bl, int bd,
+           int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n < 1 || B < 1 || R < 1 || bd % (sizeof(WT) == 1 ? 16 : 4) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n <= 8)
+    err = launch_pq<WT, 1, 1>(x, blocks, scales, block_cols, row_ptr, sel,
+                              out, n, Dp, R, B, nb, bl, bd, s);
+  else if (n <= 32)
+    err = launch_pq<WT, 1, 4>(x, blocks, scales, block_cols, row_ptr, sel,
+                              out, n, Dp, R, B, nb, bl, bd, s);
+  else
+    err = launch_pq<WT, 2, 8>(x, blocks, scales, block_cols, row_ptr, sel,
+                              out, n, Dp, R, B, nb, bl, bd, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Checks the shape, picks the kernel and its tile by n and launches on
 // `stream` of `device`; returns cudaGetLastError() after the launch.
 // gather_kernel serves n <= min(gather_max_n, 64) (RN = 1 at n <= 16, else
 // 2): the shared selection up to 64 and the exhaustive int8 kernel up to
 // the caller's switch. Every other launch runs bsr_kernel at TN = 8 / 32 /
-// 64 (8 per query; 64 for the shared selection).
+// 64 (64 for the shared selection).
 template <typename WT, int MODE>
 int run(const float* x, const WT* blocks, const float* scales,
         const int* block_cols, const int* row_ptr, const int* sel,
@@ -690,13 +1086,11 @@ int run(const float* x, const WT* blocks, const float* scales,
         int gather_max_n, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const bool gather = MODE != kPerQuery && n <= gather_max_n &&
-                      n <= kGMaxRows;
+  const bool gather = n <= gather_max_n && n <= kGMaxRows;
   const int64_t tiles =
       gather ? static_cast<int64_t>(slots) * ((bl + kGLabels - 1) / kGLabels)
              : static_cast<int64_t>(slots) *
-                   ((bl + kLabelTile - 1) / kLabelTile) *
-                   (MODE == kPerQuery ? n : (n + 7) / 8);
+                   ((bl + kLabelTile - 1) / kLabelTile) * ((n + 7) / 8);
   const int piece = sizeof(WT) == 1 ? 16 : 4;
   if (n < 1 || slots < 1 || R < 1 || bd % piece != 0 || tiles > 0x7fffffff)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -719,7 +1113,7 @@ int run(const float* x, const WT* blocks, const float* scales,
   } else if (MODE == kShared) {
     launch<WT, 64, MODE>(x, blocks, scales, block_cols, row_ptr, sel, out, n,
                          Dp, out_cols, R, slots, bl, bd, s);
-  } else if (MODE == kPerQuery || n <= 8) {
+  } else if (n <= 8) {
     launch<WT, 8, MODE>(x, blocks, scales, block_cols, row_ptr, sel, out, n,
                         Dp, out_cols, R, slots, bl, bd, s);
   } else if (n <= 32) {
@@ -787,16 +1181,17 @@ extern "C" int bsr_gather_int8(const float* x, const int8_t* blocks,
                               kGMaxRows, device, stream);
 }
 
-// sel (n, B) i32, row q's own row-block ids -> out (n, B * bl) f32: row q's
-// columns [i*bl, (i+1)*bl) hold row block sel[q, i]'s scores for x[q].
+// sel (n, B) i32, row q's own row-block ids, any order, repeated ids and
+// ids outside [0, n_row_blocks) allowed -> out (n, B * bl) f32: row q's
+// columns [i*bl, (i+1)*bl) hold row block sel[q, i]'s scores for x[q]
+// (zeros for an id outside). nb: blocks' first dim.
 extern "C" int bsr_gather_pq_f32(const float* x, const float* blocks,
                                  const int* block_cols, const int* row_ptr,
                                  const int* sel, float* out, int n, int Dp,
-                                 int n_row_blocks, int B, int bl, int bd,
-                                 int device, void* stream) {
-  return run<float, kPerQuery>(x, blocks, nullptr, block_cols, row_ptr, sel,
-                               out, n, Dp, n_row_blocks, B, -1, bl, bd, 0,
-                               device, stream);
+                                 int n_row_blocks, int B, int nb, int bl,
+                                 int bd, int device, void* stream) {
+  return run_pq<float>(x, blocks, nullptr, block_cols, row_ptr, sel, out, n,
+                       Dp, n_row_blocks, B, nb, bl, bd, device, stream);
 }
 
 // As bsr_gather_pq_f32 over int8 blocks with fp32 per-block scales (nb,).
@@ -804,11 +1199,10 @@ extern "C" int bsr_gather_pq_int8(const float* x, const int8_t* blocks,
                                   const float* scales, const int* block_cols,
                                   const int* row_ptr, const int* sel,
                                   float* out, int n, int Dp,
-                                  int n_row_blocks, int B, int bl, int bd,
-                                  int device, void* stream) {
-  return run<int8_t, kPerQuery>(x, blocks, scales, block_cols, row_ptr, sel,
-                                out, n, Dp, n_row_blocks, B, -1, bl, bd, 0,
-                                device, stream);
+                                  int n_row_blocks, int B, int nb, int bl,
+                                  int bd, int device, void* stream) {
+  return run_pq<int8_t>(x, blocks, scales, block_cols, row_ptr, sel, out, n,
+                        Dp, n_row_blocks, B, nb, bl, bd, device, stream);
 }
 
 extern "C" const char* kernel_error_string(int code) {

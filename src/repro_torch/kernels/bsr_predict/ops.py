@@ -43,8 +43,8 @@ _ARGTYPES = {
     "bsr_predict_int8": [_P] * 6 + [_I] * 8 + [_P],
     "bsr_gather_f32": [_P] * 6 + [_I] * 8 + [_P],
     "bsr_gather_int8": [_P] * 7 + [_I] * 8 + [_P],
-    "bsr_gather_pq_f32": [_P] * 6 + [_I] * 7 + [_P],
-    "bsr_gather_pq_int8": [_P] * 7 + [_I] * 7 + [_P],
+    "bsr_gather_pq_f32": [_P] * 6 + [_I] * 8 + [_P],
+    "bsr_gather_pq_int8": [_P] * 7 + [_I] * 8 + [_P],
 }
 
 
@@ -89,7 +89,7 @@ def _launch(symbol: str, x: torch.Tensor, blocks: torch.Tensor,
                       else []) + [n_row_blocks]
     if sel is not None:
         dims.append(slots)
-    if symbol in ("bsr_gather_f32", "bsr_gather_int8", "bsr_predict_int8"):
+    if symbol != "bsr_predict_f32":
         dims.append(nb)                   # the extent of their tensor map
     tail = [INT8_GATHER_MAX_N] if symbol == "bsr_predict_int8" else []
     stream = torch.cuda.current_stream(x.device).cuda_stream

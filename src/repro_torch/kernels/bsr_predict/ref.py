@@ -15,6 +15,9 @@ its output slot (`index_add_`). Slots with no packed block stay zero.
                           (n, B) -> (n, B * bl), one query at a time, so
                           no (n, blocks, bl, bd) tensor is ever formed;
   bsr_predict_gather_pq_int8 the same over int8 blocks.
+
+`pq_schedule` lists which CTA of the per-query CUDA kernel serves which
+(query, slot) pair, so the CPU tests can check its split of the work.
 """
 
 from __future__ import annotations
@@ -106,3 +109,25 @@ def bsr_predict_gather_pq_int8(x: torch.Tensor, blocks: torch.Tensor,
     return torch.cat([bsr_predict_gather_int8(x[q:q + 1], blocks, scales,
                                               block_cols, row_ptr, sel[q])
                       for q in range(x.shape[0])])
+
+
+def pq_schedule(sel: torch.Tensor, n_row_blocks: int, bl: int, rows: int,
+                labels: int):
+    """The per-query CUDA kernel's split of the work at a tile of `rows`
+    pairs a chunk and `labels` labels: yields (r, chunk, label range,
+    pairs) for each chunk a CTA writes, r = n_row_blocks standing for every
+    id outside [0, n_row_blocks). The grid holds ceil(n / rows) chunks of
+    each r; r's pairs j = q * B + i (sel[q, i] in r's bucket) are ranked
+    in j order, and the CTA of chunk c takes ranks c * rows .. + rows - 1,
+    then the same span `chunks * rows` further on, while r has pairs."""
+    n = sel.shape[0]
+    chunks = -(-n // rows)
+    flat = sel.reshape(-1).long()
+    R = n_row_blocks
+    bucket = torch.where((flat >= 0) & (flat < R), flat, R)
+    for r in range(R + 1):
+        js = torch.nonzero(bucket == r).flatten()
+        for c in range(chunks):
+            for lo in range(c * rows, js.numel(), chunks * rows):
+                for l0 in range(0, bl, labels):
+                    yield r, c, (l0, min(l0 + labels, bl)), js[lo:lo + rows]

@@ -304,21 +304,30 @@ def test_gather_kernels_at_tile_edges(cuda, L, D, block, n):
 
 
 def test_gathered_kernels_repeat_bit_for_bit(cuda):
-    """Kernels 5, 6 and 8 (which share their source): 100 launches on one
-    input, then pairs of launches on two streams at once, each equal to
-    the first bit for bit (no atomics, a fixed order: a race would show)."""
+    """Kernels 5, 6, 7 and 8 (which share their source): 100 launches on
+    one input, then pairs of launches on two streams at once, each equal to
+    the first bit for bit (no atomics, a fixed order: a race would show).
+    The per-query kernels also at a skewed selection of n = 256 rows, each
+    row's own permutation with row block 7 first (four chunks of it)."""
     model = _model(1000, 4096, 0.3, (128, 128), seed=5, device=cuda)
     q = quantize_block_sparse(model)
     fp = (model.blocks, model.block_cols, model.row_ptr)
     i8 = (q.blocks, q.scales, q.block_cols, q.row_ptr)
     sel = torch.tensor([7, 0, 3, 5, 1], dtype=torch.int32, device=cuda)
     s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
-    for n in (1, 32, 65):
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    for n in (1, 32, 65, 256):
         x = _x(n, model.shape[1], n, cuda)
         sel_pq = sel.repeat(n, 1).contiguous()
+        if n == 256:
+            sel_pq = torch.stack([torch.randperm(8, generator=gen)[:5]
+                                  for _ in range(n)])
+            sel_pq[:, 0] = 7
+            sel_pq = sel_pq.to(device=cuda, dtype=torch.int32).contiguous()
         for fn in (
                 lambda: bsr_ops.bsr_predict_gather_cuda(x, *fp, sel),
                 lambda: bsr_ops.bsr_predict_gather_int8_cuda(x, *i8, sel),
+                lambda: bsr_ops.bsr_predict_gather_pq_cuda(x, *fp, sel_pq),
                 lambda: bsr_ops.bsr_predict_gather_pq_int8_cuda(x, *i8,
                                                                 sel_pq)):
             first = fn()
@@ -331,6 +340,98 @@ def test_gathered_kernels_repeat_bit_for_bit(cuda):
                     outs.append(fn())
             torch.cuda.synchronize()
             assert all(torch.equal(o, first) for o in outs)
+
+
+# (L, D, block): bl of 8, 48, 128 and 256 against the per-query kernel's
+# label tiles of 32 and 64; bd of 16, 32 and 128; at D = 4,800 and bd = 16
+# a row block of 300 blocks, two passes of staged columns.
+PQ_EDGES = [(90, 300, (8, 32)), (300, 520, (48, 16)), (600, 512, (256, 32)),
+            (384, 4800, (128, 16)), (500, 1024, (128, 128))]
+
+
+def _edge_model(L, D, block, seed, device):
+    """Row block 0 emptied, 1 with exactly one packed block, 2 with every
+    column block, the rest at density 0.3."""
+    bl, bd = block
+    rng = np.random.default_rng(seed)
+    rb, cb = -(-L // bl), -(-D // bd)
+    keep = rng.random((rb, cb)) < 0.3
+    keep[0] = keep[1] = False
+    keep[1, cb // 2] = keep[2] = True
+    W = (0.1 * rng.normal(size=(L, D))).astype(np.float32)
+    W *= np.kron(keep, np.ones(block, np.float32))[:L, :D]
+    model = to_block_sparse(W, block, device=device)
+    counts = (model.row_ptr[1:] - model.row_ptr[:-1]).tolist()
+    assert counts[:3] == [0, 1, cb]
+    return model
+
+
+def _pq_selections(n, R, seed, device):
+    """Per-query selections at the kernel's edges: B = 5 (at most R + 2)
+    drawn with repeats from [-1, R], unsorted, with row block 2 (every
+    column block) chosen by every query and the empty row block 0 by row
+    0; B = 1; B = R, each row its own permutation."""
+    rng = np.random.default_rng(seed)
+    B = min(5, R + 2)
+    mixed = rng.integers(-1, R + 1, size=(n, B))
+    mixed[:, 0] = 2
+    mixed[0, -1] = 0
+    one = rng.integers(0, R, size=(n, 1))
+    perm = np.stack([rng.permutation(R) for _ in range(n)])
+    return [torch.tensor(s, dtype=torch.int32, device=device)
+            for s in (mixed, one, perm)]
+
+
+@pytest.mark.parametrize("L,D,block", PQ_EDGES)
+@pytest.mark.parametrize("n", [1, 8, 9, 63, 64, 65, 256, 300])
+def test_pq_kernels_at_tile_edges(cuda, L, D, block, n):
+    """Kernels 7 and 8 (`pq_kernel`) at the edges of their chunks, label
+    tiles, ring and passes, at unsorted selections with repeated ids and
+    ids outside [0, R): against their plain versions on the ids inside,
+    exact zeros on the others, no element left unwritten (the output's
+    memory is filled with NaN just before); bit for bit equal to the
+    shared kernels 5 and 6 run on one row (contracts c, d) and, at B = R,
+    to the exhaustive kernels 3 and 4 in each row's order (contract e)."""
+    bl = block[0]
+    model = _edge_model(L, D, block, L + D + n, cuda)
+    q = quantize_block_sparse(model)
+    R = model.shape[0] // bl
+    x = _x(n, model.shape[1], n, cuda)
+    fp = (model.blocks, model.block_cols, model.row_ptr)
+    i8 = (q.blocks, q.scales, q.block_cols, q.row_ptr)
+    exhaustive = (bsr_ops.bsr_predict_cuda(x, *fp, R),
+                  bsr_ops.bsr_predict_int8_cuda(x, *i8, R))
+    for s_i, sel in enumerate(_pq_selections(n, R, L + n, cuda)):
+        B = sel.shape[1]
+        inside = (sel >= 0) & (sel < R)
+        clamped = sel.clamp(0, R - 1).contiguous()
+        for kernel, shared, plain, args, exh in (
+                (bsr_ops.bsr_predict_gather_pq_cuda,
+                 bsr_ops.bsr_predict_gather_cuda,
+                 bsr_ref.bsr_predict_gather_pq, fp, exhaustive[0]),
+                (bsr_ops.bsr_predict_gather_pq_int8_cuda,
+                 bsr_ops.bsr_predict_gather_int8_cuda,
+                 bsr_ref.bsr_predict_gather_pq_int8, i8, exhaustive[1])):
+            # Freed at once: the caching allocator gives this block of the
+            # same size to the kernel's output next.
+            torch.full((n, B * bl), float("nan"), device=cuda)
+            got = kernel(x, *args, sel)
+            assert not bool(got.isnan().any()), (s_i, kernel.__name__)
+            absargs = (args[0].abs(),) + args[1:]
+            want = plain(x, *args, clamped).reshape(n, B, bl)
+            mag = plain(x.abs(), *absargs, clamped).reshape(n, B, bl)
+            g3 = got.reshape(n, B, bl)
+            _within(g3[inside], want[inside], mag[inside])
+            assert bool((g3[~inside] == 0).all())
+            assert bool((g3[sel == 0] == 0).all())   # the empty row block
+            for r in sorted({0, n // 2, n - 1}):
+                assert torch.equal(got[r], shared(
+                    x[r:r + 1].contiguous(), *args,
+                    sel[r].contiguous())[0]), (s_i, r)
+            if B == R:
+                e3 = exh.reshape(n, R, bl)
+                rows = torch.arange(n, device=cuda)[:, None]
+                assert torch.equal(g3, e3[rows, sel.long()])
 
 
 @pytest.mark.parametrize("L,D,density,block", [

@@ -3,12 +3,25 @@
 inputs, to show that a change left a kernel's bits as they were.
 
     PYTHONPATH=src python3 tools/torch_kernel_digests.py [--out FILE]
+        [--times]
 
 Builds the port's kernels (nvcc, on a machine with a card), runs each of
 the ten kernels once on inputs drawn from a fixed seed with numpy, and
 prints one JSON object: kernel name (and the case) -> sha256 of the
 output bytes. Run it from two checkouts on one card and compare the two
 objects: equal digests are equal bits. Needs a CUDA card.
+
+--times also times the per-query kernels 7 and 8 on a model at
+Wiki10-31K serving width drawn from a fixed seed (242 row blocks of 128
+labels, 40 of the 797 column blocks of 128 features each, weights
+N(0, 0.02^2), int8 by per-block absmax scales) and tf-idf-like unit rows,
+B = 31 row blocks a query: the top 31 of x against 242 random centroids
+("centroid") or drawn by a Zipf popularity ("skewed"); at n = 1, 8, 32,
+64, 256 the median of 20 launches timed with CUDA events, the L2
+overwritten before each, and a digest of each output. To compare two
+checkouts' times, run this file from one checkout with each checkout's
+`src` on PYTHONPATH in one call (parent, change, change, parent); the
+JSON object then also holds the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -16,6 +29,7 @@ from __future__ import annotations
 import argparse
 import hashlib
 import json
+import subprocess
 import sys
 
 import numpy as np
@@ -30,9 +44,76 @@ def digest(*tensors: torch.Tensor) -> str:
     return h.hexdigest()[:16]
 
 
+def median_ms(fn, flush: torch.Tensor, iters: int = 20) -> float:
+    fn()
+    fn()
+    events = []
+    for _ in range(iters):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return float(np.median([s.elapsed_time(e) for s, e in events]))
+
+
+def pq_times(bsr_ops, out: dict) -> dict:
+    """--times: kernels 7 and 8 at Wiki10-31K width (the docstring); adds
+    each output's digest to `out` and returns the times in ms."""
+    R, C, BL, BD, PER_ROW, B = 242, 797, 128, 128, 40, 31
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(1)
+    cols = np.concatenate([np.sort(rng.choice(C, PER_ROW, replace=False))
+                           for _ in range(R)])
+    cols = torch.tensor(cols, dtype=torch.int32, device=dev)
+    ptr = torch.arange(0, (R + 1) * PER_ROW, PER_ROW, dtype=torch.int32,
+                       device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    blocks = 0.02 * torch.randn((R * PER_ROW, BL, BD), generator=gen,
+                                device=dev)
+    scales = (blocks.abs().amax(dim=(1, 2)) / 127).contiguous()
+    qblocks = torch.round(blocks / scales[:, None, None]).to(torch.int8)
+    centroids = torch.randn((R, C * BD), generator=gen, device=dev)
+    popularity = np.arange(1, R + 1) ** -0.8
+    popularity /= popularity.sum()
+    flush = torch.empty(64 * 2**20, device=dev)          # 256 MB
+    times = {}
+    for n in (1, 8, 32, 64, 256):
+        x = np.zeros((n, C * BD), np.float32)
+        for i in range(n):
+            f = rng.choice(C * BD, 300, replace=False)
+            x[i, f] = rng.random(300)
+        x = torch.tensor(x / np.linalg.norm(x, axis=1, keepdims=True),
+                         device=dev)
+        sels = {
+            "centroid": torch.topk(x @ centroids.T, B).indices,
+            "skewed": torch.tensor(np.stack([
+                rng.choice(R, B, replace=False, p=popularity)
+                for _ in range(n)]), device=dev)}
+        for case, sel in sels.items():
+            sel = sel.to(torch.int32).contiguous()
+            for name, fn in (
+                    ("bsr_gather_pq",
+                     lambda: bsr_ops.bsr_predict_gather_pq_cuda(
+                         x, blocks, cols, ptr, sel)),
+                    ("bsr_gather_pq_int8",
+                     lambda: bsr_ops.bsr_predict_gather_pq_int8_cuda(
+                         x, qblocks, scales, cols, ptr, sel))):
+                key = f"{name} wiki10 {case} n={n}"
+                out[key] = digest(fn())
+                times[key] = median_ms(fn, flush)
+                print(f"   {key}: {times[key]:.4f} ms", flush=True)
+    return times
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the JSON object here")
+    ap.add_argument("--times", action="store_true",
+                    help="also time kernels 7 and 8 at Wiki10-31K width")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("torch_kernel_digests: needs a CUDA card")
@@ -90,6 +171,29 @@ def main() -> None:
             bsr_ops.bsr_predict_gather_pq_cuda(x, *fp, sel_pq))
         out[f"bsr_gather_pq_int8 n={n}"] = digest(
             bsr_ops.bsr_predict_gather_pq_int8_cuda(x, *i8, sel_pq))
+    # Kernels 7 and 8 at selections of their own: each row's top 3 of R
+    # random centroids, row block 2 in every row (skewed), repeated ids,
+    # ids -1 and R, and the emptied row block 0.
+    centroids = rng.normal(size=(R, model.shape[1]))
+    for n in (1, 33, 256):
+        x = rng.normal(size=(n, model.shape[1]))
+        x /= np.linalg.norm(x, axis=1, keepdims=True)
+        top = np.argsort(-(x @ centroids.T), axis=1, kind="stable")[:, :3]
+        other = rng.integers(0, R, size=(n, 2))
+        cases = {"centroid": top,
+                 "skewed": np.concatenate([np.full((n, 1), 2), other], 1),
+                 "repeated": np.concatenate([other, other[:, :1]], 1),
+                 "outside": np.concatenate([np.full((n, 1), -1), top[:, :1],
+                                            np.full((n, 1), R)], 1),
+                 "emptied": np.concatenate([np.zeros((n, 1)), top[:, :1],
+                                            np.zeros((n, 1))], 1)}
+        x = t(x)
+        for case, sel_pq in cases.items():
+            sel_pq = t(sel_pq, torch.int32)
+            out[f"bsr_gather_pq {case} n={n}"] = digest(
+                bsr_ops.bsr_predict_gather_pq_cuda(x, *fp, sel_pq))
+            out[f"bsr_gather_pq_int8 {case} n={n}"] = digest(
+                bsr_ops.bsr_predict_gather_pq_int8_cuda(x, *i8, sel_pq))
     scores = t(rng.normal(size=(64, 4096)))
     out["blocked_topk"] = digest(*topk_ops.blocked_topk_cuda(scores, 5,
                                                              bL=256))
@@ -102,8 +206,15 @@ def main() -> None:
         out[f"banded_attention {str(dt)[6:]}"] = digest(
             band_ops.banded_attention_cuda(q_, k_, v_, window=w))
     torch.cuda.synchronize()
-    line = json.dumps({"device": torch.cuda.get_device_name(0),
-                       "digests": out})
+    result = {"device": torch.cuda.get_device_name(0)}
+    if args.times:
+        result["ms"] = pq_times(bsr_ops, out)
+        result["card"] = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True,
+            text=True).stdout.strip()
+    result["digests"] = out
+    line = json.dumps(result)
     print(line)
     if args.out:
         with open(args.out, "w") as fh:
