@@ -16,13 +16,17 @@ seed:
   2. setup   — the card's name and power limit; TF32 off for matmul and
                cuDNN, so every plain version runs in full fp32;
   3. kernels — each kernel against its plain PyTorch version at the
-               shapes the serving path gives it (BSR predict at n = 1, 32,
-               256; blocked top-k at (256, 30,976), k = 5; rows of exact
-               zeros where tie order decides), timed with CUDA events over
-               cold-L2 launches beside its bound, its plain version and one
-               PyTorch library call computing the same function; the int8
-               BSR kernel's two designs (`gather_kernel`, `bsr_kernel`)
-               timed apart at n = 1, 8, 16, 32, 64, the same bits;
+               shapes the serving path gives it (BSR predict at n = 1, 8,
+               32, 64, 256; blocked top-k on the unpadded (256, 30,976),
+               k = 5, against the plain version on the scores padded to
+               31,232; rows of exact zeros where tie order decides), timed
+               with CUDA events over cold-L2 launches beside its bound, its
+               plain version and one PyTorch library call computing the
+               same function; the top-k also at (1, 30,976), the LM's
+               (2, 32,001) and padded, and the whole `topk` beside
+               `torch.topk`; the int8 BSR kernel's two designs
+               (`gather_kernel` and `bsr_kernel`) timed apart at n = 1, 8,
+               16, 32, 64, the same bits;
   4. serve   — the model packed label batch by label batch, saved with
                `save_block_sparse`, then `CheckpointHandle.open(dir)
                .engine()` on the default `bsr` backend serving ragged
@@ -189,7 +193,7 @@ DELTA = 0.01
 K = 5
 REQUEST_ROWS = (1, 64, 1, 64, 300, 1, 7, 64, 1, 33)
 ZERO_REQUEST = 5                                # this one is a row of zeros
-BSR_N = (1, 32, 256)
+BSR_N = (1, 8, 32, 64, 256)
 HEADLINE_N = 32                                 # a typical micro-batch
 # Training: Wiki10-31K's N and D, 2 of its 31 label batches.
 TRAIN_N, TRAIN_LABELS, TEST_N = 14_146, 2_048, 512
@@ -313,6 +317,26 @@ def cuda_ms(fn, iters: int, flush: torch.Tensor) -> float:
     return float(np.median([s.elapsed_time(e) for s, e in events]))
 
 
+def queued_ms(fn, iters: int, flush: torch.Tensor) -> float:
+    """As `cuda_ms`, but each launch waits behind a ~1 ms spin on the card,
+    so the host has queued all of `fn` before the card reaches it: the
+    device time alone, without the gaps in which the card waits for the
+    host to issue the next operation."""
+    fn()
+    events = []
+    for _ in range(iters):
+        flush.zero_()
+        torch.cuda._sleep(2_000_000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return float(np.median([s.elapsed_time(e) for s, e in events]))
+
+
 def tfidf_rows(rng, n: int, perm: np.ndarray) -> np.ndarray:
     """Sparse L2-normalised tf-idf-like rows: ~300 distinct features per
     row, drawn Zipf-like over a fixed random order of the vocabulary,
@@ -359,7 +383,8 @@ def build_model(rng):
 
 
 def check_bsr(model, X, flush) -> dict:
-    """Kernel vs plain version at n = 1, 32, 256, with times.
+    """Kernel vs plain version at n = 1, 8, 32, 64, 256, with times; at
+    each n 50 launches and 10 pairs on two streams equal bit for bit.
 
     Tolerance: |kernel - plain| <= 1e-5 * (|x| @ |W|^T) elementwise. Both
     sum the same fp32 products (FFMA in the kernel, fp32 GEMM with TF32
@@ -405,6 +430,8 @@ def check_bsr(model, X, flush) -> dict:
         plain_ms = cuda_ms(lambda: bsr_ref.bsr_predict(x, blocks, rows, cols,
                                                        R), 5, flush)
         lib_ms = cuda_ms(lambda: lib_fn(x), 10, flush)
+        repeat_check("bsr_predict", lambda: bsr_ops.bsr_predict_cuda(
+            x, blocks, cols, ptr, R), n)
         n_bytes = (4 * model.n_blocks * bl * bd + 4 * model.n_blocks
                    + 4 * (R + 1) + 4 * n * Dp + 4 * n * Lp)
         b_ms, b_by = bound(n_bytes, bsr_ops.model_flops(model, n))
@@ -428,7 +455,7 @@ def check_bsr(model, X, flush) -> dict:
     return dict(library=library, sweep=sweep)
 
 
-INT8_DESIGN_N = (1, 8, 16, 32, 64)              # phase 3's design sweep
+DESIGN_N = (1, 8, 16, 32, 64)                   # phase 3's design sweep
 PQ_SWEEP_N = (1, 8, 32, 64, 256)                # phase 4b's, kernels 7, 8
 
 
@@ -447,7 +474,7 @@ def check_int8_designs(model, X, flush) -> dict:
     args = (q.blocks, q.scales, q.block_cols, q.row_ptr, R)
     Dp = model.shape[1]
     rows = []
-    for n in INT8_DESIGN_N:
+    for n in DESIGN_N:
         x = torch.nn.functional.pad(torch.from_numpy(X[:n]).cuda(),
                                     (0, Dp - N_FEATURES)).contiguous()
         times, outs = {}, {}
@@ -475,7 +502,12 @@ def check_int8_designs(model, X, flush) -> dict:
 def check_topk(scores, flush) -> dict:
     """Blocked top-k kernel vs its plain version on the serving path's
     scores at (256, 30,976), k = 5, plus rows where ties decide. Values
-    and ids must be identical: the top-k only selects."""
+    and ids must be identical: the top-k only selects. The kernel reads
+    the unpadded scores (as the main path launches it) and gives the
+    strip of the scores padded with NEG_INF to 31,232, where the plain
+    version runs; timed unpadded at n = 256 and 1 and at the LM's
+    (2, 32,001), padded at n = 256, and the whole `topk` beside
+    `torch.topk`."""
     from repro_torch.kernels.topk import ops as topk_ops
     from repro_torch.kernels.topk import ref as topk_ref
     n, L = scores.shape
@@ -484,10 +516,12 @@ def check_topk(scores, flush) -> dict:
           "only selects")
     padded = torch.nn.functional.pad(scores, (0, (-L) % bL),
                                      value=topk_ref.NEG_INF).contiguous()
-    v_k, i_k = topk_ops.blocked_topk_cuda(padded, K, bL=bL)
+    v_k, i_k = topk_ops.blocked_topk_cuda(scores, K, bL=bL)
+    v_kp, i_kp = topk_ops.blocked_topk_cuda(padded, K, bL=bL)
     v_p, i_p = topk_ref.blocked_topk(padded, K, bL=bL)
     torch.cuda.synchronize()
-    _need(torch.equal(v_k, v_p) and torch.equal(i_k, i_p),
+    _need(all(torch.equal(a, b) for a, b in ((v_k, v_p), (i_k, i_p),
+                                             (v_kp, v_p), (i_kp, i_p))),
           "top-k kernel disagrees with its plain version")
     err = float((v_k - v_p).abs().max())
     _, ids = topk_ops.topk(scores, K)
@@ -499,20 +533,52 @@ def check_topk(scores, flush) -> dict:
     _need(tie_ids.tolist() == [[0, 1, 2, 3, 4], [700, 0, 1, 2, 3]]
           and torch.equal(tie_ids, topk_ref.topk(ties, K)[1]),
           f"tie order differs: {tie_ids.tolist()}")
-    ms = cuda_ms(lambda: topk_ops.blocked_topk_cuda(padded, K, bL=bL), 50,
-                 flush)
+    cases = {}
+    lm = torch.from_numpy(np.random.default_rng(2).normal(
+        size=(2, 32_001)).astype(np.float32)).cuda()
+    for key, s in (("(256, 30976)", scores), ("(1, 30976)", scores[:1]),
+                   ("(2, 32001) LM", lm), ("(256, 31232) padded", padded)):
+        s = s.contiguous()
+        want = topk_ref.blocked_topk(torch.nn.functional.pad(
+            s, (0, (-s.shape[1]) % bL), value=topk_ref.NEG_INF), K, bL=bL)
+        got = topk_ops.blocked_topk_cuda(s, K, bL=bL)
+        torch.cuda.synchronize()
+        _need(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"top-k kernel disagrees with its plain version at {key}")
+        n_out = s.shape[0] * -(-s.shape[1] // bL) * K
+        n_bytes = 4 * s.numel() + 8 * n_out
+        b_ms, b_by = bound(n_bytes, K * s.numel())
+        # The whole topk is several launches (the kernel, the sort, the
+        # gather): five repeats of 50 as launched give its spread, and the
+        # queued time says how much of it is the card waiting on the host.
+        whole = [cuda_ms(lambda: topk_ops.topk(s, K), 50, flush)
+                 for _ in range(5)]
+        cases[key] = dict(ms=cuda_ms(lambda: topk_ops.blocked_topk_cuda(
+            s, K, bL=bL), 50, flush), ms_queued=queued_ms(
+            lambda: topk_ops.blocked_topk_cuda(s, K, bL=bL), 50, flush),
+            bound_ms=b_ms, bound_by=b_by,
+            topk_ms=float(np.median(whole)),
+            topk_ms_range=[min(whole), max(whole)],
+            topk_queued_ms=queued_ms(lambda: topk_ops.topk(s, K), 50, flush),
+            library_ms=cuda_ms(lambda: torch.topk(s, K).values, 50, flush))
+        print(f"   topk {key} k={K}: kernel {cases[key]['ms']:.4f} ms "
+              f"(queued {cases[key]['ms_queued']:.4f}), "
+              f"bound {b_ms:.4f} ms ({b_by}, {n_bytes / 1e6:.1f} MB); whole "
+              f"topk {cases[key]['topk_ms']:.4f} ms (5 x 50 launches: "
+              f"{min(whole):.4f}-{max(whole):.4f}; queued "
+              f"{cases[key]['topk_queued_ms']:.4f}), torch.topk "
+              f"{cases[key]['library_ms']:.4f} ms", flush=True)
+    main = cases["(256, 30976)"]
     plain_ms = cuda_ms(lambda: topk_ref.blocked_topk(padded, K, bL=bL), 10,
                        flush)
-    lib_ms = cuda_ms(lambda: torch.topk(scores, K).values, 20, flush)
-    n_out = n * (padded.shape[1] // bL) * K
-    n_bytes = 4 * padded.numel() + 8 * n_out
-    b_ms, b_by = bound(n_bytes, K * padded.numel())
     print(f"   topk ({n}, {L}) k={K}: max|kernel-plain| {err:.1e}, ids "
-          f"identical (tie rows too)  kernel {ms:.4f} ms  plain "
-          f"{plain_ms:.4f} ms  torch.topk {lib_ms:.4f} ms  bound "
-          f"{b_ms:.4f} ms ({b_by}, {n_bytes / 1e6:.1f} MB)", flush=True)
-    return dict(n=n, L=L, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+          f"identical (tie rows too)  kernel {main['ms']:.4f} ms (padded "
+          f"{cases['(256, 31232) padded']['ms']:.4f} ms)  plain "
+          f"{plain_ms:.4f} ms  torch.topk {main['library_ms']:.4f} ms  "
+          f"bound {main['bound_ms']:.4f} ms", flush=True)
+    return dict(n=n, L=L, max_abs_err=err, ms=main["ms"], plain_ms=plain_ms,
+                bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                library_ms=main["library_ms"], cases=cases)
 
 
 def sparse_bsr(blocks, cols, crow, shape):
@@ -2404,7 +2470,9 @@ def main() -> None:
              max_abs_err=err, ms=head["ms"], plain_ms=head["plain_ms"],
              bound_ms=head["bound_ms"], bound_by=head["bound_by"],
              library_ms=head["library_ms"], library=bsr["library"],
-             at=f"n={HEADLINE_N}", sweep=bsr["sweep"]),
+             at=f"n={HEADLINE_N}", sweep=bsr["sweep"],
+             design="ex_kernel (TMA ring, producer warp, swizzled boxes) "
+             "at every n", redesigned=True),
         dict(name="blocked_topk", route="cuda",
              source="src/repro_torch/csrc/topk.cu",
              replaces="src/repro/kernels/topk/kernel.py:25",
@@ -2413,7 +2481,10 @@ def main() -> None:
              plain_ms=topk["plain_ms"], bound_ms=topk["bound_ms"],
              bound_by=topk["bound_by"], library_ms=topk["library_ms"],
              library="torch.topk(scores, 5).values",
-             at=f"({topk['n']}, {topk['L']}) k={K}"),
+             at=f"({topk['n']}, {topk['L']}) k={K}, unpadded",
+             design="a warp per (row, 512-score block), scores in "
+             "registers, rounds as two warp reductions", redesigned=True,
+             cases=topk["cases"]),
     ]
     at = "(L, N, D) = ({}, {}, {})".format(*train_k["shape"])
     for name, key, src, replaces, err_key in (

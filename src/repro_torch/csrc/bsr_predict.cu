@@ -1,6 +1,6 @@
 // Block-sparse (BSR) predict for Hopper: scores = x @ W_pruned^T over the
 // packed surviving blocks of a Delta-pruned DiSMEC model, in six variants
-// of one loop, in three kernels (weights fp32 or int8 with per-block
+// of one loop, in four kernels (weights fp32 or int8 with per-block
 // scales; every row block, a shared selection of row blocks, or each
 // query's own selection).
 //
@@ -41,21 +41,50 @@
 // stream, every packed block it visits read once (632 MB fp32 at Wiki10-31K
 // width, 0.19 ms at 3.35 TB/s; a quarter of that in int8); at n = 256 the
 // fp32 FMAs (81 GFLOP, 1.2 ms at 67 TFLOP/s), which int8 does not reduce.
-// `bsr_kernel`, the exhaustive kernels and the shared selection at n > 64
-// (below): a 3-stage cp.async pipeline runs over the flat (block, 16-feature
-// chunk) sequence of the row, so loads of the next blocks are in flight while
-// the current chunk is multiplied, with no bubble at block boundaries; the
-// CTA's TN row tiles of one row block are neighbours in launch order and share
-// each weight block through L2. Each thread accumulates a (TN/8 rows x 4
-// labels) tile with FFMA (not TF32) from 16-byte shared-memory reads: fp32
-// weight rows are padded to 20 floats so the reads of a quarter warp hit
-// distinct banks, int8 rows are 16 contiguous bytes (16 features in one
-// cp.async piece, widened in registers), and x reads broadcast.
+//
+// `ex_kernel`, the exhaustive fp32 kernel at every n (`gather_kernel` with
+// each row block its own slot was slower at every n measured, 1 to 64,
+// PERF.md, kernel 3). Small
+// stages that every thread addresses itself, a __syncthreads each, keep
+// `bsr_kernel` (below) under half of this bound. Here:
+//   - one CTA per (row block r, 128 labels, row tile), the row tile fastest
+//     in launch order, so the CTAs of r read its blocks from HBM about once;
+//     the row tile is fixed by n at compile time: 16 rows to n = 16 (2 x 8
+//     a thread, three CTAs an SM), 32 to n = 32 (4 x 8, two), 64 above
+//     (8 x 8, two);
+//   - a producer warp walks r's packed blocks in order, 32 features a
+//     stage, and lands each stage on a 4-stage mbarrier ring as two TMA
+//     boxes, the weights (128 label rows) and x (the tile's rows at the
+//     block's column), each row 128 bytes stored with the 128-byte swizzle
+//     (piece c of row j at piece c ^ (j % 8)); it stages the row block's
+//     columns 32 at a time from one warp load; consumers release a stage on
+//     an empty barrier, and nothing else synchronises them;
+//   - consumer lanes are 8 along labels x 4 along rows, a thread's labels
+//     8 apart and rows 4 apart, so the 16-byte reads of the 8 lanes of a
+//     quarter warp hit 8 distinct pieces of 8 swizzled rows (distinct
+//     banks), and the 4 row groups of a warp read x as broadcasts.
+// What bounds it after that (H100 80GB HBM3, 700 W; PERF.md, kernel 3):
+// to n = 16 the weight stream at ~2.6 TB/s; at n = 32 both the stream and
+// the FFMAs; above, the FFMAs at ~60% of the 67 TFLOP/s peak, whatever the
+// tile of 64 or 128 rows (8 x 8 or 4 x 8 a thread, one to three CTAs an
+// SM); what holds them there is not measured.
+//
+// `bsr_kernel`, the exhaustive int8 kernel above its switch and the shared
+// selection at n > 64 (below): a 3-stage cp.async pipeline runs over the
+// flat (block, 16-feature chunk) sequence of the row, so loads of the next
+// blocks are in flight while the current chunk is multiplied, with no
+// bubble at block boundaries; the CTA's TN row tiles of one row block are
+// neighbours in launch order and share each weight block through L2. Each
+// thread accumulates a (TN/8 rows x 4 labels) tile with FFMA (not TF32)
+// from 16-byte shared-memory reads: fp32 weight rows are padded to 20
+// floats so the reads of a quarter warp hit distinct banks, int8 rows are
+// 16 contiguous bytes (16 features in one cp.async piece, widened in
+// registers), and x reads broadcast.
 //
 // `gather_kernel`, the gathered (shared selection) kernels at n <= 64, the fine
 // stage of shortlist serving, and the exhaustive int8 kernel at n up to the
-// switch its caller passes (each row block its own slot: 968 CTAs at R = 242,
-// bl = 128, where `bsr_kernel` ran 242). A selection of B = 31 of 242 row
+// switch its caller passes (each row block its own slot: 968 CTAs at R =
+// 242, bl = 128, where `bsr_kernel` ran 242). A selection of B = 31 of 242 row
 // blocks is ~1,240 blocks (81 MB fp32, 20 MB int8). `bsr_kernel`'s 128-label
 // tile gave it 31 CTAs on 132 SMs with 2 x 8 KB in flight each: latency-bound
 // at a tenth of the memory rate. Here:
@@ -672,12 +701,12 @@ gather_kernel(const __grid_constant__ CUtensorMap wmap,
 // outside the tensor arrives as zeros.
 bool tensor_map(CUtensorMap* map, CUtensorMapDataType type,
                 const void* base, uint64_t inner, uint64_t outer,
-                uint64_t row_bytes, uint32_t box_inner, uint32_t box_outer) {
+                uint64_t row_bytes, uint32_t box_inner, uint32_t box_outer,
+                CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_NONE) {
   const cuuint64_t dims[2] = {inner, outer};
   const cuuint64_t strides[1] = {row_bytes};
   const cuuint32_t box[2] = {box_inner, box_outer};
-  return encode_map(map, type, 2, base, dims, strides, box,
-                    CU_TENSOR_MAP_SWIZZLE_NONE);
+  return encode_map(map, type, 2, base, dims, strides, box, swizzle);
 }
 
 // Launches gather_kernel over ceil(n / rows a warp) <= 8 warps.
@@ -710,6 +739,205 @@ cudaError_t launch_gather(const float* x, const WT* blocks,
          gather_smem<WT, LANES_L>(rows_box), stream>>>(
           wmap, xmap, scales, block_cols, row_ptr, sel, out, n, out_cols, R,
           bl, bd, label_tiles, rows_box);
+  return cudaSuccess;
+}
+
+// ---- `ex_kernel`: the exhaustive fp32 product (see the note) ----
+
+constexpr int kXF = 32;       // features a stage: one 128-byte swizzled row
+constexpr int kExTL = 8;      // labels a thread, 8 apart
+constexpr int kExWR = 2;      // consumer warps along rows
+constexpr int kExWL = 2;      // consumer warps along labels
+constexpr int kExS = 4;       // stages in the ring
+
+// One configuration: a thread owns TR rows (4 apart) x kExTL labels (8
+// apart); a warp's lanes are 8 along labels (fastest) x 4 along rows;
+// kExWR x kExWL consumer warps, then one producer warp; kExS stages; MINB
+// CTAs an SM. A stage is kXF features of one packed block: a weight box of
+// the tile's kLabels label rows and an x box of its kRows rows, each row
+// 128 bytes, stored by TMA with the 128-byte swizzle (16-byte piece c of
+// row j at piece c ^ (j % 8)), so each box starts on a 1 KB boundary.
+template <typename WT, int TR, int MINB>
+struct Ex {
+  static_assert(sizeof(WT) == 4,
+                "ex_kernel's stage holds fp32 weights; an int8 stage (a "
+                "32-byte-wide box, widened in registers, the block's scale "
+                "applied when it ends) is not written yet");
+  static constexpr int kRows = kExWR * 4 * TR;
+  static constexpr int kLabels = kExWL * 8 * kExTL;
+  static constexpr int kConsumers = kExWR * kExWL * 32;
+  static constexpr int kThreads = kConsumers + 32;
+  static constexpr int kWB = kLabels * kXF * 4;
+  static constexpr int kXB = kRows * kXF * 4;
+  static_assert(kRows % 8 == 0 && kLabels % 8 == 0 && TR % 2 == 0,
+                "the swizzle repeats every 8 rows of a box");
+  // Slack to align the ring, the ring, its full and empty barriers.
+  static constexpr int kSmem = 1024 + kExS * (kWB + kXB + 16);
+};
+
+// Grid: (row block r, label tile, row tile), the row tile fastest, so the
+// CTAs that read r's blocks are neighbours in launch order. The producer
+// warp walks r's packed blocks in order, kXF features at a time, and lands
+// each stage's two boxes on the ring (full barrier: one arrival and the
+// boxes' bytes; empty barrier: every consumer thread once it has read the
+// stage). Consumer thread (warp w, lane) owns rows n0 + (w / kExWL) * 4 *
+// TR + lane / 8 + 4 p and labels l0 + (w % kExWL) * 8 * kExTL + lane % 8 +
+// 8 q; every
+// output element is one fmaf chain from +0 over the blocks in order and
+// each block's features in ascending order, stopping at bd.
+template <typename WT, int TR, int MINB>
+__global__ void __launch_bounds__(Ex<WT, TR, MINB>::kThreads, MINB)
+ex_kernel(const __grid_constant__ CUtensorMap wmap,
+          const __grid_constant__ CUtensorMap xmap,
+          const int* __restrict__ block_cols,
+          const int* __restrict__ row_ptr, float* __restrict__ out, int n,
+          int out_cols, int bl, int bd, int label_tiles, int n_tiles) {
+  using E = Ex<WT, TR, MINB>;
+  constexpr int S = kExS, TL = kExTL, WL = kExWL;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring_w =
+      smem_raw + (1024 - smem_u32(smem_raw) % 1024) % 1024;
+  unsigned char* ring_x = ring_w + S * E::kWB;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring_x + S * E::kXB);
+  uint64_t* empty = full + S;
+
+  const int nt = blockIdx.x % n_tiles;
+  const int rt = blockIdx.x / n_tiles;
+  const int r = rt / label_tiles;
+  const int l0 = rt % label_tiles * E::kLabels;
+  const int n0 = nt * E::kRows;
+  const int p_begin = row_ptr[r];
+  const int p_end = row_ptr[r + 1];
+  const int kchunks = (bd + kXF - 1) / kXF;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], E::kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kExWR * WL) {   // the producer warp; lane 0 issues
+    // Lane i holds the column of the group's block i; the next group's
+    // columns are loaded while this one's stages are issued.
+    int col = p_begin + lane < p_end ? block_cols[p_begin + lane] : 0;
+    unsigned g = 0;
+    for (int pc = p_begin; pc < p_end; pc += 32) {
+      const int nxt =
+          pc + 32 + lane < p_end ? block_cols[pc + 32 + lane] : 0;
+      const int nblk = min(32, p_end - pc);
+      for (int b = 0; b < nblk; ++b) {
+        const int c = __shfl_sync(0xffffffffu, col, b);
+        if (lane == 0) {
+          for (int kc = 0; kc < kchunks; ++kc, ++g) {
+            const int s = g % S;
+            if (g >= S) mbar_wait(&empty[s], (g / S - 1) & 1);
+            asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+            mbar_expect(&full[s], E::kWB + E::kXB);
+            tma_load(ring_w + s * E::kWB, &wmap, kc * kXF,
+                     (pc + b) * bl + l0, &full[s]);
+            tma_load(ring_x + s * E::kXB, &xmap, c * bd + kc * kXF, n0,
+                     &full[s]);
+          }
+        }
+      }
+      col = nxt;
+    }
+    return;
+  }
+
+  const int lr = lane >> 3;
+  const int ll = lane & 7;
+  const int xrow = (warp / WL) * 4 * TR + lr;     // + 4 p: (row & 7) = lr
+  const int wrow = (warp % WL) * 8 * TL + ll;     // + 8 q: (row & 7) = ll
+  float acc[TR][TL];
+#pragma unroll
+  for (int p = 0; p < TR; ++p)
+#pragma unroll
+    for (int q = 0; q < TL; ++q) acc[p][q] = 0.0f;
+
+  const int total = (p_end - p_begin) * kchunks;
+  int s = 0, kc = 0;
+  unsigned phase = 0;
+  for (int it = 0; it < total; ++it) {
+    const int kend = min(kXF, bd - kc * kXF);
+    mbar_wait(&full[s], phase);
+    const unsigned char* xs = ring_x + s * E::kXB + xrow * 128;
+    const unsigned char* ws = ring_w + s * E::kWB + wrow * 128;
+    // Features 4c .. 4c+3 of the stage: piece c of each row, at piece
+    // c ^ (row % 8); x rows 4 apart alternate between lr and lr ^ 4.
+    auto step = [&](int c) {
+      float4 xv[TR], wv[TL];
+#pragma unroll
+      for (int p = 0; p < TR; ++p)
+        xv[p] = *reinterpret_cast<const float4*>(
+            xs + p * 512 + ((c ^ lr ^ ((p & 1) << 2)) << 4));
+#pragma unroll
+      for (int q = 0; q < TL; ++q)
+        wv[q] = *reinterpret_cast<const float4*>(ws + q * 1024 +
+                                                 ((c ^ ll) << 4));
+#pragma unroll
+      for (int p = 0; p < TR; ++p)
+#pragma unroll
+        for (int q = 0; q < TL; ++q) fma4(acc[p][q], xv[p], wv[q]);
+    };
+    if (kend == kXF) {
+#pragma unroll
+      for (int c = 0; c < kXF / 4; ++c) step(c);
+    } else {
+      for (int c = 0; c < kend / 4; ++c) step(c);
+    }
+    mbar_arrive(&empty[s]);
+    if (++s == S) {
+      s = 0;
+      phase ^= 1;
+    }
+    if (++kc == kchunks) kc = 0;
+  }
+
+#pragma unroll
+  for (int p = 0; p < TR; ++p) {
+    const int row = n0 + xrow + 4 * p;
+    if (row >= n) break;
+#pragma unroll
+    for (int q = 0; q < TL; ++q) {
+      const int l = l0 + wrow + 8 * q;
+      if (l < bl)
+        out[static_cast<int64_t>(row) * out_cols +
+            static_cast<int64_t>(r) * bl + l] = acc[p][q];
+    }
+  }
+}
+
+// Launches ex_kernel over R x label tiles x row tiles CTAs.
+template <typename WT, int TR, int MINB>
+cudaError_t launch_ex(const float* x, const WT* blocks,
+                      const int* block_cols, const int* row_ptr, float* out,
+                      int n, int Dp, int out_cols, int R, int nb, int bl,
+                      int bd, cudaStream_t stream) {
+  using E = Ex<WT, TR, MINB>;
+  const int label_tiles = (bl + E::kLabels - 1) / E::kLabels;
+  const int n_tiles = (n + E::kRows - 1) / E::kRows;
+  const int64_t grid = static_cast<int64_t>(R) * label_tiles * n_tiles;
+  CUtensorMap wmap, xmap;
+  if (grid > 0x7fffffff ||
+      !tensor_map(&wmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, blocks, bd,
+                  static_cast<uint64_t>(nb) * bl, bd * sizeof(WT), kXF,
+                  E::kLabels, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !tensor_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, x, Dp, n,
+                  static_cast<uint64_t>(Dp) * 4, kXF, E::kRows,
+                  CU_TENSOR_MAP_SWIZZLE_128B))
+    return cudaErrorInvalidValue;
+  auto kernel = ex_kernel<WT, TR, MINB>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, E::kSmem);
+  if (err != cudaSuccess) return err;
+  kernel<<<static_cast<unsigned>(grid), E::kThreads, E::kSmem, stream>>>(
+      wmap, xmap, block_cols, row_ptr, out, n, out_cols, bl, bd,
+      label_tiles, n_tiles);
   return cudaSuccess;
 }
 
@@ -1078,7 +1306,8 @@ int run_pq(const float* x, const WT* blocks, const float* scales,
 // gather_kernel serves n <= min(gather_max_n, 64) (RN = 1 at n <= 16, else
 // 2): the shared selection up to 64 and the exhaustive int8 kernel up to
 // the caller's switch. Every other launch runs bsr_kernel at TN = 8 / 32 /
-// 64 (64 for the shared selection).
+// 64 (64 for the shared selection). The exhaustive fp32 product does not
+// come here: bsr_predict_f32 launches ex_kernel itself.
 template <typename WT, int MODE>
 int run(const float* x, const WT* blocks, const float* scales,
         const int* block_cols, const int* row_ptr, const int* sel,
@@ -1109,8 +1338,7 @@ int run(const float* x, const WT* blocks, const float* scales,
       err = launch_gather<WT, 8, 2>(x, blocks, scales, block_cols, row_ptr,
                                     sel, out, n, Dp, out_cols, R, slots, nb,
                                     bl, bd, s);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  } else if (MODE == kShared) {
+  } else if constexpr (MODE == kShared) {
     launch<WT, 64, MODE>(x, blocks, scales, block_cols, row_ptr, sel, out, n,
                          Dp, out_cols, R, slots, bl, bd, s);
   } else if (n <= 8) {
@@ -1123,6 +1351,7 @@ int run(const float* x, const WT* blocks, const float* scales,
     launch<WT, 64, MODE>(x, blocks, scales, block_cols, row_ptr, sel, out,
                          n, Dp, out_cols, R, slots, bl, bd, s);
   }
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1130,16 +1359,30 @@ int run(const float* x, const WT* blocks, const float* scales,
 
 // x (n, Dp) f32, blocks (nb, bl, bd) f32, block_cols (nb,) i32,
 // row_ptr (n_row_blocks + 1,) i32 -> out (n, Lp) f32, every element written.
+// nb the blocks' first dim. ex_kernel at 128-label tiles of 16 rows (2 x 8
+// a thread, three CTAs an SM) to n = 16, 32 rows (4 x 8, two CTAs an SM)
+// to n = 32, and 64 rows (8 x 8, two CTAs an SM) above.
 extern "C" int bsr_predict_f32(const float* x, const float* blocks,
                                const int* block_cols, const int* row_ptr,
                                float* out, int n, int Dp, int Lp,
-                               int n_row_blocks, int bl, int bd, int device,
-                               void* stream) {
-  if (Lp != n_row_blocks * bl)
+                               int n_row_blocks, int nb, int bl, int bd,
+                               int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n < 1 || n_row_blocks < 1 || bd % 4 != 0 || Lp != n_row_blocks * bl)
     return static_cast<int>(cudaErrorInvalidValue);
-  return run<float, kAll>(x, blocks, nullptr, block_cols, row_ptr, nullptr,
-                          out, n, Dp, n_row_blocks, n_row_blocks, -1, bl, bd,
-                          0, device, stream);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n <= 16)
+    err = launch_ex<float, 2, 3>(x, blocks, block_cols, row_ptr, out, n, Dp,
+                                 Lp, n_row_blocks, nb, bl, bd, s);
+  else if (n <= 32)
+    err = launch_ex<float, 4, 2>(x, blocks, block_cols, row_ptr, out, n, Dp,
+                                 Lp, n_row_blocks, nb, bl, bd, s);
+  else
+    err = launch_ex<float, 8, 2>(x, blocks, block_cols, row_ptr, out, n, Dp,
+                                 Lp, n_row_blocks, nb, bl, bd, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // As bsr_predict_f32 over int8 blocks with fp32 per-block scales (nb,),

@@ -39,7 +39,7 @@ INT8_GATHER_MAX_N = 16
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
-    "bsr_predict_f32": [_P] * 5 + [_I] * 7 + [_P],
+    "bsr_predict_f32": [_P] * 5 + [_I] * 8 + [_P],
     "bsr_predict_int8": [_P] * 6 + [_I] * 8 + [_P],
     "bsr_gather_f32": [_P] * 6 + [_I] * 8 + [_P],
     "bsr_gather_int8": [_P] * 7 + [_I] * 8 + [_P],
@@ -89,8 +89,7 @@ def _launch(symbol: str, x: torch.Tensor, blocks: torch.Tensor,
                       else []) + [n_row_blocks]
     if sel is not None:
         dims.append(slots)
-    if symbol != "bsr_predict_f32":
-        dims.append(nb)                   # the extent of their tensor map
+    dims.append(nb)                       # the extent of the tensor maps
     tail = [INT8_GATHER_MAX_N] if symbol == "bsr_predict_int8" else []
     stream = torch.cuda.current_stream(x.device).cuda_stream
     _build.check(fn, fn(*ptrs, out.data_ptr(), *dims, bl, bd, *tail,

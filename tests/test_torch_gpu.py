@@ -16,6 +16,7 @@ same inputs identical bit for bit (no atomics, fixed summation order).
 
 import copy
 import time
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -154,6 +155,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
                                  model.row_ptr, 2)
     with pytest.raises(ValueError):
         topk_ops.blocked_topk_cuda(torch.zeros((2, 300), device=cuda), 3,
+                                   bL=1025)
+    with pytest.raises(ValueError):
+        topk_ops.blocked_topk_cuda(torch.zeros((2, 300), device=cuda), 0,
                                    bL=128)
     with pytest.raises(ValueError):
         topk_ops.blocked_topk_cuda(torch.zeros((2, 512), device=cuda).t(),
@@ -340,6 +344,157 @@ def test_gathered_kernels_repeat_bit_for_bit(cuda):
                     outs.append(fn())
             torch.cuda.synchronize()
             assert all(torch.equal(o, first) for o in outs)
+
+
+# (L, D, block) for kernel 3: bl of 8, 48, 128 and 256 against the label
+# tiles of 64 and 128; bd of 16 (a stage of 32 features past the block),
+# 36 (a last stage of 4 features) and 128; L and D not multiples of them;
+# at D = 4,800 and bd = 16 a row block of 300 blocks.
+EX_EDGES = [(90, 300, (8, 32)), (300, 520, (48, 16)),
+            (1000, 1100, (128, 128)), (600, 520, (256, 36)),
+            (384, 4800, (128, 16))]
+
+
+@pytest.mark.parametrize("L,D,block", EX_EDGES)
+@pytest.mark.parametrize("n", [1, 7, 8, 9, 16, 17, 33, 63, 64, 65, 255, 256,
+                               300])
+def test_exhaustive_kernel_at_tile_edges(cuda, L, D, block, n):
+    """Kernel 3 at the edges of its tiles and row tiles, on a model whose
+    row block 0 is empty, 1 holds one block and 2 every column block:
+    within tolerance of its plain version; the empty row block exact
+    zeros; a sorted full selection through kernel 5 bit for bit equal
+    (contract a)."""
+    model = _edge_model(L, D, block, seed=L + D + n, device=cuda)
+    bl = block[0]
+    R = model.shape[0] // bl
+    fp = (model.blocks, model.block_cols, model.row_ptr)
+    x = _x(n, model.shape[1], n, cuda)
+    got = _check_bsr(model, x)
+    assert bool((got.reshape(n, R, bl)[:, 0] == 0).all())
+    full = torch.arange(R, dtype=torch.int32, device=cuda)
+    assert torch.equal(bsr_ops.bsr_predict_gather_cuda(x, *fp, full), got)
+
+
+def test_exhaustive_kernel_on_the_sentinel_and_skewed_rows(cuda):
+    """Kernel 3 on the fully pruned sentinel (row_ptr all
+    zeros): exact zeros; and on a power-law model, one row block holding
+    most of the blocks and half of them none, within tolerance."""
+    zero = to_block_sparse(np.zeros((200, 300), np.float32), (128, 128),
+                           device=cuda)
+    rng = np.random.default_rng(4)
+    L, D, bl, bd = 1280, 2048, 128, 128
+    keep = np.zeros((L // bl, D // bd), bool)
+    keep[3] = True
+    for r in range(5, L // bl):
+        keep[r, rng.choice(D // bd, 1 + 8 // r, replace=False)] = True
+    W = (0.1 * rng.normal(size=(L, D))).astype(np.float32)
+    W *= np.kron(keep, np.ones((bl, bd), np.float32))
+    skewed = to_block_sparse(W, (bl, bd), device=cuda)
+    for n in (1, 8, 32, 100):
+        out = _check_bsr(zero, _x(n, zero.shape[1], n, cuda))
+        assert bool((out == 0).all())
+        _check_bsr(skewed, _x(n, D, n, cuda))
+
+
+def test_exhaustive_kernel_repeats_bit_for_bit(cuda):
+    """Kernel 3: 50 launches on one input, then 10 pairs
+    of launches on two streams at once, each equal to the first bit for
+    bit (no atomics, a fixed order: a race would show)."""
+    model = _edge_model(1000, 4096, (128, 128), seed=9, device=cuda)
+    R = model.shape[0] // 128
+    fp = (model.blocks, model.block_cols, model.row_ptr)
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    for n in (1, 8, 32, 64, 256):
+        x = _x(n, model.shape[1], n, cuda)
+        first = bsr_ops.bsr_predict_cuda(x, *fp, R)
+        outs = [bsr_ops.bsr_predict_cuda(x, *fp, R) for _ in range(50)]
+        torch.cuda.synchronize()
+        for _ in range(10):
+            with torch.cuda.stream(s1):
+                outs.append(bsr_ops.bsr_predict_cuda(x, *fp, R))
+            with torch.cuda.stream(s2):
+                outs.append(bsr_ops.bsr_predict_cuda(x, *fp, R))
+        torch.cuda.synchronize()
+        assert all(torch.equal(o, first) for o in outs)
+
+
+def _topk_rows(L: int, seed: int) -> np.ndarray:
+    """Rows where the round rule decides: all ties (0.0 and -0.0), all
+    NEG_INF, all -inf, -inf at every other id, few levels, the maximum in
+    the last (short) block, a +inf entry, and plain normal scores."""
+    rng = np.random.default_rng(seed)
+    s = rng.normal(size=(8, L)).astype(np.float32)
+    s[0] = 0.0
+    s[0, 1::3] = -0.0
+    s[1] = topk_ref.NEG_INF
+    s[2] = -np.inf
+    s[3, ::2] = -np.inf
+    s[4] = rng.integers(0, 3, L)
+    s[5, -1] = 5.0
+    s[6, L // 3] = np.inf
+    return s
+
+
+def _padded(s: torch.Tensor, bL: int) -> torch.Tensor:
+    return torch.nn.functional.pad(s, (0, (-s.shape[1]) % bL),
+                                   value=topk_ref.NEG_INF).contiguous()
+
+
+@pytest.mark.parametrize("bL", [128, 200, 256, 512, 1000, 1024])
+@pytest.mark.parametrize("k", [1, 5, 8, 16])
+def test_topk_kernel_reads_unpadded_scores(cuda, bL, k):
+    """Kernel 9 on the unpadded (n, L), L not a multiple of bL: a last
+    block with fewer than k real entries (or 1), a last block of 36, and a
+    view 4 bytes off a 16-byte boundary (one float a slot): the strip
+    equals the kernel's on the input padded with NEG_INF and the plain
+    version's on it; the whole top-k equals the CPU path's (which pads)."""
+    for L in (3 * bL + max(1, k - 1), 2 * bL + 36):
+        s = torch.tensor(_topk_rows(L, bL + k + L), device=cuda)
+        flat = torch.empty(s.numel() + 1, device=cuda)
+        view = flat[1:].view(s.shape)
+        view.copy_(s)
+        pad = _padded(s, bL)
+        v_p, i_p = topk_ops.blocked_topk_cuda(pad, k, bL=bL)
+        v_r, i_r = topk_ref.blocked_topk(pad, k, bL=bL)
+        torch.cuda.synchronize()
+        assert torch.equal(v_p, v_r) and torch.equal(i_p, i_r)
+        for scores in (s, view):
+            v_k, i_k = topk_ops.blocked_topk_cuda(scores, k, bL=bL)
+            torch.cuda.synchronize()
+            assert torch.equal(v_k, v_r) and torch.equal(i_k, i_r)
+        v, i = topk_ops.topk(s, k, bL=bL)
+        v_c, i_c = topk_ops.topk(s.cpu(), k, bL=bL)
+        assert torch.equal(v.cpu(), v_c) and torch.equal(i.cpu(), i_c)
+
+
+def test_topk_kernel_at_the_main_path_shapes(cuda):
+    """Kernel 9 at the serving width (n, 30,976), n = 1 and 256, and the LM
+    vocabulary (2, 32,001), k = 5, bL = 512, against the plain version on
+    the padded input; and 70,000 rows, more than a grid's second
+    dimension holds."""
+    rng = np.random.default_rng(0)
+    for n, L, bL in ((1, 30_976, 512), (256, 30_976, 512), (2, 32_001, 512),
+                     (70_000, 300, 128)):
+        s = torch.tensor(rng.normal(size=(n, L)).astype(np.float32),
+                         device=cuda)
+        s[:, :64] = 0.25                              # ties
+        v_k, i_k = topk_ops.blocked_topk_cuda(s, 5, bL=bL)
+        v_r, i_r = topk_ref.blocked_topk(_padded(s, bL), 5, bL=bL)
+        torch.cuda.synchronize()
+        assert torch.equal(v_k, v_r) and torch.equal(i_k, i_r)
+
+
+def test_topk_on_the_card_pads_nothing(cuda):
+    """`topk` on a CUDA tensor launches the kernel on the unpadded scores:
+    no F.pad, one launch, and the CPU path's answer."""
+    s = torch.tensor(_topk_rows(1000, 1), device=cuda)
+    before = topk_ops.blocked_topk_cuda.launches
+    with mock.patch.object(topk_ops.F, "pad",
+                           side_effect=AssertionError("F.pad on the card")):
+        v, i = topk_ops.topk(s, 5)
+    assert topk_ops.blocked_topk_cuda.launches == before + 1
+    v_c, i_c = topk_ops.topk(s.cpu(), 5)
+    assert torch.equal(v.cpu(), v_c) and torch.equal(i.cpu(), i_c)
 
 
 # (L, D, block): bl of 8, 48, 128 and 256 against the per-query kernel's

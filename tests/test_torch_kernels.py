@@ -93,14 +93,14 @@ def test_blocked_stage_matches_pallas_kernel(n, L, bL, k):
     s[0] = 0.0
     s[1, ::3] = 0.5
     v_j, i_j = blocked_topk_pallas(jnp.asarray(s), k, bL=bL, interpret=True)
-    v_t, i_t = topk_ops.blocked_topk(torch.from_numpy(s), k, bL=bL)
+    v_t, i_t = topk_ref.blocked_topk(torch.from_numpy(s), k, bL=bL)
     np.testing.assert_array_equal(_np(v_t), np.asarray(v_j))
     np.testing.assert_array_equal(_np(i_t), np.asarray(i_j))
 
 
 def test_topk_wrapper_rejects_unaligned_blocked_width():
     with pytest.raises(ValueError, match="multiple"):
-        topk_ops.blocked_topk(torch.zeros((2, 300)), 3, bL=128)
+        topk_ref.blocked_topk(torch.zeros((2, 300)), 3, bL=128)
 
 
 # -- BSR predict ---------------------------------------------------------------
@@ -252,7 +252,7 @@ def test_wrappers_raise_on_other_devices():
     refused by the kernel wrappers."""
     s = torch.zeros((2, 256), device="meta")
     with pytest.raises(ValueError, match="CUDA"):
-        topk_ops.blocked_topk(s, 3, bL=128)
+        topk_ops.topk(s, 3, bL=128)
     W = _sparse_W(32, 32, 1.0, seed=2, block=(16, 16))
     _, tm = _models(W, (16, 16))
     with pytest.raises(ValueError, match="CUDA"):

@@ -11,17 +11,24 @@ prints one JSON object: kernel name (and the case) -> sha256 of the
 output bytes. Run it from two checkouts on one card and compare the two
 objects: equal digests are equal bits. Needs a CUDA card.
 
---times also times the per-query kernels 7 and 8 on a model at
-Wiki10-31K serving width drawn from a fixed seed (242 row blocks of 128
-labels, 40 of the 797 column blocks of 128 features each, weights
-N(0, 0.02^2), int8 by per-block absmax scales) and tf-idf-like unit rows,
-B = 31 row blocks a query: the top 31 of x against 242 random centroids
-("centroid") or drawn by a Zipf popularity ("skewed"); at n = 1, 8, 32,
-64, 256 the median of 20 launches timed with CUDA events, the L2
-overwritten before each, and a digest of each output. To compare two
-checkouts' times, run this file from one checkout with each checkout's
-`src` on PYTHONPATH in one call (parent, change, change, parent); the
-JSON object then also holds the card's name and power limit.
+--times also times kernels 3, 7, 8 and 9 on a model at Wiki10-31K
+serving width drawn from a fixed seed (242 row blocks of 128 labels, 40 of
+the 797 column blocks of 128 features each, weights N(0, 0.02^2), int8 by
+per-block absmax scales) and tf-idf-like unit rows: kernel 3 (the
+exhaustive fp32 product) and, at B = 31 row blocks a query, kernels 7 and
+8 at the top 31 of x against 242 random centroids ("centroid") or drawn
+by a Zipf popularity ("skewed"), each at n = 1, 8, 32, 64, 256; kernel 9
+on the scores of 256 rows (30,976 labels, the padding labels at NEG_INF):
+the kernel on the input padded to 31,232 and the whole `topk` on the
+unpadded scores. Each time is the median of 20 launches timed with CUDA
+events, the L2 overwritten before each, beside a digest of each output.
+Last, the `bsr` backend's card stage at n = 64 (`bsr_predict_topk`: the
+product, the padding labels' mask and the top-5) on the host clock,
+synchronised before and after, the median of 21, as `chip_smoke.py`'s
+phase 4 times `card_topk`.
+To compare two checkouts' times, run this file from one checkout with
+each checkout's `src` on PYTHONPATH in one call (parent, change, change,
+parent); the JSON object then also holds the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ import hashlib
 import json
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -60,9 +68,22 @@ def median_ms(fn, flush: torch.Tensor, iters: int = 20) -> float:
     return float(np.median([s.elapsed_time(e) for s, e in events]))
 
 
-def pq_times(bsr_ops, out: dict) -> dict:
-    """--times: kernels 7 and 8 at Wiki10-31K width (the docstring); adds
-    each output's digest to `out` and returns the times in ms."""
+def host_ms(fn, flush: torch.Tensor, iters: int = 21) -> float:
+    fn()
+    laps = []
+    for _ in range(iters):
+        flush.zero_()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        laps.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(laps))
+
+
+def times(bsr_ops, topk_ops, out: dict) -> dict:
+    """--times: kernels 3, 7, 8 and 9 at Wiki10-31K width (the docstring);
+    adds each output's digest to `out` and returns the times in ms."""
     R, C, BL, BD, PER_ROW, B = 242, 797, 128, 128, 40, 31
     dev = torch.device("cuda")
     rng = np.random.default_rng(1)
@@ -80,7 +101,14 @@ def pq_times(bsr_ops, out: dict) -> dict:
     popularity = np.arange(1, R + 1) ** -0.8
     popularity /= popularity.sum()
     flush = torch.empty(64 * 2**20, device=dev)          # 256 MB
-    times = {}
+    ms = {}
+
+    def timed(key, fn):
+        got = fn()
+        out[key] = digest(*got) if isinstance(got, tuple) else digest(got)
+        ms[key] = median_ms(fn, flush)
+        print(f"   {key}: {ms[key]:.4f} ms", flush=True)
+
     for n in (1, 8, 32, 64, 256):
         x = np.zeros((n, C * BD), np.float32)
         for i in range(n):
@@ -88,6 +116,8 @@ def pq_times(bsr_ops, out: dict) -> dict:
             x[i, f] = rng.random(300)
         x = torch.tensor(x / np.linalg.norm(x, axis=1, keepdims=True),
                          device=dev)
+        timed(f"bsr_predict wiki10 n={n}",
+              lambda: bsr_ops.bsr_predict_cuda(x, blocks, cols, ptr, R))
         sels = {
             "centroid": torch.topk(x @ centroids.T, B).indices,
             "skewed": torch.tensor(np.stack([
@@ -95,25 +125,42 @@ def pq_times(bsr_ops, out: dict) -> dict:
                 for _ in range(n)]), device=dev)}
         for case, sel in sels.items():
             sel = sel.to(torch.int32).contiguous()
-            for name, fn in (
-                    ("bsr_gather_pq",
-                     lambda: bsr_ops.bsr_predict_gather_pq_cuda(
-                         x, blocks, cols, ptr, sel)),
-                    ("bsr_gather_pq_int8",
-                     lambda: bsr_ops.bsr_predict_gather_pq_int8_cuda(
-                         x, qblocks, scales, cols, ptr, sel))):
-                key = f"{name} wiki10 {case} n={n}"
-                out[key] = digest(fn())
-                times[key] = median_ms(fn, flush)
-                print(f"   {key}: {times[key]:.4f} ms", flush=True)
-    return times
+            timed(f"bsr_gather_pq wiki10 {case} n={n}",
+                  lambda: bsr_ops.bsr_predict_gather_pq_cuda(
+                      x, blocks, cols, ptr, sel))
+            timed(f"bsr_gather_pq_int8 wiki10 {case} n={n}",
+                  lambda: bsr_ops.bsr_predict_gather_pq_int8_cuda(
+                      x, qblocks, scales, cols, ptr, sel))
+        if n == 64:
+            x64 = x
+        if n == 256:
+            scores = bsr_ops.bsr_predict_cuda(x, blocks, cols, ptr, R)
+    scores[:, 30_938:] = -3.0e38                  # Wiki10-31K's labels
+    padded = torch.nn.functional.pad(scores, (0, 256), value=-3.0e38)
+    timed("blocked_topk wiki10 (256, 31232) k=5",
+          lambda: topk_ops.blocked_topk_cuda(padded, 5, bL=512))
+    timed("topk wiki10 unpadded (256, 30976) k=5",
+          lambda: topk_ops.topk(scores, 5))
+    from repro_torch.core.pruning import BlockSparseModel
+    model = BlockSparseModel(
+        blocks, torch.repeat_interleave(torch.arange(
+            R, dtype=torch.int32, device=dev), PER_ROW), cols, ptr,
+        (R * BL, C * BD), (BL, BD), (30_938, C * BD))
+    key = "bsr_predict_topk wiki10 n=64, host clock"
+    out[key] = digest(*bsr_ops.bsr_predict_topk(x64, model, 5,
+                                                n_labels=30_938))
+    ms[key] = host_ms(lambda: bsr_ops.bsr_predict_topk(
+        x64, model, 5, n_labels=30_938), flush)
+    print(f"   {key}: {ms[key]:.4f} ms", flush=True)
+    return ms
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the JSON object here")
     ap.add_argument("--times", action="store_true",
-                    help="also time kernels 7 and 8 at Wiki10-31K width")
+                    help="also time kernels 3, 7, 8 and 9 at Wiki10-31K "
+                    "width")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("torch_kernel_digests: needs a CUDA card")
@@ -171,6 +218,18 @@ def main() -> None:
             bsr_ops.bsr_predict_gather_pq_cuda(x, *fp, sel_pq))
         out[f"bsr_gather_pq_int8 n={n}"] = digest(
             bsr_ops.bsr_predict_gather_pq_int8_cuda(x, *i8, sel_pq))
+    # Kernel 3 at bl = 48, bd = 16 (a stage longer than a block), row block
+    # 1 with one block and 2 with all of them, n across its row tiles.
+    Wm = (0.1 * rng.normal(size=(300, 520))).astype(np.float32)
+    keep = rng.random((7, 33)) < 0.3
+    keep[0] = keep[1] = False
+    keep[1, 5] = keep[2] = True
+    Wm *= np.kron(keep, np.ones((48, 16), np.float32))[:300, :520]
+    edge = to_block_sparse(Wm, (48, 16), device=dev)
+    for n in (1, 7, 9, 33, 63, 65, 300):
+        x = t(rng.normal(size=(n, edge.shape[1])))
+        out[f"bsr_predict edge n={n}"] = digest(bsr_ops.bsr_predict_cuda(
+            x, edge.blocks, edge.block_cols, edge.row_ptr, 7))
     # Kernels 7 and 8 at selections of their own: each row's top 3 of R
     # random centroids, row block 2 in every row (skewed), repeated ids,
     # ids -1 and R, and the emptied row block 0.
@@ -197,6 +256,23 @@ def main() -> None:
     scores = t(rng.normal(size=(64, 4096)))
     out["blocked_topk"] = digest(*topk_ops.blocked_topk_cuda(scores, 5,
                                                              bL=256))
+    # Kernel 9 through `topk` on unpadded scores (the parent pads them):
+    # rows of ties, NEG_INF, -inf and a short last block, float4 rows
+    # (L % 4 == 0) and one-float rows (L odd), k of 1, 5 and 16.
+    for L, bL in ((30_976, 512), (32_001, 512), (1_000, 128), (999, 256)):
+        s = rng.normal(size=(8, L)).astype(np.float32)
+        s[0] = 0.0
+        s[1] = -3.0e38
+        s[2, ::2] = -np.inf
+        s[3] = rng.integers(0, 3, L)
+        s[4, -1] = 5.0
+        s = t(s)
+        for k in (1, 5, 16):
+            out[f"topk unpadded ({L}) bL={bL} k={k}"] = digest(
+                *topk_ops.topk(s, k, bL=bL))
+            out[f"blocked_topk padded ({L}) bL={bL} k={k}"] = digest(
+                *topk_ops.blocked_topk_cuda(torch.nn.functional.pad(
+                    s, (0, (-L) % bL), value=-3.0e38), k, bL=bL))
 
     # Banded attention (10) at hymba-1.5b's heads, both types.
     B, T, H, KV, hd, w = 2, 2304, 25, 5, 64, 1024
@@ -208,7 +284,7 @@ def main() -> None:
     torch.cuda.synchronize()
     result = {"device": torch.cuda.get_device_name(0)}
     if args.times:
-        result["ms"] = pq_times(bsr_ops, out)
+        result["ms"] = times(bsr_ops, topk_ops, out)
         result["card"] = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True,
