@@ -32,7 +32,10 @@ seed:
                .engine()` on the default `bsr` backend serving ragged
                requests; both kernels' launch counts must be > 0 in that
                run, and the served ids must equal the plain path's ids on
-               every row whose k-th/(k+1)-th margin is decisive;
+               every row whose k-th/(k+1)-th margin is decisive; latency
+               p50 / p99 over the requests of at most 64 rows beside the
+               25 ms limit (`meets_limit`), the 300-row one on its own
+               (so in every serving configuration);
   4b. shortlist and int8 kernels — the int8 BSR, gathered BSR, gathered
                int8 BSR, per-query gathered BSR and per-query gathered int8
                BSR kernels against their plain versions on the same model
@@ -117,6 +120,30 @@ Then training, on the port's synthetic power-law data at Wiki10-31K width
                      the plain path's ids under the model that served it
                      on decisive rows, and `wiki_bsr`'s answers are a
                      clean cut: old model, then new, in each swap window;
+ 10b. mesh train   — `fit(X, Y, spec, dir, mesh=...)` with phase 8's
+                     spec (centroid coarse stage) on a (1, 2) mesh, a
+                     (2, 1) mesh with `shard_data` and a (2, 2) mesh with
+                     `shard_data` and `balance`, every cell cuda:0, then
+                     on ScheduleSpec(mesh=(1, device_count())).make_mesh()
+                     over the distinct cards: against phase 8's
+                     checkpoint, the packed weights within 1e-5 of their
+                     magnitude and the objectives within 1e-4 (label
+                     sharding), or within SHARD_DATA_TOL (`shard_data`,
+                     another summation order, and a control: phase 8's
+                     fit on permuted rows), a weight pruned on one side
+                     only within the bound of Delta, and whether they are
+                     equal bit for bit, the TRON counters equal on >= 99%
+                     of the labels, the served ids equal on every held-out
+                     row decisive for both checkpoints, the hinge and HVP
+                     kernels launched under label sharding and not under
+                     `shard_data` (torch ops there, as the JAX package's
+                     are jnp);
+ 10c. mesh serve   — phase 4's checkpoint and requests through
+                     `ServeSpec(backend="sharded")` on a (1, 4) mesh of
+                     cuda:0 and on the default mesh (one shard per card):
+                     the top-k kernel launched, the served ids equal to the
+                     plain path's and to `bsr`'s on every decisive row and
+                     on the zero row;
  11. sweep         — `lifecycle.sweep` on the training data's first 1,024
                      labels: arms base, same and delta_0.05, two workers,
                      the 512 held-out rows; `same` must be the base's
@@ -158,11 +185,17 @@ drawn from the seed:
                    --batch 4` exits 0.
 
 The lines before the last are the kernels' JSON summary (all ten
-kernels), the training, server, sweep and LM JSON summaries and the
+kernels; `launches_mesh` for kernels 1, 2 and 9 counts phases 10b and
+10c), the training, server, sweep, mesh and LM JSON summaries and the
 card's name and power limit from nvidia-smi; the last line is `{"ok":
 true, "device": {...}}`.
 Any failure exits non-zero before it. Without a CUDA card, or outside a
 checkout, it exits non-zero at once.
+
+`python3 chip_smoke.py --planted-faults` runs only phase 8's fit and phase
+10b's (2, 1) `shard_data` fit under each of PLANTED_FAULTS (TF32 products;
+the last data piece left out of the sums), and prints the checks each
+fails: it exits non-zero if a fault passes every check.
 """
 
 from __future__ import annotations
@@ -170,6 +203,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import math
 import os
 import re
 import subprocess
@@ -193,6 +227,9 @@ DELTA = 0.01
 K = 5
 REQUEST_ROWS = (1, 64, 1, 64, 300, 1, 7, 64, 1, 33)
 ZERO_REQUEST = 5                                # this one is a row of zeros
+# PERF.md section 2: p99 <= 25 ms, enqueue to completion, for requests of
+# at most 64 rows; a larger request is reported on its own.
+LATENCY_ROWS, LATENCY_LIMIT_MS = 64, 25.0
 BSR_N = (1, 8, 32, 64, 256)
 HEADLINE_N = 32                                 # a typical micro-batch
 # Training: Wiki10-31K's N and D, 2 of its 31 label batches.
@@ -217,6 +254,27 @@ SERVE_CONFIGS = (
 # Phase 9: the trained checkpoint through these.
 TRAINED_CONFIGS = (("bsr", dict(backend="bsr"), "bsr_predict"),) + \
     SERVE_CONFIGS[:2]
+# Phase 10b: `fit` through these meshes on the one card (label, (data,
+# model), shard_data, balance), then on the default mesh over the distinct
+# cards. Against phase 8's fit, label shards: the largest weight
+# difference within MESH_TOL of the weights' magnitude, every objective
+# within MESH_F_TOL relative.
+MESH_FITS = (("(1, 2)", (1, 2), False, False),
+             ("(2, 1) shard_data", (2, 1), True, False),
+             ("(2, 2) shard_data balance", (2, 2), True, True))
+MESH_TOL, MESH_F_TOL = 1e-5, 1e-4
+# shard_data, and the control (phase 8's fit on permuted rows): the same
+# two bounds. At N = 14,146 the truncated TRON solve moves this far under
+# any other summation order; on an H100 80GB HBM3 at 700 W the control
+# read 0.179 (2.3% of the magnitude 7.7) and 5.10e-4, the (2, 1) and
+# (2, 2) fits 0.1956 (2.5%) and 8.97e-4, the same in two runs.
+SHARD_DATA_TOL = (0.04, 1.5e-3)
+# `--planted-faults`: the served ids' margin (phase 3's kernel error sets
+# the main run's; 1e-4 is above any it read).
+FAULT_MARGIN = 1e-4
+# Phase 10c: the serving checkpoint through `sharded` on this mesh and on
+# the default one.
+MESH_SERVE = (1, 4)
 # Phase 10: the async server under open-loop Poisson traffic.
 SERVER_REQUESTS, SERVER_RATE, SERVER_SWAP_AFTER = 300, 100.0, 150
 SERVER_MAX_ROWS = 8
@@ -879,9 +937,17 @@ def serving_kernels() -> dict:
 def plain_backend_topk(be, x: torch.Tensor):
     """The plain path of one padded micro-batch through backend `be`: its
     own selection (shortlist), the plain versions of its kernels, padding
-    labels masked and a stable sort; (values, ids) with K + 1 columns."""
+    labels masked and a stable sort; (values, ids) with K + 1 columns. For
+    `sharded`: the product with each shard's rows, side by side."""
     from repro_torch.kernels.bsr_predict import ref as bsr_ref
     from repro_torch.kernels.topk import ref as topk_ref
+    if be.name == "sharded":
+        s = torch.cat([(x.to(w.device) @ w.T).to(x.device)
+                       for w in be._shards], dim=1)
+        ids = torch.arange(s.shape[1], device=x.device)
+        v, i = topk_ref.topk(torch.where(ids < be.n_labels, s,
+                                         topk_ref.NEG_INF), K + 1)
+        return v.cpu().numpy(), i.long().cpu().numpy()
     m = be.model
     bl = m.block_shape[0]
     Lp, Dp = m.shape
@@ -963,14 +1029,16 @@ def breakdown(engine, x: np.ndarray, reps: int = 21) -> dict:
 
 
 def drive(ckpt: str, requests, overrides: dict, kernel: str,
-          margin_tol: float, n_labels: int):
+          margin_tol: float, n_labels: int, mesh=None):
     """One serving configuration on the main path: every serving launch
-    count set to 0 just before `CheckpointHandle.open(ckpt).engine(spec)`
-    with `overrides` on the checkpoint's ServeSpec, the engine warmed and
-    the requests served one at a time, the counts read just after. Its
-    kernel and the top-k must have launched, and the served ids must equal
-    the plain path's on every row whose k-th/(k+1)-th margin is decisive.
-    Returns (engine, served labels (rows, K), stats)."""
+    count set to 0 just before `CheckpointHandle.open(ckpt).engine(spec,
+    mesh=mesh)` with `overrides` on the checkpoint's ServeSpec, the engine
+    warmed and the requests served one at a time, the counts read just
+    after. Its kernel and the top-k must have launched, and the served ids
+    must equal the plain path's on every row whose k-th/(k+1)-th margin is
+    decisive. Latency p50 / p99 over the requests of at most LATENCY_ROWS
+    rows, beside LATENCY_LIMIT_MS; larger requests on their own. Returns
+    (engine, served labels (rows, K), stats, decisive rows (bool, rows))."""
     from repro_torch.xmc_api import CheckpointHandle
     kernels = serving_kernels()
     torch.cuda.empty_cache()
@@ -980,7 +1048,7 @@ def drive(ckpt: str, requests, overrides: dict, kernel: str,
     t0 = time.perf_counter()
     handle = CheckpointHandle.open(ckpt)
     engine = handle.engine(handle.spec.serve.replace(warmup=False,
-                                                     **overrides))
+                                                     **overrides), mesh=mesh)
     torch.cuda.synchronize()
     t_load = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -993,10 +1061,17 @@ def drive(ckpt: str, requests, overrides: dict, kernel: str,
         wall.append((time.perf_counter() - t0) * 1e3)
     launches = {k: fn.launches for k, fn in kernels.items() if fn.launches}
     peak = torch.cuda.max_memory_allocated()
-    lat = engine.latency_summary()
+    spans = engine.stats.samples()               # one a request, in order
+    small = [ms for x, ms in zip(requests, spans)
+             if x.shape[0] <= LATENCY_ROWS]
+    lat = {"p50_ms": float(np.percentile(small, 50)),
+           "p99_ms": float(np.percentile(small, 99))}
+    large = [dict(rows=x.shape[0], ms=ms) for x, ms in zip(requests, spans)
+             if x.shape[0] > LATENCY_ROWS]
     _need(launches.get(kernel, 0) > 0 and launches.get("blocked_topk", 0) > 0,
           f"{overrides}: a kernel of the path never launched: {launches}")
     decisive = agree = 0
+    mask = []
     for i, (x, res) in enumerate(zip(requests, results)):
         _need(res.labels.shape == (x.shape[0], K)
               and np.isfinite(res.scores).all()
@@ -1008,6 +1083,7 @@ def drive(ckpt: str, requests, overrides: dict, kernel: str,
                   and ids[:, :K].tolist() == [list(range(K))],
                   f"{overrides}: zero row served {res.labels.tolist()}")
         rows = (v[:, K - 1] - v[:, K]) > margin_tol
+        mask.append(rows)
         decisive += int(rows.sum())
         agree += int((res.labels[rows] == ids[rows, :K]).all(axis=1).sum())
     n_rows = sum(x.shape[0] for x in requests)
@@ -1017,18 +1093,25 @@ def drive(ckpt: str, requests, overrides: dict, kernel: str,
     frac = float(getattr(engine.backend, "candidate_fraction", 1.0))
     print(f"   {engine.backend.name} {overrides}: open + load {t_load:.2f} s, "
           f"warm-up of {n_warm} buckets {t_warm:.2f} s; {len(requests)} "
-          f"requests: p50 {lat['p50_ms']:.3f} ms  p99 {lat['p99_ms']:.3f} ms"
-          f" (enqueue to completion); per request "
+          f"requests; the {len(small)} of <= {LATENCY_ROWS} rows: p50 "
+          f"{lat['p50_ms']:.3f} ms  p99 {lat['p99_ms']:.3f} ms (enqueue to "
+          f"completion; limit {LATENCY_LIMIT_MS} ms: meets_limit "
+          f"{lat['p99_ms'] <= LATENCY_LIMIT_MS}); per request "
           f"{[round(w, 3) for w in wall]} ms; candidate fraction "
           f"{frac:.4f}; max_memory_allocated {peak / 2**20:.1f} MiB; "
           f"launches {launches}; served ids == plain ids on "
           f"{agree}/{decisive} rows with a decisive margin (> "
           f"{margin_tol:.1e}) of {n_rows} rows", flush=True)
+    for r in large:
+        print(f"   the {r['rows']}-row request: {r['ms']:.3f} ms (enqueue "
+              "to completion; not under the limit)", flush=True)
     labels = np.concatenate([r.labels for r in results])
     return engine, labels, dict(
         launches=launches, p50_ms=lat["p50_ms"], p99_ms=lat["p99_ms"],
+        p99_limit_ms=LATENCY_LIMIT_MS,
+        meets_limit=lat["p99_ms"] <= LATENCY_LIMIT_MS, large_requests=large,
         load_s=t_load, warmup_s=t_warm, peak_mib=peak / 2**20, agree=agree,
-        decisive=decisive, candidate_fraction=frac)
+        decisive=decisive, candidate_fraction=frac), np.concatenate(mask)
 
 
 def overlap(a: np.ndarray, b: np.ndarray) -> float:
@@ -1042,8 +1125,8 @@ def serve(ckpt: str, requests, margin_tol: float) -> dict:
     from repro_torch.xmc_api import CheckpointHandle
     _need(CheckpointHandle.open(ckpt).spec.serve.backend == "bsr",
           "the checkpoint's default backend is not bsr")
-    engine, labels, stats = drive(ckpt, requests, {}, "bsr_predict",
-                                  margin_tol, N_LABELS)
+    engine, labels, stats, _ = drive(ckpt, requests, {}, "bsr_predict",
+                                     margin_tol, N_LABELS)
     stats["request_64_ms"] = breakdown(engine, requests[REQUEST_ROWS.index(64)])
     return dict(stats, labels=labels)
 
@@ -1055,8 +1138,8 @@ def serve_configs(ckpt: str, requests, margin_tol: float,
     their fp32 counterparts (share of rows with the same K ids in order)."""
     out, labels = {}, {"bsr": bsr_labels}
     for name, overrides, kernel in SERVE_CONFIGS:
-        engine, labels[name], stats = drive(ckpt, requests, overrides,
-                                            kernel, margin_tol, N_LABELS)
+        engine, labels[name], stats, _ = drive(ckpt, requests, overrides,
+                                               kernel, margin_tol, N_LABELS)
         stats["request_64_ms"] = breakdown(
             engine, requests[REQUEST_ROWS.index(64)])
         stats["recall_at_5_vs_bsr"] = overlap(labels[name], bsr_labels)
@@ -1366,11 +1449,13 @@ def fit_spans():
          shortlist.build_learned_shortlist) = saved
 
 
-def train(data, ckpt: str, kernel_ms: dict) -> dict:
+def train(data, ckpt: str, kernel_ms: dict | None) -> dict:
     """The training path, with the launch counts of every kernel set to 0
     just before it: `fit` on the card with the kernel ops, building the
     learned coarse stage (on the card, with the plain ops, as the JAX
-    package's builder uses its default ops)."""
+    package's builder uses its default ops). `kernel_ms`: phase 6's
+    per-launch ms of the hinge and HVP kernels, for their share of the
+    wall."""
     from repro_torch.checkpoint.io import load_shortlist
     from repro_torch.kernels.hinge import ops as hinge_ops
     from repro_torch.kernels.hvp import ops as hvp_ops
@@ -1409,6 +1494,8 @@ def train(data, ckpt: str, kernel_ms: dict) -> dict:
     shards = res.manifest["shards"]
     n_blocks = sum(e["n_blocks"] for e in shards.values())
     nnz = sum(e["nnz"] for e in shards.values())
+    # Without phase 6's per-launch times the kernels' shares are NaN.
+    kernel_ms = kernel_ms or {"hinge": math.nan, "hvp": math.nan}
     share = {k: launches[k] * kernel_ms[k.split("_")[0]] / 1e3 / wall
              for k in launches}
     print(f"   fit wall {wall:.1f} s; batch written at "
@@ -1449,8 +1536,8 @@ def serve_trained(ckpt: str, data, margin_tol: float) -> dict:
     requests = [X[i:i + SERVE_CHUNK] for i in range(0, len(X), SERVE_CHUNK)]
     out, bsr_labels = {}, None
     for name, overrides, kernel in TRAINED_CONFIGS:
-        engine, labels, stats = drive(ckpt, requests, overrides, kernel,
-                                      margin_tol, TRAIN_LABELS)
+        engine, labels, stats, _ = drive(ckpt, requests, overrides, kernel,
+                                         margin_tol, TRAIN_LABELS)
         del engine
         bsr_labels = labels if bsr_labels is None else bsr_labels
         hits = np.take_along_axis(Y, labels, axis=1)
@@ -1461,6 +1548,324 @@ def serve_trained(ckpt: str, data, margin_tol: float) -> dict:
               f"{stats['p_at_5']:.4f}  recall@5 vs bsr "
               f"{stats['recall_at_5_vs_bsr']:.4f}", flush=True)
         out[name] = stats
+    return out
+
+
+@contextlib.contextmanager
+def tron_counters():
+    """Record every batched TRON solve of `core/dismec.py` while the block
+    runs: (label shard, n_newton, n_cg, f) in the order the solves end. A
+    mesh submits each label shard's solve to its thread pool as
+    `solve_shard(j, ...)`; the pool is swapped for one that records j on
+    the thread running it (None for a solve run outside a pool). A batch's
+    shards all end before the next batch starts."""
+    from repro_torch.core import dismec
+    calls, lock = [], threading.Lock()
+    saved_solve, saved_pool = dismec.tron_solve, dismec.ThreadPoolExecutor
+    tag = threading.local()
+
+    class ShardPool(saved_pool):
+        def submit(self, fn, j, *args):
+            def tagged():
+                tag.shard = j
+                try:
+                    return fn(j, *args)
+                finally:
+                    del tag.shard
+            return super().submit(tagged)
+
+    def recorded(*a, **k):
+        res = saved_solve(*a, **k)
+        with lock:
+            calls.append((getattr(tag, "shard", None), res.n_newton.cpu(),
+                          res.n_cg.cpu(), res.f.cpu()))
+        return res
+    dismec.tron_solve, dismec.ThreadPoolExecutor = recorded, ShardPool
+    try:
+        yield calls
+    finally:
+        dismec.tron_solve, dismec.ThreadPoolExecutor = saved_solve, saved_pool
+
+
+def label_counters(calls, n_shards: int, Y, balance: bool) -> np.ndarray:
+    """(3, TRAIN_LABELS): the Newton and CG counts and the final objective
+    of each label, from the recorded solves of the training batches: a
+    batch's shards in shard order, the balanced dealing undone."""
+    from repro_torch.core.dismec import balance_permutation
+    out = []
+    for b in range(TRAIN_LABELS // TRAIN_BATCH):
+        group = calls[b * n_shards:(b + 1) * n_shards]
+        shards = [c[0] for c in group]
+        want = [None] if n_shards == 1 else list(range(n_shards))
+        _need(sorted(shards, key=lambda j: -1 if j is None else j) == want,
+              f"batch {b}: recorded solves of label shards {shards}, not "
+              f"{want}")
+        group = sorted(group, key=lambda c: c[0] or 0)
+        c = np.stack([torch.cat([g[i] for g in group]).double().numpy()
+                      for i in (1, 2, 3)])
+        if balance:
+            c = c[:, np.argsort(balance_permutation(
+                Y[:, b * TRAIN_BATCH:(b + 1) * TRAIN_BATCH], n_shards))]
+        out.append(c)
+    return np.concatenate(out, axis=1)
+
+
+def packed_weights(ckpt: str) -> torch.Tensor:
+    """A training checkpoint's weights, dense (TRAIN_LABELS, N_FEATURES),
+    on the card."""
+    from repro_torch.checkpoint.io import load_block_sparse
+    model, _ = load_block_sparse(ckpt, device="cuda")
+    return model.to_dense()[:TRAIN_LABELS, :N_FEATURES].contiguous()
+
+
+def served_held_out(ckpt: str, X: np.ndarray) -> np.ndarray:
+    """The held-out rows through `CheckpointHandle.open(ckpt).engine()` on
+    `bsr`, SERVE_CHUNK rows a request."""
+    from repro_torch.specs import ServeSpec
+    from repro_torch.xmc_api import CheckpointHandle
+    engine = CheckpointHandle.open(ckpt).engine(ServeSpec(backend="bsr", k=K,
+                                                          warmup=False))
+    res = engine.serve([X[i:i + SERVE_CHUNK]
+                        for i in range(0, len(X), SERVE_CHUNK)])
+    return np.concatenate([r.labels for r in res])
+
+
+def weights_against(W, ref_W, count, ref_count, tol: float) -> dict:
+    """A trained model (dense weights, per-label counters and objective)
+    against the reference's: the largest weight difference, the weights
+    pruned on one side only, those outside `tol` (a weight pruned on one
+    side only must lie within `tol` of Delta, where the prune moved),
+    bit-for-bit equality, the labels with equal TRON counters and the
+    largest relative objective difference."""
+    diff = (W - ref_W).abs()
+    flips = (W == 0) != (ref_W == 0)
+    bad = ~((diff <= tol) | (flips & (torch.maximum(W.abs(), ref_W.abs())
+                                      < DELTA + tol)))
+    same = (count[:2] == ref_count[:2]).all(axis=0)
+    return dict(max_abs_diff=float(diff.max()), flips=int(flips.sum()),
+                outside=int(bad.sum()),
+                labels_outside=int(bad.any(dim=1).sum()),
+                bit_for_bit=bool(torch.equal(W, ref_W)), tol=tol,
+                counters_equal=int(same.sum()),
+                f_rel=float((np.abs(count[2] - ref_count[2])
+                             / np.abs(ref_count[2])).max()))
+
+
+@contextlib.contextmanager
+def tf32_products():
+    """A planted fault: every fp32 product on the card in TF32, as the
+    `shard_data` closures' would be with TF32 left on."""
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@contextlib.contextmanager
+def last_piece_dropped():
+    """A planted fault: the `shard_data` closures sum over every instance
+    piece but the last."""
+    from repro_torch.core import dismec
+    saved = dismec._data_sharded_ops
+    dismec._data_sharded_ops = lambda pieces, *a: saved(pieces[:-1], *a)
+    try:
+        yield
+    finally:
+        dismec._data_sharded_ops = saved
+
+
+# `chip_smoke.py --planted-faults`: the (2, 1) shard_data fit under each
+# of these (what, the fault); phase 10b's checks must catch every one.
+PLANTED_FAULTS = (("TF32 products", tf32_products),
+                  ("last data piece dropped", last_piece_dropped))
+
+
+def train_meshes(data, ref_ckpt: str, ref_calls, margin_tol: float,
+                 out_root: str, seed: int, *, faults: bool = False) -> dict:
+    """Phase 10b: `fit` on each of MESH_FITS (every cell cuda:0) and on the
+    default mesh of ScheduleSpec(mesh=(1, device_count())) over the
+    distinct cards, each against phase 8's single-device checkpoint.
+
+    Label sharding runs the same kernels on the same rows of each label,
+    so the packed weights must lie within MESH_TOL of their magnitude (a
+    weight pruned on one side only within it of Delta), and every label's
+    objective within MESH_F_TOL. With `shard_data` the closures are torch
+    ops summed over instance pieces, another summation order, and the
+    bounds are SHARD_DATA_TOL; a control shows what any other order does:
+    phase 8's fit with the training rows permuted (the same problem, the
+    same kernels), held to the same bounds. Every run: TRON counters equal
+    on >= 99% of the labels, the served ids on every held-out row decisive
+    for both, and the training kernels' launches (> 0 under label
+    sharding; none with shard_data, whose closures are torch ops, as the
+    JAX package's are jnp).
+
+    With `faults`, the (2, 1) `shard_data` fit runs once under each of
+    PLANTED_FAULTS instead, and the checks it fails are reported; a fault
+    that fails none is an error."""
+    import dataclasses
+    import shutil
+    from repro_torch.kernels.hinge import ops as hinge_ops
+    from repro_torch.kernels.hvp import ops as hvp_ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.specs import ScheduleSpec, ServeSpec, SolverSpec
+    from repro_torch.xmc_api import XMCSpec, fit
+    spec = XMCSpec(solver=SolverSpec(C=1.0, delta=DELTA, eps=0.01,
+                                     max_newton=MAX_NEWTON, max_cg=MAX_CG,
+                                     ops="pallas"),
+                   schedule=ScheduleSpec(label_batch=TRAIN_BATCH),
+                   serve=ServeSpec(backend="bsr", k=K))
+    ref_W = packed_weights(ref_ckpt)
+    mag = max(1.0, float(ref_W.abs().max()))
+    ref_count = label_counters(ref_calls[:TRAIN_LABELS // TRAIN_BATCH], 1,
+                               data.Y_train, False)
+    ref_ids = served_held_out(ref_ckpt, data.X_test)
+    Xt = torch.from_numpy(data.X_test).cuda()
+    ref_s = Xt @ ref_W.T
+    fns = (hinge_ops.hinge_obj_grad_cuda, hvp_ops.hvp_cuda)
+    tols = {False: (MESH_TOL * mag, MESH_F_TOL),
+            True: (SHARD_DATA_TOL[0] * mag, SHARD_DATA_TOL[1])}
+
+    def run(name, X, Y, sch, mesh, ckpt):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in fns:
+            fn.launches = 0
+        with tron_counters() as calls:
+            t0 = time.perf_counter()
+            handle = fit(X, Y, dataclasses.replace(spec, schedule=sch),
+                         ckpt, mesh=mesh)
+            wall = time.perf_counter() - t0
+        _need(handle.result.complete and handle.result.solved == [0, 1],
+              f"{name}: fit did not complete: {handle.result}")
+        return handle, calls, wall, {
+            "hinge_obj_grad": fns[0].launches, "hvp": fns[1].launches}
+
+    def held(name, ckpt, calls, n_shards, balance, shard_data, launches):
+        """The run's readings against phase 8's and the checks it fails."""
+        W = packed_weights(ckpt)
+        tol, f_tol = tols[shard_data]
+        cmp = weights_against(W, ref_W, label_counters(
+            calls, n_shards, data.Y_train, balance), ref_count, tol)
+        # Decisive for both checkpoints: every gap among a row's K + 1
+        # best plain scores wider than twice the row's largest score
+        # difference between them (and than margin_tol).
+        s = Xt @ W.T
+        delta_s = (s - ref_s).abs().amax(dim=1)
+        top = torch.sort(ref_s, dim=1, descending=True)[0][:, :K + 1]
+        gap = (top[:, :-1] - top[:, 1:]).amin(dim=1)
+        rows = (gap > 2 * delta_s + margin_tol).cpu().numpy()
+        ids = served_held_out(ckpt, data.X_test)
+        agree = int((ids[rows] == ref_ids[rows]).all(axis=1).sum())
+        del W, s
+        failed = [msg for ok, msg in (
+            (cmp["counters_equal"] >= 0.99 * TRAIN_LABELS,
+             f"TRON counters differ on "
+             f"{TRAIN_LABELS - cmp['counters_equal']} labels"),
+            (cmp["f_rel"] <= f_tol,
+             f"objectives differ by {cmp['f_rel']:.2e}"),
+            (cmp["outside"] == 0,
+             f"{cmp['outside']} weights differ from phase 8's"),
+            (rows.sum() > 0 and agree == rows.sum(),
+             f"served ids differ on {int(rows.sum()) - agree} of "
+             f"{int(rows.sum())} decisive rows"),
+            (launches is None or (sum(launches.values()) == 0 if shard_data
+                                  else all(v > 0 for v in
+                                           launches.values())),
+             f"training kernel launches {launches}")) if not ok]
+        print(f"   {name}: TRON counters equal on {cmp['counters_equal']} "
+              f"of {TRAIN_LABELS} labels, max |f - f_8| / |f_8| "
+              f"{cmp['f_rel']:.2e} (limit {f_tol:.1e}); packed weights vs "
+              f"phase 8: bit for bit {cmp['bit_for_bit']}, max |diff| "
+              f"{cmp['max_abs_diff']:.3e} (tol {tol:.1e}), {cmp['flips']} "
+              f"pruned on one side only, {cmp['outside']} weights of "
+              f"{cmp['labels_outside']} labels outside the tolerance; "
+              f"served ids == phase 8's on {agree}/{int(rows.sum())} "
+              f"decisive held-out rows; failed {failed}", flush=True)
+        return dict(weights=cmp, f_tol=f_tol, decisive=int(rows.sum()),
+                    agree=agree, failed=failed)
+
+    n_cards = torch.cuda.device_count()
+    mesh_of = {shape: make_host_mesh(*shape, devices=["cuda:0"] * (
+        shape[0] * shape[1])) for _, shape, _, _ in MESH_FITS}
+    if faults:
+        runs = [(f"(2, 1) shard_data, {what}", mesh_of[(2, 1)], True,
+                 False, plant) for what, plant in PLANTED_FAULTS]
+        out = {}
+    else:
+        # The control: phase 8's fit on the training rows in another
+        # order.
+        perm = np.random.default_rng([seed, 21]).permutation(TRAIN_N)
+        ckpt = os.path.join(out_root, "control")
+        _, calls, wall, _ = run("control", data.X_train[perm],
+                                data.Y_train[perm], spec.schedule, None,
+                                ckpt)
+        print(f"   control, phase 8's fit on permuted rows: fit wall "
+              f"{wall:.1f} s", flush=True)
+        control = held("control", ckpt, calls, 1, False, True, None)
+        shutil.rmtree(ckpt)
+        _need(not control["failed"], f"control: {control['failed']}")
+        out = {"control": dict(control, wall_s=wall)}
+        runs = [(name, mesh_of[shape], sd, bal, contextlib.nullcontext)
+                for name, shape, sd, bal in MESH_FITS]
+        runs.append((f"default (1, {n_cards})", None, False, False,
+                     contextlib.nullcontext))
+    for i, (name, mesh, shard_data, balance, plant) in enumerate(runs):
+        sch = dataclasses.replace(
+            spec.schedule, shard_data=shard_data, balance=balance,
+            mesh=None if mesh is not None else (1, n_cards))
+        ckpt = os.path.join(out_root, f"mesh{i}")
+        with plant():
+            handle, calls, wall, launches = run(
+                name, data.X_train, data.Y_train, sch, mesh, ckpt)
+        peak = torch.cuda.max_memory_allocated()
+        shape = handle.spec.schedule.mesh
+        want = ((1, n_cards) if mesh is None
+                else (mesh.shape["data"], mesh.shape["model"]))
+        _need(shape == want, f"{name}: fit ran on {shape}, not {want}")
+        print(f"   {name}: fit wall {wall:.1f} s; launches {launches}; "
+              f"max_memory_allocated {peak / 2**30:.2f} GiB", flush=True)
+        got = held(name, ckpt, calls, shape[1], balance, shard_data,
+                   launches)
+        if faults:
+            _need(got["failed"],
+                  f"{name}: the planted fault passed every check")
+        else:
+            _need(not got["failed"], f"{name}: {got['failed']}")
+        out[name] = dict(got, wall_s=wall, launches=launches,
+                         peak_gib=peak / 2**30)
+        shutil.rmtree(ckpt)
+    return out
+
+
+def serve_sharded(ckpt: str, requests, margin_tol: float,
+                  bsr_labels: np.ndarray) -> dict:
+    """Phase 10c: the serving checkpoint and phase 4's requests through
+    `sharded` on a MESH_SERVE mesh of cuda:0 and on the default mesh (one
+    shard per card) on the main path (`drive`): the top-k kernel launched,
+    the served ids equal to the plain path's and to `bsr`'s (phase 4) on
+    every decisive row, and the zero row's."""
+    from repro_torch.launch.mesh import make_host_mesh
+    out = {}
+    zero = sum(REQUEST_ROWS[:ZERO_REQUEST])
+    meshes = (("(1, 4) on cuda:0", make_host_mesh(
+        *MESH_SERVE, devices=["cuda:0"] * (MESH_SERVE[0] * MESH_SERVE[1]))),
+              (f"default (1, {torch.cuda.device_count()})", None))
+    for name, mesh in meshes:
+        engine, labels, stats, rows = drive(
+            ckpt, requests, {"backend": "sharded"}, "blocked_topk",
+            margin_tol, N_LABELS, mesh=mesh)
+        n_shards = len(engine.backend._shards)
+        del engine
+        torch.cuda.empty_cache()
+        agree = int((labels[rows] == bsr_labels[rows]).all(axis=1).sum())
+        print(f"   sharded {name}: {n_shards} label shards; served ids == "
+              f"bsr's on {agree}/{int(rows.sum())} decisive rows; zero row "
+              f"{labels[zero].tolist()}", flush=True)
+        _need(agree == rows.sum() and labels[zero].tolist()
+              == bsr_labels[zero].tolist() == list(range(K)),
+              f"sharded {name}: ids differ from bsr's")
+        out[name] = dict(stats, shards=n_shards, agree_bsr=agree)
     return out
 
 
@@ -2272,9 +2677,48 @@ def lm_cli() -> dict:
     return dict(returncode=0, wall_s=wall, summary=last)
 
 
+def train_data(seed: int):
+    """Phases 5-10b's training data: Wiki10-31K's N and D."""
+    from repro_torch.data.xmc import make_xmc_dataset
+    data = make_xmc_dataset(n_train=TRAIN_N, n_test=TEST_N,
+                            n_features=N_FEATURES, n_labels=TRAIN_LABELS,
+                            beta=TRAIN_BETA, seed=seed,
+                            name="wiki10_31k_width")
+    st = data.stats()
+    print(f"   X_train {data.X_train.shape} "
+          f"({data.X_train.nbytes / 1e9:.2f} GB fp32), feature "
+          f"density {st['feat_density']:.2e}, labels per row "
+          f"{st['ALpP']:.2f}, rows per label {st['APpL']:.2f}, tail "
+          f"labels (<= 5 rows) {st['tail_leq5']:.3f}", flush=True)
+    return data
+
+
+def planted_faults(seed: int, build_dir: Path, smi: str) -> None:
+    """`--planted-faults`: phase 8's fit, then phase 10b's (2, 1)
+    `shard_data` fit under each of PLANTED_FAULTS against it, with the
+    served ids' margin at FAULT_MARGIN (phase 3, which sets the main
+    run's, does not run here)."""
+    with phase("train data: Wiki10-31K width"):
+        data = train_data(seed)
+    with tempfile.TemporaryDirectory(dir=build_dir) as root:
+        ref = os.path.join(root, "ref")
+        with phase("train: fit(X, Y, spec, dir) on the card"), \
+                tron_counters() as calls:
+            train(data, ref, None)
+        with phase("planted faults: (2, 1) shard_data"):
+            out = train_meshes(data, ref, calls, FAULT_MARGIN, root, seed,
+                               faults=True)
+    print(json.dumps({"planted_faults": out}))
+    print(smi)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--planted-faults", action="store_true",
+                    help="run only phase 8's fit and phase 10b's (2, 1) "
+                    "shard_data fit under each planted fault, and report "
+                    "the checks each fails")
     args = ap.parse_args()
     if not (SRC / "repro_torch" / "__init__.py").exists():
         sys.exit(f"chip_smoke: {SRC / 'repro_torch'} not found; run from "
@@ -2307,10 +2751,13 @@ def main() -> None:
               "torch.backends.cudnn.allow_tf32 = "
               f"{torch.backends.cudnn.allow_tf32}")
 
-    rng = np.random.default_rng(args.seed)
-    perm = rng.permutation(N_FEATURES)
     build_dir = ROOT / "build"
     build_dir.mkdir(exist_ok=True)
+    if args.planted_faults:
+        planted_faults(args.seed, build_dir, smi)
+        return
+    rng = np.random.default_rng(args.seed)
+    perm = rng.permutation(N_FEATURES)
     # The serving checkpoint stays until the server phase: saving it again
     # would take another 80 s.
     with tempfile.TemporaryDirectory(dir=build_dir) as ckpt:
@@ -2375,21 +2822,11 @@ def main() -> None:
                    "shortlist int8 per-query, int8"):
             served_cfg = serve_configs(ckpt, requests, max(1e-7, 10 * err),
                                        served["labels"])
-        del model, requests, X
+        del model, X
 
-        from repro_torch.data.xmc import make_xmc_dataset
         from repro_torch.kernels.hinge.ops import aligned_rows
         with phase("train data: Wiki10-31K width"):
-            data = make_xmc_dataset(n_train=TRAIN_N, n_test=TEST_N,
-                                    n_features=N_FEATURES,
-                                    n_labels=TRAIN_LABELS, beta=TRAIN_BETA,
-                                    seed=args.seed, name="wiki10_31k_width")
-            st = data.stats()
-            print(f"   X_train {data.X_train.shape} "
-                  f"({data.X_train.nbytes / 1e9:.2f} GB fp32), feature "
-                  f"density {st['feat_density']:.2e}, labels per row "
-                  f"{st['ALpP']:.2f}, rows per label {st['APpL']:.2f}, tail "
-                  f"labels (<= 5 rows) {st['tail_leq5']:.3f}", flush=True)
+            data = train_data(args.seed)
 
         with phase("train kernels vs plain versions "
                    "(1,024, 14,146, 101,938)"):
@@ -2409,7 +2846,8 @@ def main() -> None:
             torch.cuda.empty_cache()
 
         with tempfile.TemporaryDirectory(dir=build_dir) as trained_ckpt:
-            with phase("train: fit(X, Y, spec, dir) on the card"):
+            with phase("train: fit(X, Y, spec, dir) on the card"), \
+                    tron_counters() as single_calls:
                 trained = train(data, trained_ckpt,
                             {k: v["ms"] for k, v in train_k["times"].items()})
             with phase("serve trained: bsr, shortlist, shortlist per-query"):
@@ -2418,6 +2856,16 @@ def main() -> None:
             with phase("server: ModelRouter, Poisson load, hot swap"):
                 server = serve_async(ckpt, trained_ckpt, rng, perm,
                                      max(1e-7, 10 * err))
+            with phase("mesh train: fit on (1, 2), (2, 1) shard_data, "
+                       "(2, 2) shard_data balance and the default mesh"), \
+                    tempfile.TemporaryDirectory(dir=build_dir) as mesh_root:
+                mesh_train = train_meshes(data, trained_ckpt, single_calls,
+                                          max(1e-7, 10 * err), mesh_root,
+                                          args.seed)
+        with phase("mesh serve: sharded on (1, 4) and the default mesh"):
+            mesh_serve = serve_sharded(ckpt, requests, max(1e-7, 10 * err),
+                                       served["labels"])
+            del requests
 
         with tempfile.TemporaryDirectory(dir=build_dir) as out_root:
             with phase("sweep: lifecycle.sweep on the card"):
@@ -2484,7 +2932,9 @@ def main() -> None:
              at=f"({topk['n']}, {topk['L']}) k={K}, unpadded",
              design="a warp per (row, 512-score block), scores in "
              "registers, rounds as two warp reductions", redesigned=True,
-             cases=topk["cases"]),
+             cases=topk["cases"], launches_mesh={
+                 f"sharded {k}": v["launches"]["blocked_topk"]
+                 for k, v in mesh_serve.items()}),
     ]
     at = "(L, N, D) = ({}, {}, {})".format(*train_k["shape"])
     for name, key, src, replaces, err_key in (
@@ -2502,7 +2952,10 @@ def main() -> None:
             library="the two torch.matmul products, TF32 off", at=at,
             bound_note="TF32 products of split fp32 (3 per fp32 product) "
             "at 495 TFLOP/s", bound_ffma_ms=t["bound_ffma_ms"],
-            hgmma=train_k["hgmma"][key], fp64_share=t["fp64_share"]))
+            hgmma=train_k["hgmma"][key], fp64_share=t["fp64_share"],
+            launches_mesh={k: v["launches"][name]
+                           for k, v in mesh_train.items()
+                           if k != "control"}))
     config_of = {kernel: name for name, _, kernel in SERVE_CONFIGS}
     for name, replaces in (("bsr_predict_int8", 70), ("bsr_gather", 122),
                            ("bsr_gather_int8", 192), ("bsr_gather_pq", 256),
@@ -2551,12 +3004,14 @@ def main() -> None:
         "TMA tiles; fp32: FFMA", redesigned=True, hgmma=banded["hgmma"],
         sweep=banded["rows"]))
     print(json.dumps({"kernels": kernels, "serve": {
-        k: served[k] for k in ("p50_ms", "p99_ms", "load_s", "warmup_s",
-                               "peak_mib", "agree", "decisive",
+        k: served[k] for k in ("p50_ms", "p99_ms", "p99_limit_ms",
+                               "meets_limit", "large_requests", "load_s",
+                               "warmup_s", "peak_mib", "agree", "decisive",
                                "request_64_ms")}, "serve_configs": served_cfg}))
     print(json.dumps({"train": {**trained, "tron": tron,
                                 "serve_trained": served_t}}))
     print(json.dumps({"server": server, "sweep": swept, "cli": cli}))
+    print(json.dumps({"mesh": {"train": mesh_train, "serve": mesh_serve}}))
     print(json.dumps({"lm": {"arch": LM_ARCH, "params": n_params,
                              "prefill": lm_pre, "decode": lm_dec,
                              "serve": lm_srv, "cli": lm_cli_out}}))

@@ -1,4 +1,4 @@
-"""DiSMEC training on one GPU: Algorithm 1's layer-2 engine.
+"""DiSMEC training: Algorithm 1's layer-2 engine, on one device or a mesh.
 
 Paper Algorithm 1 has two layers of parallelism:
 
@@ -9,10 +9,10 @@ Paper Algorithm 1 has two layers of parallelism:
 
 X is never replicated per label (paper §2.1): every binary problem of a
 batch shares one device buffer. `make_batch_solver` is the reusable layer-2
-solve (signs in, Delta-pruned weights out) behind `train` and the streaming
-scheduler. The obj-grad/Hv pair comes from a solver-ops registry whose
-kinds keep the JAX package's names, so a spec written by either package
-means the same thing in both:
+solve (signs in, Delta-pruned weights out) behind `train`,
+`train_sharded` and the streaming scheduler. The obj-grad/Hv pair comes
+from a solver-ops registry whose kinds keep the JAX package's names, so a
+spec written by either package means the same thing in both:
 
   "jnp"    — core/losses.py on `torch.matmul`, the plain solver ops;
   "pallas" — kernels/hinge and kernels/hvp, which launch the CUDA kernels
@@ -20,14 +20,28 @@ means the same thing in both:
 
 Both speak core/tron.py's margin-caching protocol: `obj_grad(W) -> (f,
 grad, act)` derives the active mask from the score pass it already ran,
-and `hvp(V, act)` consumes it. Sharding the label or instance axis over
-several GPUs (the JAX package's `mesh` / `shard_data`) is not ported yet
-(ROADMAP Queue A item 6).
+and `hvp(V, act)` consumes it.
+
+On a mesh (`launch/mesh.py`, a grid of devices with axes "data" and
+"model") the batch's labels are split into one contiguous shard per
+column of the grid, each solved by its own TRON loop on a thread of its
+own, and gathered in shard order on the mesh's first device. With
+`shard_data=False` (the paper's layout) each label shard runs the
+registered solver ops on its own device, over all of X. With
+`shard_data=True` the instances are split over the data axis as well:
+each label shard computes its objective, gradient and Hessian-vector
+partial sums on every data device and adds them in the fixed order d = 0,
+1, ... on its first device, so the result is deterministic. Those
+closures are the JAX package's psum closures in torch ops (the JAX
+package computes them in jnp, outside any Pallas kernel). X is placed once
+per distinct device of the grid; a device may repeat in the grid.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Optional
 
 import numpy as np
@@ -195,28 +209,55 @@ def balance_permutation(Y, n_shards: int) -> np.ndarray:
     return np.asarray([lab for m in members for lab in m], dtype=np.int64)
 
 
+def _run_tron(obj_grad, hvp, W0: torch.Tensor, cfg: DiSMECConfig,
+              anchor: bool) -> torch.Tensor:
+    """One batched TRON solve from W0, Delta-pruned on its device. With
+    `anchor` the relative stopping rule is anchored at ||g(0)||."""
+    ref = None
+    if anchor:
+        _, g_zero, _ = obj_grad(torch.zeros_like(W0))
+        ref = torch.linalg.vector_norm(g_zero, dim=-1)
+    res = tron_solve(obj_grad, hvp, W0, eps=cfg.eps,
+                     max_newton=cfg.max_newton, max_cg=cfg.max_cg,
+                     gnorm_ref=ref)
+    return prune(res.W, cfg.delta)                      # step 7 on-device
+
+
 def make_batch_solver(X, cfg: DiSMECConfig, mesh=None, *,
+                      label_axis: str = "model", data_axis: str = "data",
                       shard_data: bool = False, warm: bool = False,
                       device=None):
     """Layer 2 of Algorithm 1 as a reusable solver: (S (rows, N), W0 (rows,
-    D) or None) -> Delta-pruned W (rows, D), on `device` (X's own when
-    None), where X is placed once in the solver ops' layout (`solver_x`).
+    D) or None) -> Delta-pruned W (rows, D).
 
-    warm=True: the solver expects warm-start W0s (a prior checkpoint's
-    rows) and anchors TRON's relative stopping rule at ||g(0)||, the
-    cold-start tolerance, with one extra obj/grad evaluation at W = 0 per
-    batch; without it a warm W0's small gradient would tighten the
-    tolerance and un-converge every label.
+    mesh=None        : one batched TRON on `device` (X's own when None),
+                       X placed once in the solver ops' layout
+                       (`solver_x`).
+    shard_data=False : X on each label shard's device (once per distinct
+                       device), the registered solver ops per shard; rows
+                       must be a multiple of the mesh's label-axis extent.
+    shard_data=True  : X's rows split over the data axis as well (see the
+                       module docstring). N not divisible by the data axis
+                       is padded with zero rows of X and -1 columns of S:
+                       a zero instance adds nothing to the gradient or the
+                       Hessian-vector product, and its constant C (z = 1,
+                       active) is subtracted from f, so the padded
+                       objective is exactly the unpadded one.
+    warm=True        : the solver expects warm-start W0s (a prior
+                       checkpoint's rows) and anchors TRON's relative
+                       stopping rule at ||g(0)||, the cold-start
+                       tolerance, with one extra obj/grad evaluation at W
+                       = 0 per batch; without it a warm W0's small
+                       gradient would tighten the tolerance and
+                       un-converge every label.
 
-    Only the single-device solve is ported: a `mesh` or `shard_data=True`
-    raises NotImplementedError (multi-GPU sharding is ROADMAP Queue A
-    item 6).
+    A mesh returns the result on its first device; a shard's exception
+    propagates to the caller.
     """
-    if mesh is not None or shard_data:
-        raise NotImplementedError(
-            "make_batch_solver: label/instance sharding over several GPUs "
-            "(mesh, shard_data) is not ported yet; see ROADMAP Queue A "
-            "item 6 (multi-GPU)")
+    if mesh is not None:
+        return _meshed_solver(X, cfg, mesh, label_axis=label_axis,
+                              data_axis=data_axis, shard_data=shard_data,
+                              warm=warm)
     X = solver_x(X, cfg, device)
     D = X.shape[1]
 
@@ -224,17 +265,153 @@ def make_batch_solver(X, cfg: DiSMECConfig, mesh=None, *,
               ) -> torch.Tensor:
         S = S.to(X.device, torch.float32).contiguous()
         obj_grad, hvp = _make_fns(X, S, cfg)
-        ref = None
         if W0 is None:
             W0 = torch.zeros((S.shape[0], D), dtype=torch.float32,
                              device=X.device)
-        else:
-            W0 = W0.to(X.device, torch.float32)
-            if warm:
-                _, g_zero, _ = obj_grad(torch.zeros_like(W0))
-                ref = torch.linalg.vector_norm(g_zero, dim=-1)
-        res = tron_solve(obj_grad, hvp, W0, eps=cfg.eps,
-                         max_newton=cfg.max_newton, max_cg=cfg.max_cg,
-                         gnorm_ref=ref)
-        return prune(res.W, cfg.delta)                  # step 7 on the card
+            return _run_tron(obj_grad, hvp, W0, cfg, False)
+        return _run_tron(obj_grad, hvp, W0.to(X.device, torch.float32),
+                         cfg, warm)
     return solve
+
+
+def _place_rows(X, lo: int, hi: int, device: torch.device) -> torch.Tensor:
+    """Rows [lo, hi) of X padded with zero rows past its end, as a
+    contiguous float32 tensor on `device`."""
+    if not isinstance(X, torch.Tensor):
+        X = torch.from_numpy(np.asarray(X))
+    out = torch.zeros((hi - lo, X.shape[1]), dtype=torch.float32,
+                      device=device)
+    real = max(0, min(hi, X.shape[0]) - lo)
+    if real:
+        out[:real].copy_(X[lo:lo + real])
+    return out
+
+
+def _data_sharded_ops(pieces, C: float, n_pad: int, home: torch.device):
+    """The margin-caching pair over instance pieces [(X_i, S_i)], each on
+    its own device, in data order: every partial sum is taken on its
+    piece's device and added on `home` in the order d = 0, 1, ... The
+    active payload is the tuple of the pieces' local masks."""
+    def obj_grad(W):
+        f_sum = g_sum = None
+        acts = []
+        for X_i, S_i in pieces:
+            W_i = W.to(X_i.device)
+            scores = W_i @ X_i.T
+            z = 1.0 - S_i * scores
+            act = (z > 0.0).to(scores.dtype)
+            r = act * (scores - S_i)
+            f_loc = (C * (act * z * z).sum(-1)).to(home)
+            g_loc = (2.0 * C * (r @ X_i)).to(home)
+            f_sum = f_loc if f_sum is None else f_sum + f_loc
+            g_sum = g_loc if g_sum is None else g_sum + g_loc
+            acts.append(act)
+        f = (W * W).sum(-1) + f_sum - C * n_pad
+        return f, 2.0 * W + g_sum, tuple(acts)
+
+    def hvp(V, act):
+        total = None
+        for (X_i, _), a in zip(pieces, act):
+            loc = (2.0 * C * ((a * (V.to(X_i.device) @ X_i.T)) @ X_i)
+                   ).to(home)
+            total = loc if total is None else total + loc
+        return 2.0 * V + total
+    return obj_grad, hvp
+
+
+def _meshed_solver(X, cfg: DiSMECConfig, mesh, *, label_axis: str,
+                   data_axis: str, shard_data: bool, warm: bool):
+    """`make_batch_solver` on a mesh: one TRON loop per label shard (a
+    column of the grid), each on a thread of its own."""
+    n_shards = mesh.shape[label_axis]
+    n_data = mesh.shape[data_axis] if shard_data else 1
+    # cells[j][i]: the device of label shard j's data piece i.
+    cells = [[mesh.device(**{label_axis: j, data_axis: i})
+              for i in range(n_data)] for j in range(n_shards)]
+    N, D = X.shape
+    n_pad = (-N) % n_data
+    n_loc = (N + n_pad) // n_data
+    if not shard_data:
+        placed = {}
+        for col in cells:
+            if col[0] not in placed:
+                placed[col[0]] = solver_x(X, cfg, col[0])
+        x_of = [[placed[col[0]]] for col in cells]
+    else:
+        # Each distinct device holds the hull of the pieces it serves,
+        # once; the pieces are views of it.
+        need: dict[torch.device, list[int]] = {}
+        for col in cells:
+            for i, dev in enumerate(col):
+                need.setdefault(dev, []).append(i)
+        held = {dev: (min(ix), _place_rows(X, min(ix) * n_loc,
+                                           (max(ix) + 1) * n_loc, dev))
+                for dev, ix in need.items()}
+        x_of = [[held[dev][1][(i - held[dev][0]) * n_loc:
+                              (i - held[dev][0] + 1) * n_loc]
+                 for i, dev in enumerate(col)] for col in cells]
+
+    def solve_shard(j: int, S_j: torch.Tensor,
+                    W0_j: Optional[torch.Tensor]) -> torch.Tensor:
+        home = cells[j][0]
+        with (torch.cuda.device(home) if home.type == "cuda"
+              else contextlib.nullcontext()):
+            anchor = warm and W0_j is not None
+            W0_j = (torch.zeros((S_j.shape[0], D), dtype=torch.float32,
+                                device=home) if W0_j is None
+                    else W0_j.to(home, torch.float32))
+            if not shard_data:
+                obj_grad, hvp = _make_fns(
+                    x_of[j][0], S_j.to(home, torch.float32).contiguous(),
+                    cfg)
+            else:
+                if n_pad:
+                    S_j = torch.cat([S_j, -torch.ones(
+                        (S_j.shape[0], n_pad), dtype=S_j.dtype,
+                        device=S_j.device)], dim=1)
+                pieces = [(x_of[j][i], S_j[:, i * n_loc:(i + 1) * n_loc]
+                           .to(dev, torch.float32).contiguous())
+                          for i, dev in enumerate(cells[j])]
+                obj_grad, hvp = _data_sharded_ops(pieces, cfg.C, n_pad,
+                                                  home)
+            return _run_tron(obj_grad, hvp, W0_j, cfg, anchor)
+
+    def solve_meshed(S: torch.Tensor, W0: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+        rows = S.shape[0]
+        if rows % n_shards:
+            raise ValueError(f"{rows} label rows do not split into "
+                             f"{n_shards} label shards; pad the batch")
+        per = rows // n_shards
+        args = [(j, S[j * per:(j + 1) * per],
+                 None if W0 is None else W0[j * per:(j + 1) * per])
+                for j in range(n_shards)]
+        if n_shards == 1:
+            outs = [solve_shard(*args[0])]
+        else:
+            with ThreadPoolExecutor(max_workers=n_shards) as ex:
+                futures = [ex.submit(solve_shard, *a) for a in args]
+                outs = [f.result() for f in futures]
+        return torch.cat([o.to(mesh.first) for o in outs])
+    return solve_meshed
+
+
+def train_sharded(X, Y, cfg: DiSMECConfig, mesh, *,
+                  label_axis: str = "model", data_axis: str = "data",
+                  shard_data: bool = False,
+                  balance: bool = False) -> DiSMECModel:
+    """Double parallelization on a mesh: the label-batch loop
+    (cfg.label_batch) over the mesh-sharded solve, assembled in memory on
+    the mesh's first device. A thin adapter over the spec path, as `train`
+    is.
+
+    shard_data=True : instances split over the data axis as well.
+    balance=True    : frequency-balanced label shards (`balance_
+                      permutation`): labels are dealt and un-dealt, so the
+                      solution is the same up to the shards' summation
+                      order.
+    """
+    from repro_torch.xmc_api import job_from_spec, spec_from_config
+    spec = spec_from_config(cfg, label_axis=label_axis, data_axis=data_axis,
+                            shard_data=shard_data, balance=balance)
+    return job_from_spec(spec, mesh=mesh).run(X, Y).model

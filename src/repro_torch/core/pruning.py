@@ -20,6 +20,10 @@ import torch
 
 from repro_torch.device import resolve_device, to_device, to_numpy
 
+#: The most bytes of dense rows `BlockSparseModel.dense_rows` builds at a
+#: time, beside its output.
+DENSE_CHUNK_BYTES = 1 << 28
+
 
 def prune(W: torch.Tensor, delta: float) -> torch.Tensor:
     """Algorithm 1 step 7: zero all ambiguous weights |w| < delta."""
@@ -81,12 +85,39 @@ class BlockSparseModel:
 
     def to_dense(self) -> torch.Tensor:
         """The (Lp, Dp) padded dense matrix, on the model's device."""
+        return self.dense_rows(0, self.shape[0])
+
+    def dense_rows(self, lo: int, hi: int, *, n_rows: int | None = None,
+                   n_cols: int | None = None, device=None) -> torch.Tensor:
+        """Rows [lo, hi) of the padded dense matrix, its first `n_cols`
+        columns (all Dp when None), as a contiguous tensor on `device` (the
+        model's when None); rows at or past `n_rows` (Lp when None) are
+        zero. Row blocks are densified a chunk of at most DENSE_CHUNK_BYTES
+        at a time, so no second dense copy of the rows is ever held."""
         bl, bd = self.block_shape
         Lp, Dp = self.shape
-        W = torch.zeros((Lp // bl, Dp // bd, bl, bd), dtype=self.blocks.dtype,
-                        device=self.device)
-        W[self.block_rows.long(), self.block_cols.long()] = self.blocks
-        return W.permute(0, 2, 1, 3).reshape(Lp, Dp)
+        n_cols = Dp if n_cols is None else n_cols
+        top = min(hi, Lp if n_rows is None else n_rows)
+        out = torch.zeros((hi - lo, n_cols), dtype=self.blocks.dtype,
+                          device=self.device if device is None else device)
+        if top <= lo:
+            return out
+        ptr = self.row_ptr.tolist()
+        step = max(1, DENSE_CHUNK_BYTES
+                   // (bl * Dp * self.blocks.element_size()))
+        end = -(-top // bl)
+        for b0 in range(lo // bl, end, step):
+            b1 = min(b0 + step, end)
+            p0, p1 = ptr[b0], ptr[b1]
+            tile = torch.zeros((b1 - b0, Dp // bd, bl, bd),
+                               dtype=self.blocks.dtype, device=self.device)
+            tile[(self.block_rows[p0:p1] - b0).long(),
+                 self.block_cols[p0:p1].long()] = self.blocks[p0:p1]
+            tile = tile.permute(0, 2, 1, 3).reshape((b1 - b0) * bl, Dp)
+            r0, r1 = max(lo, b0 * bl), min(top, b1 * bl)
+            out[r0 - lo:r1 - lo].copy_(tile[r0 - b0 * bl:r1 - b0 * bl,
+                                            :n_cols])
+        return out
 
     def quantize(self) -> "Int8BlockSparseModel":
         """Symmetric per-block int8 artifact of this model, on its device

@@ -114,9 +114,11 @@ def _steihaug_cg(hvp: Callable[[torch.Tensor], torch.Tensor],
 
 def _select_aux(accept: torch.Tensor, new, old):
     """Per-label select over the active-set payload: a tensor or a tuple of
-    tensors, each leading with the label axis."""
+    tensors, each leading with the label axis (on a mesh with
+    `shard_data`, each on its own data device)."""
     def sel(a, b):
-        acc = accept.reshape(accept.shape + (1,) * (a.dim() - 1))
+        acc = accept.to(a.device).reshape(
+            accept.shape + (1,) * (a.dim() - 1))
         return torch.where(acc, a, b)
     if isinstance(new, tuple):
         return tuple(sel(a, b) for a, b in zip(new, old))

@@ -23,6 +23,10 @@ each temporary output file is named by process and thread.
 Every C entry point returns `cudaGetLastError()` after its launch, and
 `check` raises when that is not 0: a refused launch never runs, and a
 later `torch.cuda.synchronize()` would not report it.
+
+Each wrapper counts its launches in its own `fn.launches` through
+`count_launch`, under a lock: the label shards of a mesh launch from
+threads of their own, and `+= 1` on an attribute is not atomic.
 """
 
 from __future__ import annotations
@@ -48,6 +52,7 @@ BUILD_LOGS: dict[str, str] = {}
 _FUNCS: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.RLock()       # build() and the loads in function()
+_COUNT_LOCK = threading.Lock()  # the wrappers' launch counters
 
 
 def _nvcc() -> str:
@@ -149,3 +154,10 @@ def check(fn, code: int) -> None:
         raise RuntimeError(f"{fn.__name__} failed: "
                            f"{fn.error_string(code).decode()} "
                            f"(cudaError {code})")
+
+
+def count_launch(fn) -> None:
+    """Add one to the launch counter `fn.launches` of a kernel wrapper,
+    exactly, whatever the number of threads launching."""
+    with _COUNT_LOCK:
+        fn.launches += 1

@@ -73,7 +73,7 @@ def banded_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty((B, Tq, H * hd), dtype=q.dtype, device=q.device)
     fn = _build.function("banded_attn", "banded_attn", _ARGTYPES)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    banded_attention_cuda.launches += 1
+    _build.count_launch(banded_attention_cuda)
     _build.check(fn, fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                         out.data_ptr(), _DTYPES[q.dtype], B, Tq, Tk, H, KV,
                         hd, min(window, Tk), 1.0 / math.sqrt(hd),

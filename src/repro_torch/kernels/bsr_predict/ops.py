@@ -106,7 +106,7 @@ def bsr_predict_cuda(x: torch.Tensor, blocks: torch.Tensor,
     `bsr_predict_cuda.launches` counts the launches."""
     out = _launch("bsr_predict_f32", x, blocks, None, block_cols, row_ptr,
                   None, n_row_blocks, n_row_blocks)
-    bsr_predict_cuda.launches += 1
+    _build.count_launch(bsr_predict_cuda)
     return out
 
 
@@ -118,7 +118,7 @@ def bsr_predict_int8_cuda(x: torch.Tensor, blocks: torch.Tensor,
     % 16 == 0, scales (nb,) f32, the rest as `bsr_predict_cuda`."""
     out = _launch("bsr_predict_int8", x, blocks, scales, block_cols,
                   row_ptr, None, n_row_blocks, n_row_blocks)
-    bsr_predict_int8_cuda.launches += 1
+    _build.count_launch(bsr_predict_int8_cuda)
     return out
 
 
@@ -129,7 +129,7 @@ def bsr_predict_gather_cuda(x: torch.Tensor, blocks: torch.Tensor,
     order -> (n, B * bl) f32, columns [i*bl, (i+1)*bl) for sel[i]."""
     out = _launch("bsr_gather_f32", x, blocks, None, block_cols, row_ptr,
                   sel, row_ptr.shape[0] - 1, sel.shape[0])
-    bsr_predict_gather_cuda.launches += 1
+    _build.count_launch(bsr_predict_gather_cuda)
     return out
 
 
@@ -142,7 +142,7 @@ def bsr_predict_gather_int8_cuda(x: torch.Tensor, blocks: torch.Tensor,
     int8 blocks and their scales."""
     out = _launch("bsr_gather_int8", x, blocks, scales, block_cols, row_ptr,
                   sel, row_ptr.shape[0] - 1, sel.shape[0])
-    bsr_predict_gather_int8_cuda.launches += 1
+    _build.count_launch(bsr_predict_gather_int8_cuda)
     return out
 
 
@@ -155,7 +155,7 @@ def bsr_predict_gather_pq_cuda(x: torch.Tensor, blocks: torch.Tensor,
     _check_pq_sel("bsr_gather_pq_f32", x, sel)
     out = _launch("bsr_gather_pq_f32", x, blocks, None, block_cols, row_ptr,
                   sel, row_ptr.shape[0] - 1, sel.shape[1])
-    bsr_predict_gather_pq_cuda.launches += 1
+    _build.count_launch(bsr_predict_gather_pq_cuda)
     return out
 
 
@@ -169,7 +169,7 @@ def bsr_predict_gather_pq_int8_cuda(x: torch.Tensor, blocks: torch.Tensor,
     _check_pq_sel("bsr_gather_pq_int8", x, sel)
     out = _launch("bsr_gather_pq_int8", x, blocks, scales, block_cols,
                   row_ptr, sel, row_ptr.shape[0] - 1, sel.shape[1])
-    bsr_predict_gather_pq_int8_cuda.launches += 1
+    _build.count_launch(bsr_predict_gather_pq_int8_cuda)
     return out
 
 

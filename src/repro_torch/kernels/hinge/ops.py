@@ -126,7 +126,7 @@ def hinge_obj_grad_cuda(W: torch.Tensor, X: torch.Tensor, S: torch.Tensor,
     fpart, wpart = new(L, tiles(N)), new(L, tiles(D))
     fn = _build.function("hinge", "hinge_obj_grad_f32", _ARGTYPES)
     stream = torch.cuda.current_stream(W.device).cuda_stream
-    hinge_obj_grad_cuda.launches += 1
+    _build.count_launch(hinge_obj_grad_cuda)
     _build.check(fn, fn(W.data_ptr(), X.data_ptr(), S.data_ptr(),
                         f.data_ptr(), grad.data_ptr(), act.data_ptr(),
                         wsplit.data_ptr(), rsplit.data_ptr(),

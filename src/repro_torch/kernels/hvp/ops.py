@@ -39,7 +39,7 @@ def hvp_cuda(V: torch.Tensor, X: torch.Tensor, act: torch.Tensor,
                                                               padded(N))
     fn = _build.function("hvp", "hvp_f32", _ARGTYPES)
     stream = torch.cuda.current_stream(V.device).cuda_stream
-    hvp_cuda.launches += 1
+    _build.count_launch(hvp_cuda)
     _build.check(fn, fn(V.data_ptr(), X.data_ptr(), act.data_ptr(),
                         out.data_ptr(), vsplit.data_ptr(), usplit.data_ptr(),
                         L, N, D, row_stride(X), float(C),

@@ -47,7 +47,7 @@ def blocked_topk_cuda(scores: torch.Tensor, k: int, *,
     idx = torch.empty((n, nb * k), dtype=torch.int32, device=scores.device)
     fn = _build.function("topk", "blocked_topk_f32", _ARGTYPES)
     stream = torch.cuda.current_stream(scores.device).cuda_stream
-    blocked_topk_cuda.launches += 1
+    _build.count_launch(blocked_topk_cuda)
     _build.check(fn, fn(scores.data_ptr(), vals.data_ptr(), idx.data_ptr(),
                         n, L, bL, k, scores.device.index or 0, stream))
     return vals, idx

@@ -21,6 +21,10 @@ overrides just its ServeSpec with the CLI flags):
   PYTHONPATH=src python -m repro_torch.launch.serve --xmc --backend bsr \
       --ckpt /tmp/xmc_ckpt --requests 64 --k 5
 
+`--backend sharded` serves the densified model label-sharded over a (1,
+n) mesh of every card (one shard on the CPU with `--device cpu`), and
+prints the same `req[0]` labels as `dense` and `bsr`.
+
 XMC server mode (the continuous-batching async request path: deadline-
 launched buckets, admission control, and a multi-model router in one
 process; each --model carries its own per-model ServeSpec overrides and

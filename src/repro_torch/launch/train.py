@@ -13,10 +13,17 @@ manifest; re-running with the same --out resumes a killed job,
 
 Several workers on one --out (`--workers 2 --worker-id node0`, ...) claim
 label batches through the manifest's lease table and drain one queue into
-one checkpoint. Everything runs on the card unless `--device cpu` is
-given. `--mesh` (several GPUs) raises: it is ROADMAP Queue A item 6. LM
-training (`--arch`) is not ported (Queue A item 8b) and exits with an
-error. A port of the JAX package's launcher of the same name.
+one checkpoint. `--mesh DxM [--shard-data] [--balance]` shards each
+batch's solve over a (data, model) grid of devices driven from this one
+process: the distinct cards cuda:0 ... cuda:D*M-1 (it raises when there
+are fewer), or D*M entries of the CPU with `--device cpu`:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --xmc --mesh 2x4 \
+      --shard-data --balance --device cpu --out /tmp/xmc_mesh
+
+Everything runs on the card unless `--device cpu` is given. LM training
+(`--arch`) is not ported (Queue A item 8b) and exits with an error. A
+port of the JAX package's launcher of the same name.
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ def train_xmc(args) -> None:
     streams the checkpoint, the handle quick-evals it."""
     from repro_torch.core.prediction import evaluate, predict_topk
     from repro_torch.data.xmc import make_xmc_dataset
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.specs import ScheduleSpec, SolverSpec
     from repro_torch.xmc_api import XMCSpec, fit
 
@@ -48,7 +56,8 @@ def train_xmc(args) -> None:
     mesh = None
     if args.mesh:
         d, m = (int(x) for x in args.mesh.split("x"))
-        mesh = (d, m)
+        mesh = make_host_mesh(d, m, devices=["cpu"] * (d * m)
+                              if args.device == "cpu" else None)
 
     data = make_xmc_dataset(n_train=args.train_n, n_test=args.test_n,
                             n_features=args.features, n_labels=args.labels,
@@ -57,7 +66,7 @@ def train_xmc(args) -> None:
     # BSR block height is rounded up with a warning.
     spec = XMCSpec(
         solver=SolverSpec(C=args.C, delta=args.delta),
-        schedule=ScheduleSpec(label_batch=args.label_batch, mesh=mesh,
+        schedule=ScheduleSpec(label_batch=args.label_batch,
                               shard_data=args.shard_data,
                               balance=args.balance, workers=args.workers,
                               lease_ttl=args.lease_ttl))
@@ -65,7 +74,7 @@ def train_xmc(args) -> None:
     t0 = time.time()
     handle = fit(data.X_train, data.Y_train, spec, args.out,
                  resume=not args.fresh, init_from=args.init_from,
-                 worker=args.worker_id, device=args.device,
+                 worker=args.worker_id, device=args.device, mesh=mesh,
                  on_batch=lambda b, n: print(
                      f"[xmc] batch {b + 1}/{n} done "
                      f"({time.time() - t0:.1f}s)"))
@@ -115,8 +124,8 @@ def main() -> None:
     ap.add_argument("--arch", default=None,
                     help="LM training: not ported (exits with an error)")
     ap.add_argument("--mesh", default=None,
-                    help="e.g. 2x4 (data x model); several GPUs are not "
-                         "ported and raise")
+                    help="e.g. 2x4 (data x model): shard each batch's "
+                         "solve over that grid of devices")
     ap.add_argument("--out", default=None, help="checkpoint directory")
     ap.add_argument("--labels", type=int, default=512)
     ap.add_argument("--features", type=int, default=4096)

@@ -2,8 +2,9 @@
 request-path server.
 
   xmc       — XMC top-k label serving over a registry of predict backends
-              (dense / bsr / int8 / shortlist; `register_backend` adds
-              more). The spec-driven way to build an engine is
+              (dense / bsr / int8 / shortlist / sharded;
+              `register_backend` adds more). The spec-driven way to build
+              an engine is
               `repro_torch.xmc_api.CheckpointHandle.engine()`.
   server    — continuous-batching async loop over an engine: deadline-
               launched buckets, double-buffered dispatch, admission
@@ -28,7 +29,8 @@ from repro_torch.serve.shortlist import (ShortlistArtifact,
                                          cooccurrence_label_order)
 from repro_torch.serve.xmc import (BsrBackend, DenseBackend, Int8Backend,
                                    PredictBackend, RelabelBackend,
-                                   ShortlistBackend, XMCEngine, XMCResult,
+                                   ShardedBackend, ShortlistBackend,
+                                   XMCEngine, XMCResult,
                                    available_backends, make_backend,
                                    register_backend, reset_warmup_cache,
                                    unregister_backend, warmup_cache_stats)
@@ -36,6 +38,7 @@ from repro_torch.serve.xmc import (BsrBackend, DenseBackend, Int8Backend,
 __all__ = ["XMCEngine", "XMCResult", "XMCServer", "XMCFuture",
            "ModelRouter", "Rejected", "PredictBackend", "DenseBackend",
            "BsrBackend", "Int8Backend", "ShortlistBackend", "RelabelBackend",
+           "ShardedBackend",
            "ShortlistArtifact", "build_shortlist", "build_learned_shortlist",
            "build_tree_shortlist", "coarse_scores",
            "cooccurrence_label_order", "make_backend", "register_backend",

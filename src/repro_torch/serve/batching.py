@@ -250,6 +250,10 @@ class LatencyStats:
     def count(self) -> int:
         return len(self._ms)
 
+    def samples(self) -> list[float]:
+        """Every recorded latency (ms), in the order recorded."""
+        return list(self._ms)
+
     def summary(self) -> dict[str, float]:
         if not self._ms:
             return {"count": 0}

@@ -8,7 +8,7 @@ PyTorch. A `ServeSpec` rides inside every checkpoint manifest, and
 
 builds this engine as the spec describes, on the card. Backends live in a
 decorator registry (`@register_backend("kind")`); `make_backend` is a thin
-lookup. Four backends are built in:
+lookup. Five backends are built in:
 
   dense     — X @ W.T (`torch.matmul`) on the densified model, then a
               stable sort. Baseline and reference semantics.
@@ -28,8 +28,15 @@ lookup. Four backends are built in:
               Selection is shared by the micro-batch, or per query
               (`shortlist_per_query`); `int8=True` gathers int8 blocks
               for either. Without an artifact it serves as bsr (or int8).
+  sharded   — the densified model label-sharded over a mesh's label
+              axis (`launch/mesh.py`; its second, `model` by default),
+              each shard densified on its own device from the packed
+              rows it holds: each shard scores its rows on its
+              own device, takes a local top-k with the blocked top-k
+              kernel and the k x n_shards candidates are merged on the
+              mesh's first device (core.prediction.predict_topk_sharded).
 
-dense, bsr and shortlist return identical top-k label ids on the same
+dense, bsr, sharded and shortlist return identical top-k label ids on the same
 pruned model, tie order included (descending score, then ascending id;
 shortlist whenever its candidates cover the top-k, and exactly when B is
 the row-block count): padding labels are masked below any real score
@@ -55,7 +62,7 @@ from typing import Iterable, Protocol, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core.prediction import predict_topk
+from repro_torch.core.prediction import predict_topk, predict_topk_sharded
 from repro_torch.core.pruning import (BlockSparseModel, Int8BlockSparseModel,
                                       quantize_block_sparse, to_block_sparse)
 from repro_torch.device import synchronize, to_device
@@ -336,6 +343,30 @@ class RelabelBackend:
         return getattr(self.inner, name)
 
 
+class ShardedBackend:
+    """Mesh label-sharded local top-k + merge (paper §2.2.1): the model
+    lives as one row shard per label shard (the mesh's `axis_names[1]`),
+    each on its device, the shards of equal height (the last padded with
+    zero rows); ids >= `n_labels` are never served."""
+
+    name = "sharded"
+
+    def __init__(self, shards, k: int, mesh, *, n_labels: int):
+        self.k = k
+        self.n_labels = int(n_labels)
+        self.mesh = mesh
+        self.device = mesh.first
+        self._shards = list(shards)
+
+    def warmup_key(self):
+        return None        # mesh-bound: never share warm-up state
+
+    def topk(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        return predict_topk_sharded(x, self._shards, self.k, self.mesh,
+                                    label_axis=self.mesh.axis_names[1],
+                                    n_labels=self.n_labels)
+
+
 # ---------------------------------------------------------------------------
 # Backend registry: kind -> factory(bsr, k, *, n_labels, ...) ->
 # PredictBackend.
@@ -388,6 +419,30 @@ def _make_bsr_backend(bsr: BlockSparseModel, k: int, *, n_labels: int,
     return BsrBackend(bsr, k, n_labels=n_labels)
 
 
+@register_backend("sharded")
+def _make_sharded_backend(bsr: BlockSparseModel, k: int, *, n_labels: int,
+                          mesh=None):
+    if mesh is None:     # every card from the model's on, or the CPU
+        from repro_torch.launch.mesh import make_host_mesh
+        if bsr.device.type == "cuda":
+            devices = list(range(bsr.device.index or 0,
+                                 torch.cuda.device_count()))
+            mesh = make_host_mesh(1, len(devices),
+                                  devices=[f"cuda:{i}" for i in devices])
+        else:
+            mesh = make_host_mesh(1, 1, devices=[bsr.device])
+    # Each shard densified straight from its rows of the packed model on
+    # its own device: no dense copy of the whole model is ever made.
+    label_axis = mesh.axis_names[1]
+    n_shards = mesh.shape[label_axis]
+    per = -(-n_labels // n_shards)
+    shards = [bsr.dense_rows(j * per, (j + 1) * per, n_rows=n_labels,
+                             n_cols=bsr.n_features,
+                             device=mesh.device(**{label_axis: j}))
+              for j in range(n_shards)]
+    return ShardedBackend(shards, k, mesh, n_labels=n_labels)
+
+
 @register_backend("int8")
 def _make_int8_backend(bsr: BlockSparseModel, k: int, *, n_labels: int,
                        int8_model=None):
@@ -415,17 +470,18 @@ def make_backend(kind: str, bsr: BlockSparseModel, k: int, *,
                  shortlist_blocks: int | None = None, int8: bool = False,
                  int8_model: Int8BlockSparseModel | None = None,
                  shortlist_per_query: bool = False,
-                 label_order=None) -> PredictBackend:
+                 label_order=None, mesh=None) -> PredictBackend:
     """Build a registered backend from the packed model (a thin lookup).
 
     dense densifies in memory, sliced back to the true (L, D); bsr serves
     the packed form directly; shortlist adds the coarse stage when given
     an artifact. kind="int8" (or bsr/shortlist with int8=True) serves the
     int8 artifact: `int8_model` (a checkpoint's persisted arrays), else
-    the fp32 blocks quantized here (the same bytes). Each factory is given
-    the keywords its signature names. `label_order` (the pack-time
-    permutation recorded in the checkpoint) wraps the backend in
-    `RelabelBackend`.
+    the fp32 blocks quantized here (the same bytes). sharded spreads the
+    densified model over `mesh` (default: every card from the model's
+    on). Each factory is given the keywords its signature names.
+    `label_order` (the pack-time permutation recorded in the checkpoint)
+    wraps the backend in `RelabelBackend`.
     """
     try:
         factory = _BACKEND_REGISTRY[kind]
@@ -436,7 +492,7 @@ def make_backend(kind: str, bsr: BlockSparseModel, k: int, *,
     kwargs = dict(n_labels=n_labels, shortlist=shortlist,
                   shortlist_blocks=shortlist_blocks, int8=int8,
                   int8_model=int8_model,
-                  shortlist_per_query=shortlist_per_query)
+                  shortlist_per_query=shortlist_per_query, mesh=mesh)
     params = inspect.signature(factory).parameters
     if not any(p.kind is p.VAR_KEYWORD for p in params.values()):
         kwargs = {key: v for key, v in kwargs.items() if key in params}
@@ -520,14 +576,16 @@ class XMCEngine:
                         warmup: bool = True, device=None,
                         shortlist_blocks: int | None = None,
                         int8: bool = False,
-                        shortlist_per_query: bool = False) -> "XMCEngine":
+                        shortlist_per_query: bool = False,
+                        mesh=None) -> "XMCEngine":
         """Serve the sparse artifact written by `save_block_sparse` (either
         package's), with the model on `device` (None: the card, raising
-        when none is present). The shortlist artifact beside the arrays is
-        picked up when present; backend="int8" (or `int8=True`) serves the
-        persisted int8 arrays, quantizing when the checkpoint predates
-        them. A checkpoint packed under a `label_order` permutation is
-        unmapped here: every backend returns original ids.
+        when none is present); `mesh` goes to mesh-sharded backends. The
+        shortlist artifact beside the arrays is picked up when present;
+        backend="int8" (or `int8=True`) serves the persisted int8 arrays,
+        quantizing when the checkpoint predates them. A checkpoint packed
+        under a `label_order` permutation is unmapped here: every backend
+        returns original ids.
         """
         from repro_torch.checkpoint.io import (load_block_sparse,
                                                load_block_sparse_int8,
@@ -544,7 +602,7 @@ class XMCEngine:
                           int8_model=int8_model,
                           shortlist_per_query=shortlist_per_query,
                           label_order=load_block_sparse_meta(
-                              directory).get("label_order"))
+                              directory).get("label_order"), mesh=mesh)
         return cls(be, buckets, warmup=warmup,
                    n_features=int(meta.get("n_features", bsr.n_features)))
 

@@ -1,8 +1,10 @@
 """ScheduleSpec: how the label space is walked and laid out on hardware.
 
 The same fields, validation, normalization, canonical form and resume
-fingerprint as the JAX package's `ScheduleSpec`. A mesh (several GPUs)
-is not ported yet: `make_mesh` raises for one (ROADMAP Queue A item 6).
+fingerprint as the JAX package's `ScheduleSpec`. The mesh shape is part
+of the fingerprint (it changes the reduction order), not of
+RUNTIME_FIELDS, as in the JAX package; `make_mesh` builds it as a grid of
+devices (`launch/mesh.py`).
 """
 
 from __future__ import annotations
@@ -78,19 +80,26 @@ class ScheduleSpec(Spec):
         return dataclasses.replace(self, label_batch=rounded)
 
     def make_mesh(self):
-        """The device mesh this spec names: None when unsharded. A mesh
-        over several GPUs is not ported yet."""
+        """The device mesh this spec names (None when unsharded): a
+        (data, model) grid over the distinct cards `cuda:0` ..., raising
+        when there are fewer (`launch.mesh.make_host_mesh`), with this
+        spec's axis names."""
         if self.mesh is None:
             return None
-        raise NotImplementedError(
-            f"ScheduleSpec(mesh={self.mesh}): sharding over several GPUs is "
-            "not ported yet; see ROADMAP Queue A item 6 (multi-GPU)")
+        from repro_torch.launch.mesh import make_host_mesh
+        d, m = (int(s) for s in self.mesh)
+        return dataclasses.replace(make_host_mesh(d, m),
+                                   axis_names=(self.data_axis,
+                                               self.label_axis))
 
     @classmethod
     def from_job(cls, job) -> "ScheduleSpec":
-        """Duck-typed: the spec of an `XMCTrainJob`'s fields (`job.mesh` is
-        None or a (data, model) shape)."""
-        mesh = None if job.mesh is None else tuple(int(s) for s in job.mesh)
+        """Duck-typed: the spec of an `XMCTrainJob`'s fields, the mesh
+        shape read back from `job.mesh.shape`."""
+        mesh = None
+        if job.mesh is not None:
+            mesh = (int(job.mesh.shape.get(job.data_axis, 1)),
+                    int(job.mesh.shape.get(job.label_axis, 1)))
         return cls(label_batch=job.cfg.label_batch,
                    block_shape=tuple(job.block_shape), mesh=mesh,
                    label_axis=job.label_axis, data_axis=job.data_axis,

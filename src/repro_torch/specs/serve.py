@@ -21,9 +21,8 @@ DEFAULT_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256)
 class ServeSpec(Spec):
     """One serving configuration over a sparse checkpoint.
 
-    backend   : predict-backend registry kind ("dense", "bsr", "int8" and
-                "shortlist" in this port; the JAX package also has
-                "sharded").
+    backend   : predict-backend registry kind ("dense", "bsr", "int8",
+                "shortlist" or "sharded", the JAX package's five).
     k         : top-k labels returned per instance.
     buckets   : micro-batch bucket sizes.
     interpret : the JAX package's Pallas execution mode. Kept so that

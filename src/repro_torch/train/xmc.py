@@ -1,5 +1,5 @@
 """Streaming label-batch training engine for DiSMEC (Algorithm 1 at
-scale), on one GPU.
+scale), on one GPU or a mesh of devices.
 
 The public way to train is the session API:
 
@@ -15,7 +15,12 @@ mapping to the algorithm's steps 3-11 is the JAX package's:
              labels, the last one padded with all-negative sign rows so
              every batch has one shape;
   steps 4-6  train the batch's binary problems in parallel -> one batched
-             TRON solve on the card (`core.dismec.make_batch_solver`);
+             TRON solve on the card (`core.dismec.make_batch_solver`), or
+             one per label shard of a mesh (`launch/mesh.py`): labels
+             split over the mesh's `model` axis, optionally instances
+             over `data`. `balance=True` deals each batch's labels to the
+             shards with `balance_permutation` and un-deals the solved
+             rows on the host before the pack;
   step 7     prune ambiguous weights -> on the card, inside the solve;
   steps 8-10 write batch b's sparse model file -> the pruned rows are
              copied to the host, packed to append-form BSR and appended to
@@ -56,9 +61,10 @@ from repro_torch.checkpoint.io import (BSR_ARRAYS, BlockSparseWriter,
                                        label_range_reader,
                                        load_block_sparse_meta)
 from repro_torch.core.dismec import (DiSMECConfig, DiSMECModel,
-                                     make_batch_solver)
+                                     balance_permutation, make_batch_solver)
 from repro_torch.core.pruning import to_block_sparse
 from repro_torch.device import resolve_device, to_numpy
+from repro_torch.launch.mesh import Mesh
 from repro_torch.specs import ScheduleSpec, ServeSpec, SolverSpec
 
 
@@ -108,14 +114,16 @@ class XMCTrainJob:
     """Algorithm 1's outer loop as a restartable streaming pipeline.
 
     cfg.label_batch is the layer-1 batch size; when streaming it must be a
-    multiple of the BSR block height. `mesh`, `shard_data` and `balance`
-    are the JAX package's multi-device fields, kept for the spec: a mesh
-    (several GPUs) is not ported yet and raises. `overlap` /
-    `max_inflight` bound the background writer; `workers` / `lease_ttl`
-    drive the cooperative lease-based drain (see the module docstring).
+    multiple of the BSR block height. `mesh` (a `launch.mesh.Mesh`) turns
+    on layer-2 sharding of each batch's solve, `shard_data` splits the
+    instances over its data axis as well, and `balance` deals each batch's
+    labels to the shards frequency-balanced (no-op without a mesh).
+    `overlap` / `max_inflight` bound the background writer; `workers` /
+    `lease_ttl` drive the cooperative lease-based drain (see the module
+    docstring).
     """
     cfg: DiSMECConfig
-    mesh: Optional[tuple[int, int]] = None
+    mesh: Optional[Mesh] = None
     label_axis: str = "model"
     data_axis: str = "data"
     shard_data: bool = False
@@ -143,7 +151,9 @@ class XMCTrainJob:
             label_order=None, device=None) -> XMCTrainResult:
         """Train X (N, D), Y (N, L) (numpy arrays or tensors) into `out_dir`
         (streamed multi-shard checkpoint) and/or an in-memory model, on
-        `device` (None: the card; "cpu" runs the plain solver ops).
+        `device` (None: the card, or the first device of the job's mesh;
+        "cpu" runs the plain solver ops). With a mesh, `device` must be
+        of the mesh's kind: the solve runs on the mesh's devices.
 
         resume       : skip batches already in out_dir's manifest (False
                        starts the checkpoint fresh).
@@ -164,6 +174,13 @@ class XMCTrainJob:
         label_order  : pack-time label permutation (trains Y[:, order]),
                        recorded in the manifest.
         """
+        if self.mesh is not None:
+            home = self.mesh.first
+            if device is not None and torch.device(device).type != \
+                    home.type:
+                raise ValueError(f"device {device} is not of the kind of "
+                                 f"the mesh's devices ({home})")
+            device = home if device is None else device
         device = resolve_device(device)
         X_host = to_numpy(X)
         Yn = to_numpy(Y)
@@ -174,6 +191,10 @@ class XMCTrainJob:
         D = int(X_host.shape[1])
         batches = self.label_batches(L)
         lb = batches[0][1] - batches[0][0]
+        n_shards = self.mesh.shape[self.label_axis] if self.mesh else 1
+        # Every batch is padded to one shape: lb rounded up to the label
+        # shard count.
+        lb_solve = -(-lb // n_shards) * n_shards
         bl, _ = self.block_shape
         if materialize is None:
             materialize = out_dir is None
@@ -224,8 +245,9 @@ class XMCTrainJob:
 
         solver = make_batch_solver(
             X if isinstance(X, torch.Tensor) else X_host, self.cfg,
-            self.mesh, shard_data=self.shard_data,
-            warm=init_from is not None, device=device)
+            self.mesh, label_axis=self.label_axis, data_axis=self.data_axis,
+            shard_data=self.shard_data, warm=init_from is not None,
+            device=device)
 
         host_blocks: dict[int, np.ndarray] = {}
         solved: list[int] = []
@@ -244,18 +266,27 @@ class XMCTrainJob:
             (on the main thread, before the next batch starts)."""
             rows = stop - start
             signs = (2.0 * Yn[:, start:stop].T - 1.0).astype(np.float32)
+            perm = None
+            if self.balance and self.mesh is not None and rows > n_shards:
+                perm = balance_permutation(Yn[:, start:stop], n_shards)
+                signs = signs[perm]
             W0 = None
             if init_read is not None:
                 W0r = init_read(start, stop)
-                if rows < lb:
+                if perm is not None:     # W0 rows follow the shard dealing
+                    W0r = W0r[perm]
+                if rows < lb_solve:
                     W0r = np.concatenate(
-                        [W0r, np.zeros((lb - rows, D), np.float32)])
+                        [W0r, np.zeros((lb_solve - rows, D), np.float32)])
                 W0 = torch.from_numpy(W0r).to(device)
-            if rows < lb:                                 # shape-constant pad
+            if rows < lb_solve:                           # shape-constant pad
                 signs = np.concatenate(
-                    [signs, -np.ones((lb - rows, N), np.float32)])
+                    [signs, -np.ones((lb_solve - rows, N), np.float32)])
             W_dev = solver(torch.from_numpy(signs).to(device), W0)
-            return b, start, rows, W_dev[:rows].cpu().numpy()
+            W_b = W_dev[:rows].cpu().numpy()
+            if perm is not None:
+                W_b = W_b[np.argsort(perm)]               # undo the dealing
+            return b, start, rows, W_b
 
         def drain(item) -> None:
             """BSR pack + shard write of one solved batch (steps 8-10)."""

@@ -80,15 +80,18 @@ def spec_from_config(cfg, *, label_axis: str = "model",
         serve=serve or ServeSpec())
 
 
-def job_from_spec(spec: XMCSpec):
-    """The streaming training engine (`XMCTrainJob`) a spec names. A
-    schedule with a mesh raises: several GPUs are not ported yet."""
+def job_from_spec(spec: XMCSpec, *, mesh=None):
+    """The streaming training engine (`XMCTrainJob`) a spec names. `mesh`
+    (a `launch.mesh.Mesh`) overrides the schedule's declarative mesh with
+    an existing grid of devices; otherwise the mesh is built from
+    `spec.schedule.mesh` (over the distinct cards, raising when there are
+    fewer)."""
     from repro_torch.train.xmc import XMCTrainJob
     sch = spec.schedule
-    sch.make_mesh()                      # raises for a mesh
     return XMCTrainJob(
         cfg=spec.solver.to_config(label_batch=sch.label_batch),
-        mesh=None, label_axis=sch.label_axis, data_axis=sch.data_axis,
+        mesh=mesh if mesh is not None else sch.make_mesh(),
+        label_axis=sch.label_axis, data_axis=sch.data_axis,
         shard_data=sch.shard_data, balance=sch.balance,
         block_shape=tuple(sch.block_shape), overlap=sch.overlap,
         max_inflight=sch.max_inflight, workers=sch.workers,
@@ -99,10 +102,16 @@ def fit(X, Y, spec: XMCSpec, out_dir: str, *,
         init_from: Optional[str] = None, resume: bool = True,
         max_batches: Optional[int] = None, meta: Optional[dict] = None,
         on_batch: Optional[Callable[[int, int], None]] = None,
-        worker: Optional[str] = None, device=None) -> "CheckpointHandle":
+        worker: Optional[str] = None, device=None,
+        mesh=None) -> "CheckpointHandle":
     """Train X (N, D), Y (N, L) (numpy arrays or tensors) under `spec`
     into a servable sparse checkpoint at `out_dir`, on `device` (None: the
     card; "cpu" runs the plain solver ops), and return its handle.
+
+    mesh : a `launch.mesh.Mesh` to shard each label batch's solve over
+           (`job_from_spec(spec, mesh=)`): it overrides the schedule's
+           mesh, whose shape the manifest then records. `device` defaults
+           to the mesh's first device, where the model is gathered.
 
     The spec is normalized first (label_batch rounded up to a BSR-block
     multiple, with a warning), embedded in the manifest and enforced on
@@ -124,13 +133,19 @@ def fit(X, Y, spec: XMCSpec, out_dir: str, *,
     built from the run's own data.
     """
     spec = spec.normalized()
+    if mesh is not None:
+        sch = spec.schedule
+        spec = dataclasses.replace(spec, schedule=dataclasses.replace(
+            sch, mesh=(mesh.shape[sch.data_axis],
+                       mesh.shape[sch.label_axis])))
+        device = mesh.first if device is None else device
     device = resolve_device(device)
     label_order = None
     if spec.schedule.reorder_labels:
         from repro_torch.serve.shortlist import cooccurrence_label_order
         label_order = cooccurrence_label_order(
             to_numpy(Y), block_rows=int(spec.schedule.block_shape[0]))
-    res = job_from_spec(spec).run(
+    res = job_from_spec(spec, mesh=mesh).run(
         X, Y, out_dir, resume=resume, init_from=init_from,
         max_batches=max_batches, on_batch=on_batch, worker=worker,
         device=device, label_order=label_order,
@@ -259,20 +274,22 @@ class CheckpointHandle:
 
     # -- serving ----------------------------------------------------------
 
-    def engine(self, serve_override: Optional[ServeSpec] = None):
+    def engine(self, serve_override: Optional[ServeSpec] = None, *,
+               mesh=None):
         """Build the serving engine this checkpoint's spec describes;
-        `serve_override` replaces the whole `ServeSpec` for this session.
+        `serve_override` replaces the whole `ServeSpec` for this session,
+        and `mesh` supplies a grid of devices to mesh-sharded backends.
         `ServeSpec.interpret` has no meaning here and is ignored."""
         from repro_torch.serve.xmc import XMCEngine
         serve = (serve_override or self.spec.serve).validate()
         return XMCEngine.from_checkpoint(
-            self.directory, backend=serve.backend, k=serve.k,
+            self.directory, backend=serve.backend, k=serve.k, mesh=mesh,
             buckets=tuple(serve.buckets), warmup=serve.warmup,
             device=self.device, shortlist_blocks=serve.shortlist_blocks,
             int8=serve.int8, shortlist_per_query=serve.shortlist_per_query)
 
     def server(self, serve_override: Optional[ServeSpec] = None, *,
-               name: Optional[str] = None, start: bool = True):
+               mesh=None, name: Optional[str] = None, start: bool = True):
         """Build the async continuous-batching server this checkpoint's
         spec describes (`serve.server.XMCServer`) on the handle's device:
         `submit` returns futures, buckets launch on fill or
@@ -283,6 +300,6 @@ class CheckpointHandle:
         unchanged."""
         from repro_torch.serve.server import XMCServer
         serve = (serve_override or self.spec.serve).validate()
-        return XMCServer(self.engine(serve),
+        return XMCServer(self.engine(serve, mesh=mesh),
                          max_batch_delay_ms=serve.max_batch_delay_ms,
                          max_queue=serve.max_queue, name=name, start=start)

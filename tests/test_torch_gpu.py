@@ -1032,6 +1032,95 @@ def test_fit_on_the_card(cuda, tmp_path):
     np.testing.assert_array_equal(ids_a[rows], ids_c[rows])
 
 
+
+@pytest.mark.parametrize("shape,shard_data,ops", [
+    ((1, 4), False, "pallas"), ((2, 2), True, "jnp")])
+def test_sharded_solve_on_one_card(cuda, shape, shard_data, ops):
+    """`make_batch_solver` on a mesh of cuda:0 against the single-device
+    solve with the same arithmetic, within 1e-5 of the magnitude (a weight
+    pruned on one side only must lie within it of Delta, where the prune
+    moved): label shards with the kernel ops (the training kernels
+    launched from the four shard threads) against the kernel ops; with
+    `shard_data`, whose closures are torch ops (no kernel launch),
+    against the plain ops."""
+    from repro_torch.core import dismec
+    from repro_torch.data.xmc import make_xmc_dataset
+    from repro_torch.launch.mesh import make_host_mesh
+    d = make_xmc_dataset(n_features=4096, n_labels=256, n_train=401,
+                         n_test=10, seed=0)
+    S = dismec.signs_from_labels(torch.from_numpy(d.Y_train)).to(cuda)
+    one = dismec.make_batch_solver(d.X_train, dismec.DiSMECConfig(ops=ops),
+                                   device=cuda)(S)
+    fns = (hinge_ops.hinge_obj_grad_cuda, hvp_ops.hvp_cuda)
+    before = [f.launches for f in fns]
+    got = dismec.make_batch_solver(
+        d.X_train, dismec.DiSMECConfig(ops="pallas"), make_host_mesh(
+            *shape, devices=["cuda:0"] * (shape[0] * shape[1])),
+        shard_data=shard_data)(S)
+    torch.cuda.synchronize()
+    launched = [f.launches > b for f, b in zip(fns, before)]
+    assert launched == [not shard_data] * 2
+    assert got.shape == one.shape and got.device == one.device
+    tol = 1e-5 * max(1.0, float(one.abs().max()))
+    diff = (got - one).abs()
+    flip = (got == 0) != (one == 0)
+    near = torch.maximum(got.abs(), one.abs()) < 0.01 + tol
+    ok = (diff <= tol) | (flip & near)
+    assert bool(ok.all()), (float(diff[~ok].max()), int(flip.sum()))
+
+
+def test_predict_topk_sharded_on_one_card(cuda):
+    """`predict_topk_sharded` on a (1, 4) mesh of cuda:0: the top-k kernel
+    launched once per shard and once for the merge, the ids of the dense
+    product's stable sort on every decisive row and on the zero row (the
+    lowest ids), scores within 1e-5."""
+    from repro_torch.core.prediction import (predict_topk,
+                                             predict_topk_sharded)
+    from repro_torch.launch.mesh import make_host_mesh
+    rng = np.random.default_rng(3)
+    W = torch.tensor(0.1 * rng.normal(size=(1000, 512)), dtype=torch.float32,
+                     device=cuda)
+    X = _x(33, 512, 4, cuda)
+    X[5] = 0.0
+    before = topk_ops.blocked_topk_cuda.launches
+    s, i = predict_topk_sharded(X, W, 5, make_host_mesh(
+        1, 4, devices=["cuda:0"] * 4), n_labels=998)
+    torch.cuda.synchronize()
+    assert topk_ops.blocked_topk_cuda.launches == before + 5
+    s0, i0 = predict_topk(X, W[:998], 6)
+    rows = ((s0[:, 4] - s0[:, 5]) > 1e-4).cpu()
+    rows[5] = True
+    assert int(rows.sum()) > 25
+    assert torch.equal(i.cpu()[rows], i0[:, :5].cpu()[rows])
+    assert i[5].tolist() == [0, 1, 2, 3, 4]
+    assert float((s - s0[:, :5]).abs().max()) <= 1e-5
+
+
+def test_sharded_backend_default_mesh_on_the_card(cuda):
+    """The `sharded` factory with no mesh on a model on the card: one
+    shard per card from the model's own on, each densified on its card
+    from its rows; the ids of `dense` on every decisive row, the top-k
+    kernel launched."""
+    from repro_torch.serve.xmc import make_backend
+    rng = np.random.default_rng(5)
+    W = (0.1 * rng.normal(size=(1000, 512))).astype(np.float32)
+    W[np.abs(W) < 0.05] = 0.0
+    bsr = to_block_sparse(W, (128, 128), device=cuda)
+    be = make_backend("sharded", bsr, 5)
+    assert len(be._shards) == torch.cuda.device_count()
+    assert [t.device for t in be._shards] == [
+        torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    X = _x(33, 512, 4, cuda)
+    before = topk_ops.blocked_topk_cuda.launches
+    _, ids = be.topk(X)
+    torch.cuda.synchronize()
+    assert topk_ops.blocked_topk_cuda.launches > before
+    s0 = X @ torch.from_numpy(W).to(cuda).T
+    v0, i0 = torch.sort(s0, dim=1, descending=True, stable=True)
+    rows = ((v0[:, 4] - v0[:, 5]) > 1e-4).cpu()
+    assert int(rows.sum()) > 25
+    assert torch.equal(ids.long().cpu()[rows], i0[:, :5].cpu()[rows])
+
 # ---------------------------------------------------------------------------
 # Banded attention (the LM's local layers) and the LM serving path.
 # Tolerances, those of the JAX kernel test: 2e-4 in float32 (the same fp32

@@ -166,12 +166,13 @@ def test_warmup_runs_each_bucket_once_process_wide(ckpts):
 
 
 def test_unknown_backend_and_int8_raise(ckpts):
-    """An unknown kind raises; the four built-in kinds are registered, so
+    """An unknown kind raises; the five built-in kinds are registered, so
     `shortlist` and `int8` serve; a request of the wrong width raises."""
     handle = CheckpointHandle.open(ckpts["plain"], device="cpu")
-    with pytest.raises(ValueError, match="unknown backend 'sharded'"):
-        handle.engine(ServeSpec(backend="sharded", warmup=False))
-    assert xmc.available_backends() == ("bsr", "dense", "int8", "shortlist")
+    with pytest.raises(ValueError, match="unknown backend 'quantized'"):
+        handle.engine(ServeSpec(backend="quantized", warmup=False))
+    assert xmc.available_backends() == ("bsr", "dense", "int8", "sharded",
+                                        "shortlist")
     assert handle.engine(ServeSpec(int8=True, warmup=False)).backend.name \
         == "int8"
     engine = handle.engine(ServeSpec(k=K, buckets=BUCKETS, warmup=False))

@@ -255,7 +255,8 @@ def test_oversize_request_coalesces_to_one_result_async():
 # Sync-vs-async bit identity per backend
 # ---------------------------------------------------------------------------
 
-SERVE_CASES = [(kind, {}) for kind in ("bsr", "dense", "int8", "shortlist")
+SERVE_CASES = [(kind, {}) for kind in ("bsr", "dense", "int8", "shortlist",
+                                        "sharded")
                ] + [("shortlist", dict(int8=True, shortlist_per_query=True,
                                        shortlist_blocks=2))]
 

@@ -342,11 +342,8 @@ def test_job_round_trips_the_spec():
 
 
 def test_not_ported_parts_raise(data, tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        ScheduleSpec(mesh=(1, 2)).make_mesh()
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        dismec.make_batch_solver(torch.zeros((4, 8)), dismec.DiSMECConfig(),
-                                 shard_data=True)
+    # The mesh (ScheduleSpec.make_mesh, make_batch_solver's mesh and
+    # shard_data) is ported: tests/test_torch_sharded.py.
     # reorder_labels, the learned coarse stage and int8 serving with a
     # per-query selection narrower than the model are all ported: the
     # port's fit serves the ids of the JAX fit's checkpoint, served by the
