@@ -152,6 +152,30 @@ Then training, on the port's synthetic power-law data at Wiki10-31K width
                      with a `bsr` and a `shortlist` int8 model at the CLI's
                      default sizes, sent SIGTERM once it offers load: it
                      must drain the router and exit 143.
+ 12b. baselines    — the paper's comparison methods
+                     (`repro_torch.baselines`): (a) Table 2 on the JAX
+                     package's four `load_paper_like` datasets (seed 0),
+                     DiSMEC through `fit` (label batch min(L, 256), the
+                     kernel ops, served through `bsr`), SLEEC, LEML,
+                     FastXML, PD-Sparse and L1-SVM at their defaults, all
+                     on the card: P@1/3/5, nDCG@3/5 and train_s, and the
+                     headline (DiSMEC within 0.02 of the best P@1,
+                     reported); each baseline's `predict_topk` must launch
+                     the top-k kernel (count set to 0 just before it) and
+                     give the plain path's ids (the stable sort on the same
+                     scores) on every row; on wiki31k_like each baseline
+                     trained on the card is held to the port trained on
+                     the CPU (a thread at nice 10 from phase 11 on; bounds
+                     at BASE_TOL), and PD-Sparse trained twice must be equal
+                     bit for bit; (b) at Wiki10-31K width on phase 5's
+                     data, L1-SVM (lam 0.05, 300 steps) on phase 8's first
+                     label batch beside phase 8's model on those labels
+                     (density, P@1, P@5, ambiguous fraction and weight
+                     histogram: Fig. 2 and Fig. 4), and FastXML (5 trees,
+                     depth 8) over all 2,048 labels: build and predict
+                     time, P@k, the top-k kernel and the plain path's ids
+                     as in (a). LEML, SLEEC and PD-Sparse stay at the
+                     paper-like sizes, and the phase prints why.
 
 Then the LM side's serving path, hymba-1.5b (arXiv:2411.13676) at full
 width in bf16 with its sliding window on (29 of 32 layers local), weights
@@ -186,7 +210,8 @@ drawn from the seed:
 
 The lines before the last are the kernels' JSON summary (all ten
 kernels; `launches_mesh` for kernels 1, 2 and 9 counts phases 10b and
-10c), the training, server, sweep, mesh and LM JSON summaries and the
+10c, `launches_baselines` for kernel 9 phase 12b's predictions), the
+training, server, sweep, mesh, LM and baselines JSON summaries and the
 card's name and power limit from nvidia-smi; the last line is `{"ok":
 true, "device": {...}}`.
 Any failure exits non-zero before it. Without a CUDA card, or outside a
@@ -291,6 +316,41 @@ SERVER_MODELS = (("wiki_bsr", dict(backend="bsr")),
 # Phase 11: the sweep's arms over one full-width label batch.
 SWEEP_LABELS = 1_024
 SWEEP_ARMS = {"same": {}, "delta_0.05": {"delta": 0.05}}
+# Phase 12b: the paper's comparison methods (`repro_torch.baselines`) on the
+# JAX package's Table 2 datasets (`load_paper_like`, seed 0) at their
+# defaults, DiSMEC through `fit` with benchmarks/_common.py's label batch.
+PAPER_LIKE = ("wiki31k_like", "amazon670k_like", "delicious200k_like",
+              "wikilshtc325k_like")
+DISMEC_LABEL_BATCH = 256
+# On wiki31k_like each baseline trained on the card against the port trained
+# on the CPU, to the CPU tests' bounds against the JAX package: L1-SVM's
+# weights within 5e-4 of their magnitude and nnz within 0.1%, LEML's and
+# SLEEC's scores within 1e-4, FastXML's splits within 1e-5 (leaves equal),
+# PD-Sparse's weights within 1e-5. L1-SVM and PD-Sparse are held there
+# after CARD_CPU_STEPS steps and, over their full runs, to P@1 and P@5
+# within 0.01: both iterations amplify a rounding (FISTA's momentum and
+# the l1 prox at this size, PD-Sparse's argmax subgradient at any size).
+# SLEEC's scores are compared on the rows whose centroid choice and kNN
+# cut are decisive: at a near tie of similarities a rounding swaps a
+# neighbour, and with it the row's votes. A cluster whose rank cut splits
+# a degenerate singular value of its 0/1 label submatrix has no unique
+# embedding: its rows are left out, and counted, wherever the gap at the
+# cut is within SLEEC_GAP of the largest singular value. LAPACK's and
+# cuSOLVER's Z Z^T differed by about 1e-8 / gap (tools/torch_sleec_svd.py
+# on an H100 80GB HBM3 at 700 W: gaps 3.18e-8, 3.28e-4, 9.65e-4 and
+# 5.59e-3 gave 0.51, 2.8e-5, 4.9e-6 and 3.7e-6 of its magnitude), so
+# below 2e-4 a gap may move the scores past their bound.
+CARD_CPU_STEPS = 100
+BASE_TOL = {"L1-SVM": 5e-4, "LEML": 1e-4, "SLEEC": 1e-4, "FastXML": 1e-5,
+            "PD-Sparse": 1e-5}
+BASE_NNZ_TOL, BASE_PK_TOL = 1e-3, 0.01
+NEAR_PLANE = 1e-5           # |x.w| below this share of |x|.|w|: on a plane
+SLEEC_GAP = 2e-4
+# At Wiki10-31K width (phase 5's data): L1-SVM on phase 8's first label
+# batch (Fig. 4), FastXML over all TRAIN_LABELS labels.
+WIDE_L1 = dict(lam=0.05, n_steps=300)
+WIDE_FASTXML = dict(n_trees=5, max_depth=8)
+PD_SPARSE_STEPS = 1_500     # train_pd_sparse's default
 # Phases 13-15: hymba-1.5b (arXiv:2411.13676) at full width, bf16,
 # sliding-window attention on (29 of its 32 layers; 0, 15 and 31 global).
 LM_ARCH = "hymba-1.5b"
@@ -2310,6 +2370,498 @@ def run_cli(ckpt_root: str) -> dict:
           f"{t_up:.1f} s after the start", flush=True)
     return dict(returncode=proc.returncode, up_s=t_up)
 
+
+def baseline_trainers() -> dict:
+    from repro_torch import baselines as b
+    return {"SLEEC": b.train_sleec, "LEML": b.train_leml,
+            "FastXML": b.train_fastxml, "PD-Sparse": b.train_pd_sparse,
+            "L1-SVM": b.train_l1_svm}
+
+
+@contextlib.contextmanager
+def plain_topk():
+    """The plain path of the baselines: while the block runs, each of their
+    modules calls the stable sort (`kernels/topk/ref.topk`) for its top-k
+    and SLEEC's kNN sets instead of `kernels/topk/ops.topk`."""
+    from repro_torch.baselines import fastxml, l1_svm, leml, sleec
+    from repro_torch.kernels.topk import ref
+    mods = (fastxml, l1_svm, leml, sleec)
+    saved = [m.topk for m in mods]
+    for m in mods:
+        m.topk = ref.topk
+    try:
+        yield
+    finally:
+        for m, fn in zip(mods, saved):
+            m.topk = fn
+
+
+def predict_baseline(name: str, model, X: torch.Tensor,
+                     margin_tol: float):
+    """`model.predict_topk(X, K)` on the card with kernel 9's count set to
+    0 just before it and read just after: it must have launched. Then the
+    plain path on the same model: its ids must equal the served ones on
+    every row whose K-th/(K+1)-th margin is decisive, and since both paths
+    rank the same scores, on every other row too (ties to the lowest id;
+    the sparse models' zero scores tie often). Returns (ids, stats)."""
+    from repro_torch.kernels.topk import ops as topk_ops
+    fn = topk_ops.blocked_topk_cuda
+    fn.launches = 0
+    t0 = time.perf_counter()
+    _, ids = model.predict_topk(X, K)
+    torch.cuda.synchronize()
+    predict_s = time.perf_counter() - t0
+    launches = fn.launches
+    _need(launches > 0, f"{name}: predict_topk never launched kernel 9")
+    with plain_topk():
+        vals_p, ids_p = model.predict_topk(X, K + 1)
+    _need(fn.launches == launches, f"{name}: the plain path launched kernel 9")
+    rows = (vals_p[:, K - 1] - vals_p[:, K]) > margin_tol
+    same = (ids == ids_p[:, :K]).all(dim=1)
+    decisive, agree = int(rows.sum()), int(same[rows].sum())
+    _need(agree == decisive and bool(same.all()),
+          f"{name}: served ids differ from the plain path on "
+          f"{decisive - agree} of {decisive} decisive rows and "
+          f"{int((~same).sum())} of {int(X.shape[0])} rows")
+    return ids, dict(launches=launches, predict_s=predict_s,
+                     decisive=decisive, agree=agree,
+                     agree_all=int(same.sum()), rows=int(X.shape[0]))
+
+
+def fit_dismec(d, root: Path) -> tuple[np.ndarray, dict]:
+    """DiSMEC's row of Table 2: `fit` on the card with the kernel ops at
+    the benchmarks' label batch, served through `bsr` (the training and the
+    serving kernels must launch). Returns (held-out top-K ids, stats)."""
+    from repro_torch.kernels.hinge import ops as hinge_ops
+    from repro_torch.kernels.hvp import ops as hvp_ops
+    from repro_torch.specs import ScheduleSpec, ServeSpec, SolverSpec
+    from repro_torch.xmc_api import XMCSpec, fit
+    spec = XMCSpec(solver=SolverSpec(C=1.0, delta=0.01, eps=0.01,
+                                     ops="pallas"),
+                   schedule=ScheduleSpec(label_batch=min(
+                       d.n_labels, DISMEC_LABEL_BATCH)),
+                   serve=ServeSpec(backend="bsr", k=K, warmup=False))
+    kernels = serving_kernels()
+    for fn in (hinge_ops.hinge_obj_grad_cuda, hvp_ops.hvp_cuda,
+               *kernels.values()):
+        fn.launches = 0
+    with tempfile.TemporaryDirectory(dir=root) as ckpt:
+        t0 = time.perf_counter()
+        handle = fit(d.X_train, d.Y_train, spec, ckpt)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        _need(handle.result.complete, f"{d.name}: DiSMEC's fit incomplete")
+        res = handle.engine().serve([d.X_test])[0]
+    launches = {"hinge_obj_grad": hinge_ops.hinge_obj_grad_cuda.launches,
+                "hvp": hvp_ops.hvp_cuda.launches,
+                **{k: fn.launches for k, fn in kernels.items()
+                   if fn.launches}}
+    _need(all(launches.get(k, 0) > 0 for k in
+              ("hinge_obj_grad", "hvp", "bsr_predict", "blocked_topk")),
+          f"{d.name}: a kernel of DiSMEC's path never launched: {launches}")
+    return res.labels, dict(train_s=train_s, launches=launches)
+
+
+def decisive_cuts(s: np.ndarray, tol: float) -> np.ndarray:
+    """(rows, K) bool: cut j (after the j-th best score) is decisive where
+    the j-th and (j+1)-th scores lie more than 2 * tol apart, relative to
+    the row's largest |score|."""
+    top = -np.sort(-s, axis=1)[:, :K + 1]
+    return (top[:, :-1] - top[:, 1:]) > \
+        2 * tol * np.abs(s).max(axis=1, keepdims=True)
+
+
+def ids_at_cuts(a: np.ndarray, b: np.ndarray, cuts: np.ndarray
+                ) -> tuple[int, int]:
+    """Top-K ids `a` against `b` at every decisive cut j: the sets of their
+    first j ids must be equal (the order inside a near tie may differ).
+    Returns (cuts checked, cuts that differ)."""
+    checked = bad = 0
+    for j in range(1, K + 1):
+        rows = cuts[:, j - 1]
+        checked += int(rows.sum())
+        bad += int((np.sort(a[rows, :j], axis=1) !=
+                    np.sort(b[rows, :j], axis=1)).any(axis=1).sum())
+    return checked, bad
+
+
+def rel_err(a, b, rows=None) -> float:
+    a, b = np.asarray(a), np.asarray(b)
+    d = np.abs(a - b) if rows is None else np.abs(a - b)[rows]
+    return float(d.max() / np.abs(b).max())
+
+
+def cpu_baselines() -> tuple[threading.Thread, dict]:
+    """Phase 12b's reference: the port's baselines trained on the CPU on
+    wiki31k_like, with L1-SVM and PD-Sparse also cut at CARD_CPU_STEPS
+    steps. It takes longer than phase 12b's card work (PD-Sparse's 1,500
+    steps the most), so it starts on a thread of its own at phase 11, at
+    nice 10 with 6 intra-op threads: the sweep's and the CLI's host work
+    go first. Returns (the thread, its results: `data`, a model by name,
+    or `error`)."""
+    out = {}
+
+    def work():
+        try:
+            try:
+                os.setpriority(os.PRIO_PROCESS, threading.get_native_id(), 10)
+            except OSError as e:
+                print(f"   (CPU reference at normal priority: {e})",
+                      flush=True)
+            torch.set_num_threads(6)
+            from repro_torch.data.xmc import load_paper_like
+            d = out["data"] = load_paper_like(PAPER_LIKE[0], seed=0)
+            for n, fn in baseline_trainers().items():
+                out[n] = fn(d.X_train, d.Y_train, device="cpu")
+            for n in ("L1-SVM", "PD-Sparse"):
+                out[f"{n}@{CARD_CPU_STEPS}"] = baseline_trainers()[n](
+                    d.X_train, d.Y_train, n_steps=CARD_CPU_STEPS,
+                    device="cpu")
+        except BaseException as e:              # re-raised after the join
+            out["error"] = e
+    worker = threading.Thread(target=work, daemon=True)
+    worker.start()
+    return worker, out
+
+
+def sleec_cut_gaps(model) -> list[float]:
+    """Each cluster's gap at its rank cut: the r-th less the (r+1)-th
+    singular value of its label submatrix, over the largest (inf where r
+    keeps them all)."""
+    gaps = []
+    for Z, Yc in zip(model.embeddings, model.labels):
+        s = torch.linalg.svdvals(Yc)
+        r = Z.shape[1]
+        gaps.append(float((s[r - 1] - s[r]) / s[0]) if r < s.numel()
+                    else math.inf)
+    return gaps
+
+
+def sleec_split_cuts(model) -> list[int]:
+    """The clusters of `model` whose rank cut splits a (near-)degenerate
+    singular value of their label submatrix (a gap within SLEEC_GAP).
+    Their embedding is then any basis of part of that singular subspace,
+    and two SVD implementations pick different ones."""
+    return [c for c, g in enumerate(sleec_cut_gaps(model))
+            if g <= SLEEC_GAP]
+
+
+def sleec_decisive(model, X: torch.Tensor, tol: float) -> np.ndarray:
+    """Rows whose centroid choice and kNN cut are decisive under `model`
+    (on the CPU): the best centroid more than 2 * tol of the row's largest
+    |similarity| ahead of the next and not a cluster whose rank cut splits
+    a degenerate singular value (`sleec_split_cuts`), and every training
+    row within 2 * tol of the knn-th similarity carrying the same labels
+    (equal label rows have equal embeddings, so such exact ties are
+    harmless)."""
+    cs = X @ model.centroids.T
+    top2 = cs.sort(dim=1, descending=True).values[:, :2]
+    ok = ((top2[:, 0] - top2[:, 1]) > 2 * tol * cs.abs().amax(1)).numpy()
+    split = sleec_split_cuts(model)
+    for i, c in enumerate(cs.argmax(1).tolist()):
+        if c in split:
+            ok[i] = False
+            continue
+        sim = (X[i] @ model.regressors[c]) @ model.embeddings[c].T
+        if sim.numel() > model.knn:
+            cut = sim.sort(descending=True).values[model.knn - 1]
+            near = (sim - cut).abs() <= 2 * tol * sim.abs().max()
+            lab = model.labels[c][near]
+            ok[i] &= bool((lab == lab[0]).all())
+    return ok
+
+
+def plane_margins(tree, X: torch.Tensor) -> torch.Tensor:
+    """For each row of X, the smallest |x.w| / (|x|.|w|) over the planes on
+    its path down `tree` (inf for a one-leaf tree)."""
+    code = torch.full((X.shape[0],), tree.root, dtype=torch.int64,
+                      device=X.device)
+    low = torch.full((X.shape[0],), math.inf, device=X.device)
+    if tree.depth:
+        proj = X @ tree.splits.T
+        mag = X.abs() @ tree.splits.abs().T
+        for _ in range(tree.depth):
+            node = code.clamp_min(0)
+            p = proj.gather(1, node[:, None])[:, 0]
+            m = mag.gather(1, node[:, None])[:, 0]
+            inner = code >= 0
+            low = torch.where(inner, torch.minimum(low, p.abs() / m), low)
+            code = torch.where(inner, tree.children[node, (p > 0).long()],
+                               code)
+    return low
+
+
+def card_against_cpu(d, card: dict, cpu: dict) -> dict:
+    """Phase 12b on wiki31k_like: each baseline trained on the card against
+    the port trained on the CPU (module comment at CARD_CPU_STEPS)."""
+    from repro_torch.core.prediction import evaluate
+    trainers = baseline_trainers()
+    Xh = torch.from_numpy(d.X_test)
+    Xc = Xh.cuda()
+    Yh = torch.from_numpy(d.Y_test)
+    out = {}
+
+    def ids_on(model_c, model_h, cuts) -> tuple[int, int]:
+        return ids_at_cuts(model_c.predict_topk(Xc, K)[1].cpu().numpy(),
+                           model_h.predict_topk(Xh, K)[1].numpy(), cuts)
+
+    for name in ("L1-SVM", "PD-Sparse"):
+        tol = BASE_TOL[name]
+        h = cpu[f"{name}@{CARD_CPU_STEPS}"]
+        c = trainers[name](d.X_train, d.Y_train, n_steps=CARD_CPU_STEPS)
+        err = rel_err(c.W.cpu(), h.W)
+        checked, bad = ids_on(c, h, decisive_cuts(h.scores(Xh).numpy(), tol))
+        nnz = (c.nnz, h.nnz)
+        pk_c = evaluate(Yh, card[name].predict_topk(Xc, K)[1].cpu())
+        pk_h = evaluate(Yh, cpu[name].predict_topk(Xh, K)[1])
+        full_err = rel_err(card[name].W.cpu(), cpu[name].W)
+        gaps = {k: abs(pk_c[k] - pk_h[k]) for k in ("P@1", "P@5")}
+        out[name] = dict(steps=CARD_CPU_STEPS, weights=err, tol=tol,
+                         nnz=nnz, cuts=checked, cuts_differ=bad,
+                         full_weights=full_err, full_p_gap=gaps)
+        print(f"   {name} card vs CPU at {CARD_CPU_STEPS} steps: weights "
+              f"{err:.3e} of their magnitude (bound {tol:g}), nnz {nnz[0]}"
+              f" / {nnz[1]}, top-j id sets differ at {bad} of {checked} "
+              f"decisive cuts; full run: weights {full_err:.3e}, P@1 "
+              f"{pk_c['P@1']:.4f} / {pk_h['P@1']:.4f}, P@5 "
+              f"{pk_c['P@5']:.4f} / {pk_h['P@5']:.4f}", flush=True)
+        _need(err <= tol and bad == 0 and checked > 0 and
+              abs(nnz[0] - nnz[1]) <= BASE_NNZ_TOL * nnz[1] and
+              max(gaps.values()) <= BASE_PK_TOL,
+              f"{name}: the card's model is outside the CPU's bounds")
+    for name in ("LEML", "SLEEC"):
+        tol = BASE_TOL[name]
+        h, c = cpu[name], card[name]
+        s_h = h.scores(Xh).numpy()
+        s_c = c.scores(Xc).cpu().numpy()
+        if name == "SLEEC":
+            _need([len(e) for e in c.embeddings] ==
+                  [len(e) for e in h.embeddings],
+                  "SLEEC: the card's clusters are not the CPU's")
+            keep = sleec_decisive(h, Xh, tol)
+            split = sleec_split_cuts(h)
+            print(f"   SLEEC's gaps at the rank cut (over the largest "
+                  f"singular value), by cluster: "
+                  f"{[f'{g:.2e}' for g in sleec_cut_gaps(h)]}", flush=True)
+        else:
+            keep, split = np.ones(len(s_h), bool), []
+        err = rel_err(s_c, s_h, keep)
+        checked, bad = ids_on(c, h, keep[:, None] & decisive_cuts(s_h, tol))
+        out[name] = dict(scores=err, tol=tol, compared=int(keep.sum()),
+                         cuts=checked, cuts_differ=bad, split_clusters=split)
+        print(f"   {name} card vs CPU: scores {err:.3e} of their magnitude "
+              f"(bound {tol:g}) on {int(keep.sum())} of {len(keep)} rows"
+              + (f" (centroid and kNN cut decisive; clusters {split} left "
+                 "out: their rank cut splits a degenerate singular value)"
+                 if name == "SLEEC" else "") +
+              f", top-j id sets differ at {bad} of {checked} decisive cuts",
+              flush=True)
+        _need(err <= tol and bad == 0 and checked > 0,
+              f"{name}: the card's model is outside the CPU's bounds")
+    h, c = cpu["FastXML"], card["FastXML"]
+    worst, low_train = 0.0, math.inf
+    for th, tc in zip(h.trees, c.trees):
+        _need((th.root, th.depth) == (tc.root, tc.depth) and
+              torch.equal(th.children, tc.children.cpu()) and
+              torch.equal(th.leaves, tc.leaves.cpu()),
+              "FastXML: the card's tree is not the CPU's")
+        worst = max(worst, rel_err(tc.splits.cpu(), th.splits))
+        low_train = min(low_train, float(plane_margins(
+            th, torch.from_numpy(d.X_train)).min()))
+    near = torch.zeros(len(Xh), dtype=torch.bool)
+    for th in h.trees:
+        near |= plane_margins(th, Xh) < NEAR_PLANE
+    rows = ~near.numpy()
+    a = c.predict_topk(Xc, K)[1].cpu().numpy()[rows]
+    bad = int((a != h.predict_topk(Xh, K)[1].numpy()[rows]).any(1).sum())
+    out["FastXML"] = dict(splits=worst, tol=BASE_TOL["FastXML"],
+                          skipped_near_plane=int(near.sum()), ids_differ=bad,
+                          train_margin=low_train)
+    print(f"   FastXML card vs CPU: the same {len(h.trees)} trees, splits "
+          f"{worst:.3e} of their magnitude (bound {BASE_TOL['FastXML']:g}),"
+          f" leaves equal; the smallest margin of a training row at a "
+          f"final plane {low_train:.3e}; ids differ on {bad} of "
+          f"{int(rows.sum())} rows ({int(near.sum())} skipped: a path "
+          f"within {NEAR_PLANE:g} of a plane)", flush=True)
+    _need(worst <= BASE_TOL["FastXML"] and bad == 0,
+          "FastXML: the card's model is outside the CPU's bounds")
+    again = trainers["PD-Sparse"](d.X_train, d.Y_train)
+    same = bool(torch.equal(again.W, card["PD-Sparse"].W))
+    out["PD-Sparse"]["bit_for_bit_twice"] = same
+    print(f"   PD-Sparse trained twice on the card ({PD_SPARSE_STEPS} steps):"
+          f" equal bit for bit {same}", flush=True)
+    _need(same, "PD-Sparse: two card runs differ")
+    return out
+
+
+def table2(root: Path, margin_tol: float) -> tuple[list, dict, dict]:
+    """Phase 12b (a): Table 2 on the four paper-like datasets, every method
+    trained on the card. Returns (rows, headline, the baselines trained on
+    wiki31k_like)."""
+    from repro_torch.core.prediction import evaluate
+    from repro_torch.data.xmc import load_paper_like
+    trainers = baseline_trainers()
+    rows, card31 = [], {}
+    for ds in PAPER_LIKE:
+        d = load_paper_like(ds, seed=0)
+        Xte = torch.from_numpy(d.X_test).cuda()
+        Yte = torch.from_numpy(d.Y_test).cuda()
+        labels, st = fit_dismec(d, root)
+        rows.append(dict(dataset=ds, method="DiSMEC", **evaluate(
+            Yte, torch.from_numpy(labels).cuda()), **st))
+        for name, fn in trainers.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model = fn(d.X_train, d.Y_train)
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            ids, st = predict_baseline(f"{ds} {name}", model, Xte,
+                                       margin_tol)
+            rows.append(dict(dataset=ds, method=name,
+                             **evaluate(Yte, ids), train_s=train_s, **st))
+            if ds == PAPER_LIKE[0]:
+                card31[name] = model
+        shown = [r for r in rows if r["dataset"] == ds]
+        print(f"   {ds} (N {d.X_train.shape[0]}, D {d.X_train.shape[1]}, L"
+              f" {d.n_labels}, {d.X_test.shape[0]} held out):", flush=True)
+        for r in shown:
+            extra = (f"kernel 9 launches {r['launches']}, ids == plain on "
+                     f"{r['agree']}/{r['decisive']} decisive rows"
+                     if "decisive" in r else
+                     f"launches {r['launches']}")
+            print(f"     {r['method']:>9s}: P@1 {r['P@1']:.4f} P@3 "
+                  f"{r['P@3']:.4f} P@5 {r['P@5']:.4f} nDCG@3 "
+                  f"{r['nDCG@3']:.4f} nDCG@5 {r['nDCG@5']:.4f} train_s "
+                  f"{r['train_s']:.2f}; {extra}", flush=True)
+    headline = {}
+    print("   headline (paper §4.1: DiSMEC within 0.02 of the best P@1; "
+          "reported, not enforced):", flush=True)
+    for ds in PAPER_LIKE:
+        rs = [r for r in rows if r["dataset"] == ds]
+        best = max(rs, key=lambda r: r["P@1"])
+        dis = next(r for r in rs if r["method"] == "DiSMEC")
+        ok = dis["P@1"] >= best["P@1"] - 0.02
+        headline[ds] = dict(best=best["method"], best_p1=best["P@1"],
+                            dismec_p1=dis["P@1"], ok=ok)
+        print(f"     [{'OK ' if ok else 'MISS'}] {ds}: best "
+              f"{best['method']} ({best['P@1']:.4f}), DiSMEC "
+              f"{dis['P@1']:.4f}", flush=True)
+    return rows, headline, card31
+
+
+def wide_baselines(data, dismec_W: torch.Tensor, margin_tol: float) -> dict:
+    """Phase 12b (b) on phase 5's data: L1-SVM on phase 8's first label
+    batch beside phase 8's model on the same labels (density, P@k, Fig. 2's
+    statistics), and FastXML over every label."""
+    from repro_torch.baselines.l1_svm import LinearModel
+    from repro_torch.core.prediction import evaluate
+    from repro_torch.core.pruning import (ambiguous_fraction, nnz,
+                                          weight_histogram)
+    trainers = baseline_trainers()
+    X = torch.from_numpy(data.X_train).cuda()
+    Xte = torch.from_numpy(data.X_test).cuda()
+    Y1 = torch.from_numpy(np.ascontiguousarray(
+        data.Y_train[:, :TRAIN_BATCH])).cuda()
+    Yte1 = torch.from_numpy(np.ascontiguousarray(
+        data.Y_test[:, :TRAIN_BATCH])).cuda()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    l1 = trainers["L1-SVM"](X, Y1, **WIDE_L1)
+    torch.cuda.synchronize()
+    l1_s = time.perf_counter() - t0
+    l1_peak = torch.cuda.max_memory_allocated() / 2**30
+    out = {"shape": [TRAIN_BATCH, TRAIN_N, N_FEATURES], "l1_svm": {},
+           "dismec": {}}
+    for key, name, model in (("l1_svm", "L1-SVM", l1),
+                             ("dismec", "DiSMEC (phase 8)",
+                              LinearModel(W=dismec_W.cuda()))):
+        ids, st = predict_baseline(f"wide {name}", model, Xte, margin_tol)
+        m = evaluate(Yte1, ids, ks=(1, 5))
+        counts, _ = weight_histogram(model.W)
+        out[key] = dict(density=float(nnz(model.W)) / model.W.numel(),
+                        ambiguous=float(ambiguous_fraction(model.W, DELTA)),
+                        histogram=counts.tolist(), p_at_1=m["P@1"],
+                        p_at_5=m["P@5"], **st)
+        print(f"   {name} on labels 0-{TRAIN_BATCH - 1}: density "
+              f"{out[key]['density']:.5f}, P@1 {m['P@1']:.4f}, P@5 "
+              f"{m['P@5']:.4f}, ambiguous fraction (|w| < {DELTA}) "
+              f"{out[key]['ambiguous']:.5f}; kernel 9 launches "
+              f"{st['launches']}, ids == plain on {st['agree']}/"
+              f"{st['decisive']} decisive rows", flush=True)
+        print(f"     weight histogram, 81 bins of [-0.2, 0.2] (Fig. 2): "
+              f"{' '.join(map(str, counts.tolist()))}", flush=True)
+    out["l1_svm"].update(train_s=l1_s, step_ms=l1_s / WIDE_L1["n_steps"]
+                         * 1e3, peak_gib=l1_peak, **WIDE_L1)
+    print(f"   L1-SVM: {WIDE_L1['n_steps']} FISTA steps at lam "
+          f"{WIDE_L1['lam']} in {l1_s:.1f} s ({out['l1_svm']['step_ms']:.1f}"
+          f" ms a step), max_memory_allocated {l1_peak:.2f} GiB", flush=True)
+    del l1, Y1, Yte1
+    torch.cuda.empty_cache()
+    Y = torch.from_numpy(data.Y_train).cuda()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fx = trainers["FastXML"](X, Y, **WIDE_FASTXML)
+    torch.cuda.synchronize()
+    fx_s = time.perf_counter() - t0
+    ids, st = predict_baseline("wide FastXML", fx, Xte, margin_tol)
+    m = evaluate(torch.from_numpy(data.Y_test).cuda(), ids)
+    out["fastxml"] = dict(build_s=fx_s, **st, **m, **WIDE_FASTXML,
+                          leaves=[int(t.leaves.shape[0]) for t in fx.trees])
+    print(f"   FastXML over {TRAIN_LABELS} labels: {WIDE_FASTXML['n_trees']}"
+          f" trees of depth <= {WIDE_FASTXML['max_depth']} "
+          f"({out['fastxml']['leaves']} leaves) built in {fx_s:.1f} s, "
+          f"predicted {len(data.X_test)} rows in {st['predict_s']:.3f} s; "
+          f"P@1 {m['P@1']:.4f} P@3 {m['P@3']:.4f} P@5 {m['P@5']:.4f}; "
+          f"kernel 9 launches {st['launches']}, ids == plain on "
+          f"{st['agree']}/{st['decisive']} decisive rows", flush=True)
+    del X, Y, fx
+    torch.cuda.empty_cache()
+    # What stays at the paper-like sizes, and why.
+    gram_gb = N_FEATURES ** 2 * 4 / 1e9
+    need_gb = 2 * gram_gb + data.X_train.nbytes / 1e9
+    card_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    pd_pflop = PD_SPARSE_STEPS * 2 * 2 * TRAIN_BATCH * TRAIN_N * \
+        N_FEATURES / 1e15
+    pd_s = PD_SPARSE_STEPS * out["l1_svm"]["step_ms"] / 1e3
+    out["kept_small"] = dict(gram_gb=gram_gb, solve_gb=need_gb,
+                             card_gb=card_gb, pd_sparse_pflop=pd_pflop,
+                             pd_sparse_s=pd_s)
+    print(f"   LEML and SLEEC stay at the paper-like sizes: their D x D "
+          f"Gram at D = {N_FEATURES:,} is {gram_gb:.1f} GB of fp32; its "
+          f"LU factor is a second, and with X they need {need_gb:.1f} GB, "
+          f"beyond the card's {card_gb:.1f} GB. PD-Sparse too: "
+          f"{PD_SPARSE_STEPS:,} "
+          f"steps of two ({TRAIN_BATCH:,} x {TRAIN_N:,} x {N_FEATURES:,}) "
+          f"products are {pd_pflop:.2f} PFLOP, ~{pd_s:.0f} s at the rate of"
+          f" L1-SVM's steps above.", flush=True)
+    return out
+
+
+def run_baselines(data, dismec_W: torch.Tensor, root: Path,
+                  margin_tol: float, cpu_ref) -> dict:
+    """Phase 12b: the paper's comparison methods on the card; at the end
+    the card's baselines on wiki31k_like are held to the port's on the CPU
+    (`cpu_ref`, from `cpu_baselines`)."""
+    worker, cpu = cpu_ref
+    rows, headline, card31 = table2(root, margin_tol)
+    wide = wide_baselines(data, dismec_W, margin_tol)
+    t0 = time.perf_counter()
+    worker.join()
+    print(f"   the port's baselines on {PAPER_LIKE[0]} on the CPU: waited "
+          f"{time.perf_counter() - t0:.1f} s for them after the card's work",
+          flush=True)
+    if "error" in cpu:
+        raise cpu["error"]
+    vs_cpu = card_against_cpu(cpu["data"], card31, cpu)
+    launches = {f"{r['dataset']} {r['method']}": r["launches"]
+                for r in rows if r["method"] != "DiSMEC"}
+    launches.update({f"wide {k}": wide[k]["launches"]
+                     for k in ("l1_svm", "dismec", "fastxml")})
+    return dict(table2=rows, headline=headline, card_vs_cpu=vs_cpu,
+                wide=wide, topk_launches=launches)
+
+
 def band_pairs(T: int, window: int) -> int:
     """(query, key) pairs of causal sliding-window attention over T
     positions: query i sees min(i + 1, window) keys."""
@@ -2862,17 +3414,26 @@ def main() -> None:
                 mesh_train = train_meshes(data, trained_ckpt, single_calls,
                                           max(1e-7, 10 * err), mesh_root,
                                           args.seed)
+            # Phase 12b sets L1-SVM beside this model's first label batch.
+            dismec_W = packed_weights(trained_ckpt)[:TRAIN_BATCH].cpu()
+            torch.cuda.empty_cache()
         with phase("mesh serve: sharded on (1, 4) and the default mesh"):
             mesh_serve = serve_sharded(ckpt, requests, max(1e-7, 10 * err),
                                        served["labels"])
             del requests
 
+        cpu_ref = cpu_baselines()                   # phase 12b's reference
         with tempfile.TemporaryDirectory(dir=build_dir) as out_root:
             with phase("sweep: lifecycle.sweep on the card"):
                 swept = run_sweep(data, out_root)
-            del data
             with phase("CLI: launch.serve --xmc --server, SIGTERM"):
                 cli = run_cli(out_root)
+        with phase("baselines: Table 2 on the paper-like datasets; L1-SVM "
+                   "and FastXML at Wiki10-31K width"):
+            base = run_baselines(data, dismec_W, build_dir,
+                                 max(1e-7, 10 * err), cpu_ref)
+        del data, dismec_W
+        torch.cuda.empty_cache()
 
     from repro_torch.configs import get_config
     from repro_torch.models.model import build_model as build_lm
@@ -2934,7 +3495,8 @@ def main() -> None:
              "registers, rounds as two warp reductions", redesigned=True,
              cases=topk["cases"], launches_mesh={
                  f"sharded {k}": v["launches"]["blocked_topk"]
-                 for k, v in mesh_serve.items()}),
+                 for k, v in mesh_serve.items()},
+             launches_baselines=base["topk_launches"]),
     ]
     at = "(L, N, D) = ({}, {}, {})".format(*train_k["shape"])
     for name, key, src, replaces, err_key in (
@@ -3015,6 +3577,7 @@ def main() -> None:
     print(json.dumps({"lm": {"arch": LM_ARCH, "params": n_params,
                              "prefill": lm_pre, "decode": lm_dec,
                              "serve": lm_srv, "cli": lm_cli_out}}))
+    print(json.dumps({"baselines": base}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,7 +3,8 @@
 The JAX package holds jax arrays; handed over as numpy, they become the
 port's objects on a device: a packed `BlockSparseModel` or its int8
 form `Int8BlockSparseModel`, a trained `DiSMECModel`, a `TronResult`, a
-warm start W0, or an LM's parameters (`lm_params_from_jax`). For example
+warm start W0, an LM's parameters (`lm_params_from_jax`), or a Table 2
+baseline's model (`*_model_from_numpy`). For example
 
     fields = {f: np.asarray(getattr(jax_model, f))
               for f in ("blocks", "block_rows", "block_cols", "row_ptr")}
@@ -137,3 +138,53 @@ def lm_params_from_jax(cfg, params_np: dict, *, device=None):
     params = LMParams(cfg, device=resolve_device(device))
     params.load_state_dict(flat, strict=True)
     return params
+
+
+# --- The Table 2 baselines (`repro_torch.baselines`) ----------------------
+
+def _f32(a, device) -> torch.Tensor:
+    return torch.tensor(np.asarray(a, np.float32), device=device)
+
+
+def linear_model_from_numpy(W: np.ndarray, *, device=None):
+    """L1-SVM's or PD-Sparse's model from the JAX one's `W` (L, D)."""
+    from repro_torch.baselines.l1_svm import LinearModel
+    return LinearModel(W=_f32(W, resolve_device(device)))
+
+
+def leml_model_from_numpy(U: np.ndarray, V: np.ndarray, *, device=None):
+    """LEML's model from the JAX one's `U` (D, r) and `V` (L, r)."""
+    from repro_torch.baselines.leml import LEMLModel
+    device = resolve_device(device)
+    return LEMLModel(U=_f32(U, device), V=_f32(V, device))
+
+
+def sleec_model_from_numpy(centroids: np.ndarray, regressors, embeddings,
+                           labels, *, knn: int, device=None):
+    """SLEEC's model from the JAX one's `centroids` (k, D) and its
+    per-cluster lists `regressors` (D, r), `embeddings` (n_c, r) and
+    `labels` (n_c, L)."""
+    from repro_torch.baselines.sleec import SLEECModel
+    device = resolve_device(device)
+    return SLEECModel(centroids=_f32(centroids, device),
+                      regressors=[_f32(a, device) for a in regressors],
+                      embeddings=[_f32(a, device) for a in embeddings],
+                      labels=[_f32(a, device) for a in labels], knn=int(knn))
+
+
+def fastxml_model_from_numpy(trees: list[dict], *, n_labels: int,
+                             device=None):
+    """FastXML's model from flattened trees, each a dict of `splits` (S, D),
+    `children` (S, 2) and `leaves` (n_leaves, L) arrays and the ints
+    `root` and `depth`, numbered as `baselines.fastxml.Tree` numbers them
+    (depth-first, a node before its left then its right subtree; a child
+    code c >= 0 is internal node c, c < 0 leaf -1 - c); `splits` is (0, D)
+    for a tree that is one leaf."""
+    from repro_torch.baselines.fastxml import FastXMLModel, Tree
+    device = resolve_device(device)
+    return FastXMLModel(trees=[Tree(
+        splits=_f32(t["splits"], device),
+        children=torch.tensor(np.asarray(t["children"], np.int64)
+                              .reshape(-1, 2), device=device),
+        leaves=_f32(t["leaves"], device), root=int(t["root"]),
+        depth=int(t["depth"])) for t in trees], n_labels=int(n_labels))

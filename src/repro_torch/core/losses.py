@@ -60,6 +60,13 @@ def objective_grad_act(W: torch.Tensor, X: torch.Tensor, S: torch.Tensor,
     return f, grad, act
 
 
+def objective_and_grad(W: torch.Tensor, X: torch.Tensor, S: torch.Tensor,
+                       C: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """(f, grad) only: `objective_grad_act` without the mask."""
+    f, grad, _ = objective_grad_act(W, X, S, C)
+    return f, grad
+
+
 def hessian_vp(V: torch.Tensor, X: torch.Tensor, act: torch.Tensor,
                C: float) -> torch.Tensor:
     """Generalized-Hessian vector product, batched over labels:
@@ -69,3 +76,27 @@ def hessian_vp(V: torch.Tensor, X: torch.Tensor, act: torch.Tensor,
     V (L, D) directions; act (L, N) the mask at the current Newton iterate.
     """
     return 2.0 * V + 2.0 * C * ((act * (V @ X.T)) @ X)
+
+
+def l1_objective_smooth_part(W: torch.Tensor, X: torch.Tensor,
+                             S: torch.Tensor, C: float) -> torch.Tensor:
+    """Smooth part of the l1-SVM baseline's objective, per label:
+    C * sum hinge^2 (no regularizer)."""
+    hinge = margins(W, X, S).clamp_min(0.0)
+    return C * (hinge * hinge).sum(-1)
+
+
+def l1_grad_smooth_part(W: torch.Tensor, X: torch.Tensor, S: torch.Tensor,
+                        C: float) -> torch.Tensor:
+    """Gradient of the smooth part, 2C r @ X: the gradient of
+    `objective_grad_act` without its 2W term."""
+    scores = W @ X.T
+    act = ((1.0 - S * scores) > 0.0).to(scores.dtype)
+    return 2.0 * C * ((act * (scores - S)) @ X)
+
+
+def soft_threshold(W: torch.Tensor, tau) -> torch.Tensor:
+    """Prox of tau * ||.||_1 (the l1 baselines' step); `tau` a float or a
+    0-d tensor. sign(W) * max(|W| - tau, 0), with W's sign copied onto the
+    magnitude in place: the same bits, one temporary fewer."""
+    return (W.abs() - tau).clamp_min_(0.0).copysign_(W)

@@ -31,6 +31,43 @@ def prune(W: torch.Tensor, delta: float) -> torch.Tensor:
                                                     device=W.device), W)
 
 
+def nnz(W: torch.Tensor) -> torch.Tensor:
+    """Count of nonzero weights (an int64 0-d tensor)."""
+    return (W != 0.0).sum()
+
+
+def sparsity(W: torch.Tensor) -> torch.Tensor:
+    """Share of exact zeros."""
+    return 1.0 - nnz(W) / W.numel()
+
+
+def ambiguous_fraction(W: torch.Tensor, delta: float = 0.01) -> torch.Tensor:
+    """Share of weights with |w| < delta: the paper reports 96% (Wiki-31K)
+    and 99.5% (WikiLSHTC-325K)."""
+    return (W.abs() < delta).float().mean()
+
+
+def weight_histogram(W: torch.Tensor, bins: int = 81, lim: float = 0.2
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Histogram of the learnt weights over `bins` equal bins of [-lim,
+    lim] (paper Fig. 2a/2b): (counts int64 (bins,), edges (bins + 1,)).
+
+    Bins are half-open [a, b), the last one closed, and values outside
+    [-lim, lim] are not counted, as `jnp.histogram` does. `torch.histogram`
+    has no CUDA version and `torch.histc` places values by float
+    arithmetic, so each value is bucketed against the edges themselves.
+    `torch.linspace` and `jnp.linspace` may differ by an ulp at an edge,
+    and a value that close to an edge may then fall in the next bin.
+    """
+    edges = torch.linspace(-lim, lim, bins + 1, dtype=torch.float32,
+                           device=W.device)
+    w = W.reshape(-1).float()
+    w = w[(w >= edges[0]) & (w <= edges[-1])]
+    b = torch.bucketize(w, edges, right=True) - 1     # edges[b] <= w
+    b = b.clamp_max(bins - 1)                          # the last bin closed
+    return torch.bincount(b, minlength=bins), edges
+
+
 @dataclasses.dataclass
 class BlockSparseModel:
     """Packed BSR representation of a pruned weight matrix.

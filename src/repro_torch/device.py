@@ -24,6 +24,15 @@ def to_numpy(a) -> np.ndarray:
     return np.asarray(a)
 
 
+def as_f32(a, device) -> torch.Tensor:
+    """`a` (an array-like or a tensor) as a float32 tensor on `device`."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device=device, dtype=torch.float32)
+    a = np.asarray(a, np.float32)
+    return to_device(torch.from_numpy(a) if a.flags.writeable
+                     else torch.tensor(a), device)
+
+
 # A pageable host-to-card copy holds off every other thread's copies and
 # launches for as long as it runs, whatever stream each is on: a model
 # loaded while the card serves stalls the serving threads for the whole

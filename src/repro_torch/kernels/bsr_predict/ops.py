@@ -423,6 +423,12 @@ def model_flops(model, n: int) -> int:
     return 2 * n * bl * bd * model.n_blocks
 
 
+def dense_flops(model, n: int) -> int:
+    """FLOPs of the same product over the dense padded matrix."""
+    Lp, Dp = model.shape
+    return 2 * n * Lp * Dp
+
+
 def _selected_block_count(model, sel) -> int:
     ptr = to_numpy(model.row_ptr)
     sel = to_numpy(sel)

@@ -1282,3 +1282,123 @@ def test_lm_prefill_and_decode_on_the_card(cuda):
                 for k in ("k", "v")}}, i[:, :1], 2304, use_swa=True)
     assert topk_ops.blocked_topk_cuda.launches == before + 1
     assert out[1].shape == (2, 5) and out[1].device.type == "cuda"
+
+
+# --- the Table 2 baselines (repro_torch.baselines) --------------------------
+
+BASELINES = ("l1_svm", "leml", "sleec", "fastxml", "pd_sparse")
+
+
+@pytest.fixture(scope="module")
+def baseline_data():
+    from repro_torch.data.xmc import make_xmc_dataset
+    return make_xmc_dataset(n_train=300, n_test=100, n_features=1024,
+                            n_labels=64, seed=0)
+
+
+def _train_baseline(name, d, device, **kw):
+    from repro_torch import baselines
+    if name == "pd_sparse":
+        kw.setdefault("n_steps", 100)
+    return getattr(baselines, f"train_{name}")(d.X_train, d.Y_train,
+                                               device=device, **kw)
+
+
+def _to_card(name, m, device):
+    """A CPU-trained baseline's model, carried to `device`."""
+    from repro_torch import convert
+    if name in ("l1_svm", "pd_sparse"):
+        return convert.linear_model_from_numpy(m.W.numpy(), device=device)
+    if name == "leml":
+        return convert.leml_model_from_numpy(m.U.numpy(), m.V.numpy(),
+                                             device=device)
+    if name == "sleec":
+        return convert.sleec_model_from_numpy(
+            m.centroids.numpy(), [a.numpy() for a in m.regressors],
+            [a.numpy() for a in m.embeddings], [a.numpy() for a in m.labels],
+            knn=m.knn, device=device)
+    return convert.fastxml_model_from_numpy(
+        [dict(splits=t.splits.numpy(), children=t.children.numpy(),
+              leaves=t.leaves.numpy(), root=t.root, depth=t.depth)
+         for t in m.trees], n_labels=m.n_labels, device=device)
+
+
+def _decisive_rows(s: np.ndarray, tol: float, k: int = 5) -> np.ndarray:
+    top = -np.sort(-s, axis=1)
+    return (top[:, k - 1] - top[:, k]) > 2 * tol * np.abs(s).max(axis=1)
+
+
+@pytest.mark.parametrize("name", BASELINES)
+def test_baseline_predict_on_the_card(cuda, baseline_data, name):
+    """A CPU-trained baseline on the card: `predict_topk` launches the
+    top-k kernel (SLEEC also for its kNN sets) and gives the CPU's ids on
+    every row whose 5th and 6th scores lie more than 2e-5 of the row's
+    largest |score| apart, and the plain path's (a stable sort of the
+    card's own scores) on every row."""
+    d = baseline_data
+    host = _train_baseline(name, d, "cpu")
+    card = _to_card(name, host, cuda)
+    before = topk_ops.blocked_topk_cuda.launches
+    vals, ids = card.predict_topk(d.X_test, 5)
+    torch.cuda.synchronize()
+    launched = topk_ops.blocked_topk_cuda.launches - before
+    assert launched >= (2 if name == "sleec" else 1)
+    s_card = card.scores(d.X_test)
+    want = topk_ref.topk(s_card, 5)
+    assert torch.equal(ids, want[1]) and torch.equal(vals, want[0])
+    s = host.scores(d.X_test).numpy()
+    rows = _decisive_rows(s, 1e-5)
+    assert rows.sum() >= 30
+    np.testing.assert_array_equal(ids.cpu().numpy()[rows],
+                                  host.predict_topk(d.X_test, 5)[1]
+                                  .numpy()[rows])
+
+
+@pytest.mark.parametrize("name,tol", [("l1_svm", 5e-4), ("leml", 1e-4),
+                                      ("sleec", 1e-4), ("pd_sparse", 1e-5)])
+def test_baseline_trained_on_the_card(cuda, baseline_data, name, tol):
+    """Each baseline trained on the card against the same port on the CPU,
+    to the CPU tests' bounds against the JAX package: L1-SVM's weights
+    within 5e-4 of their magnitude, LEML's and SLEEC's scores within 1e-4,
+    PD-Sparse's 100 steps within 1e-5; ids on decisive rows."""
+    d = baseline_data
+    host = _train_baseline(name, d, "cpu")
+    card = _train_baseline(name, d, cuda)
+    s_host = host.scores(d.X_test).numpy()
+    s_card = card.scores(d.X_test).cpu().numpy()
+    if name in ("l1_svm", "pd_sparse"):
+        err = float((card.W.cpu() - host.W).abs().max() / host.W.abs().max())
+        assert err <= tol, err
+    else:
+        err = np.abs(s_card - s_host).max() / np.abs(s_host).max()
+        assert err <= tol, err
+    rows = _decisive_rows(s_host, tol)
+    assert rows.sum() >= 30
+    np.testing.assert_array_equal(
+        card.predict_topk(d.X_test, 5)[1].cpu().numpy()[rows],
+        host.predict_topk(d.X_test, 5)[1].numpy()[rows])
+
+
+def test_pd_sparse_on_the_card_bit_for_bit(cuda, baseline_data):
+    """M @ X in place of the scatter-add: two card runs give the same W."""
+    d = baseline_data
+    a = _train_baseline("pd_sparse", d, cuda, n_steps=300)
+    b = _train_baseline("pd_sparse", d, cuda, n_steps=300)
+    assert torch.equal(a.W, b.W)
+
+
+def test_fastxml_card_tree_is_the_cpu_tree(cuda, baseline_data):
+    """The same draws, splits within 1e-5 of their magnitude, the same
+    children and leaves, and the same ids on every row."""
+    d = baseline_data
+    host = _train_baseline("fastxml", d, "cpu")
+    card = _train_baseline("fastxml", d, cuda)
+    for h, c in zip(host.trees, card.trees):
+        assert (h.root, h.depth) == (c.root, c.depth)
+        assert torch.equal(h.children, c.children.cpu())
+        assert torch.equal(h.leaves, c.leaves.cpu())
+        err = (c.splits.cpu() - h.splits).abs().max() / h.splits.abs().max()
+        assert float(err) <= 1e-5
+    np.testing.assert_array_equal(card.predict_topk(d.X_test, 5)[1].cpu()
+                                  .numpy(),
+                                  host.predict_topk(d.X_test, 5)[1].numpy())
