@@ -199,7 +199,8 @@ drawn from the seed:
                    `torch.profiler`: the ten device operations that take
                    the most time, with their totals;
  15. lm decode   — (a) `prefill` at (2, 2,304) against 2,304
-                   teacher-forced `decode_step`s on a cache of 2,304: every
+                   teacher-forced `decode_step`s on a cache of 2,304, at
+                   hymba's width cut to 4 layers (0 and 3 global): every
                    layer's k/v caches and the last position's top-5 ids
                    on decisive rows, then `torch.profiler` over 5 decode
                    steps (device against host time a step); (b) `serve_batch` of 4 ragged prompts
@@ -208,10 +209,31 @@ drawn from the seed:
                    repro_torch.launch.serve --arch hymba-1.5b --steps 16
                    --batch 4` exits 0.
 
+Then LM training (`train/trainer.py`), which launches none of the ten
+kernels (their counts set to 0 before the phase and read after):
+
+ 16. lm train    — (a) hymba-1.5b-smoke and qwen1.5-0.5b-smoke in fp32,
+                   both heads: `make_train_step` with accum = 2 for 3
+                   steps on the card against the port on the CPU (each
+                   loss, the first gradients, `adamw_update` of the card's
+                   gradients), and twice on the card, bit for bit; (b)
+                   hymba-1.5b at full width in bf16, T = 4,096 (train_4k's
+                   length), micro-batch 1 x accum 2, 8 steps of
+                   TokenPipeline batches: first the same first batch's
+                   loss and gradients in bf16 (under `torch.profiler`)
+                   against an fp32 copy of the weights, then seconds a
+                   step, tokens/s, peak memory and the share of the bf16
+                   peak, the loss finite and falling; (c) `python -m
+                   repro_torch.launch.train --arch hymba-1.5b --smoke
+                   --steps 20 --seq-len 128 --batch 8 --out DIR` exits 0
+                   with its loss falling, and `restore_pytree(DIR)` equals
+                   the same training in this process bit for bit.
+
 The lines before the last are the kernels' JSON summary (all ten
 kernels; `launches_mesh` for kernels 1, 2 and 9 counts phases 10b and
 10c, `launches_baselines` for kernel 9 phase 12b's predictions), the
-training, server, sweep, mesh, LM and baselines JSON summaries and the
+training, server, sweep, mesh, LM (phase 16 under "train") and baselines
+JSON summaries and the
 card's name and power limit from nvidia-smi; the last line is `{"ok":
 true, "device": {...}}`.
 Any failure exits non-zero before it. Without a CUDA card, or outside a
@@ -227,6 +249,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -356,6 +379,11 @@ PD_SPARSE_STEPS = 1_500     # train_pd_sparse's default
 LM_ARCH = "hymba-1.5b"
 LM_PREFILL = (1, 32_768)                        # prefill_32k's length
 LM_DECODE = (2, 2_304)                          # above DENSE_ATTN_MAX_T
+# Phase 15a's model: hymba-1.5b at full width with its depth cut to these
+# layers, global attention in the first and last (two local layers
+# between). Decode is launch-bound (~2.5 ms a layer a step), and the 32
+# layers took 159-184 s of the script's 1,200 for 2,304 steps.
+LM_DECODE_LAYERS, LM_DECODE_GLOBAL = 4, (0, 3)
 LM_SERVE = dict(batch=4, steps=16)
 # Kernel 10 against its plain version: (B, T, dtype) at hymba's heads
 # (H, KV, hd, window) = (25, 5, 64, 1024); the last with window >= T.
@@ -384,6 +412,41 @@ LM_MARGIN = 5e-2
 LM_CACHE_FIRST = 1e-2
 LM_CACHE_FIRST_DECODE = 5e-2
 LM_CACHE = 2e-1
+# Phase 16: LM training, which runs no kernel (the JAX package trains with
+# full attention: `train_loss` passes no `use_swa`). (a) The smoke configs
+# in fp32, `make_train_step` with accum = 2 on the card against the port on
+# the CPU: (accum, micro-batch, T) and steps below; the loss at each step
+# within LM_TRAIN_TOL["loss"] relative, the first step's gradients within
+# LM_TRAIN_TOL["grad"] of the largest |element| (the CPU tests' bound
+# against the JAX package), `adamw_update` of the card's first gradients on
+# both sides within LM_TRAIN_TOL["adam"] relative; two card runs bit for
+# bit. (b) hymba-1.5b at full width in bf16 at train_4k's length
+# (configs/base.py), its global batch of 256 cut to micro-batch 1 x accum 2,
+# 8 steps of TokenPipeline batches; the same first batch through an fp32
+# copy of the weights: the bf16 loss within LM_TRAIN_TOL["bf16_loss"]
+# relative, and the cosine of the bf16 and fp32 gradients of the head and
+# of the last block >= LM_TRAIN_TOL["cos"]; the flattened gradients'
+# cosine and each group's are reported. In bf16 the early layers'
+# gradients are mostly rounding: the backward through a block's norm
+# multiplies by 1 / rms(x), ~40 at the embeddings (N(0, 1/d)), on a
+# difference of near-equal terms. The JAX package shows it worse than the
+# port: at hymba's width, 8 layers, T = 256, on the same weights, its bf16
+# gradient has cosine 0.136 with its fp32 one (embed 0.092, block 0 0.138,
+# block 7 0.998, head 0.9999), the port's 0.829 (0.765, 0.814, 0.992,
+# 0.9998), and the fp32 gradients agree to 0.999999
+# (`tools/compare_bf16_grads.py`, on the CPU). On the card, at 32 layers,
+# the flattened cosine read 0.2226 (embed and block 0 errors above 100%,
+# block 31 16%, the head 1%).
+# (c) The training CLI at the smoke size below, then the same training in
+# this process: `restore_pytree` of the CLI's checkpoint gives its weights
+# bit for bit.
+LM_TRAIN_SMOKE = ("hymba-1.5b", "qwen1.5-0.5b")
+LM_TRAIN_SMOKE_SHAPE = dict(accum=2, micro=2, T=64, steps=3)
+LM_TRAIN_FULL = dict(accum=2, micro=1, T=4096, steps=8)
+LM_TRAIN_LR = (3e-4, 2, 8)       # linear_warmup_cosine: lr > 0 from step 1
+LM_TRAIN_CLI = dict(steps=20, seq_len=128, batch=8)
+LM_TRAIN_TOL = dict(loss=1e-4, grad=1e-5, adam=1e-6, bf16_loss=1e-2,
+                    cos=0.95)
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
@@ -3072,13 +3135,19 @@ def lm_prefill(model, params, rng) -> dict:
 
 
 def profile_prefill(model, params, batch, top: int = 10) -> dict:
-    """One more kernel prefill under `torch.profiler` (device activity
-    only): the device time of the `top` device operations that take the
-    most, their launch counts, and the prefill's device total and wall."""
+    """One more kernel prefill under `torch.profiler` (`profiled`)."""
+    return profiled("prefill", lambda: model.prefill(
+        params, batch, use_swa=True, top_k=6), top)[1]
+
+
+def profiled(what: str, fn, top: int = 10):
+    """fn() under `torch.profiler` (device activity only) -> (its result,
+    the device time of the `top` device operations that take the most,
+    their launch counts, and the device total and wall)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        model.prefill(params, batch, use_swa=True, top_k=6)
+        out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
@@ -3090,20 +3159,22 @@ def profile_prefill(model, params, batch, top: int = 10) -> dict:
     ops = [dict(op=re.sub(r"^void |\(anonymous namespace\)::|\(.*$", "",
                           e.key)[:100], ms=device_us(e) / 1e3, count=e.count)
            for e in sorted(events, key=lambda e: -device_us(e))[:top]]
-    print(f"   profiled prefill: {total:.1f} ms of device time against "
-          f"{1e3 * wall:.1f} ms of wall (traced); the {top} device "
-          "operations that take the most:", flush=True)
+    print(f"   profiled {what}: {total:.1f} ms of device time against "
+          f"{1e3 * wall:.1f} ms of wall (traced), "
+          f"{sum(e.count for e in events)} device operations; the {top} "
+          "that take the most:", flush=True)
     for o in ops:
         print(f"     {o['ms']:9.2f} ms  {o['count']:6d} x  {o['op']}",
               flush=True)
-    return dict(device_ms=total, traced_wall_ms=1e3 * wall, top=ops)
+    return out, dict(device_ms=total, traced_wall_ms=1e3 * wall,
+                     device_ops=sum(e.count for e in events), top=ops)
 
 
 def lm_decode(model, params, rng) -> dict:
     """Phase 15a: `prefill` at (2, 2,304) against 2,304 teacher-forced
-    `decode_step`s on a cache of length 2,304: every layer's k and v
-    caches close, and the last position's top-5 ids equal on decisive
-    rows."""
+    `decode_step`s on a cache of length 2,304 (the model of
+    LM_DECODE_LAYERS layers): every layer's k and v caches close, and the
+    last position's top-5 ids equal on decisive rows."""
     cfg = model.cfg
     B, T = LM_DECODE
     toks = torch.from_numpy(rng.integers(2, cfg.vocab, size=(B, T))).cuda()
@@ -3122,7 +3193,8 @@ def lm_decode(model, params, rng) -> dict:
     errs = cache_errors(cache_p, cache_d, T, 0, LM_CACHE_FIRST_DECODE)
     del cache_p, cache_d
     trace = trace_decode(model, params, toks)
-    print(f"   {T:,} decode steps at B = {B}: {wall:.1f} s "
+    print(f"   {T:,} decode steps at B = {B}, {cfg.n_layers} layers: "
+          f"{wall:.1f} s "
           f"({1e3 * wall / T:.2f} ms a step); last-position top-5 "
           f"{i[:, :5].tolist()} vs {di[:, :5].tolist()}, decisive rows "
           f"{ids['decisive']} of {ids['rows']}, max |value diff| "
@@ -3130,7 +3202,8 @@ def lm_decode(model, params, rng) -> dict:
           f"{errs['v']:.2e} (worst layers {errs['k_worst_layer']}, "
           f"{errs['v_worst_layer']}); ssm {errs.get('ssm_0', 0):.2e} / "
           f"{errs.get('ssm_1', 0):.2e}", flush=True)
-    return dict(B=B, T=T, decode_wall_s=wall, ms_per_step=1e3 * wall / T,
+    return dict(B=B, T=T, n_layers=cfg.n_layers, decode_wall_s=wall,
+                ms_per_step=1e3 * wall / T,
                 top5=ids, cache_rel_err=errs, trace=trace)
 
 
@@ -3227,6 +3300,306 @@ def lm_cli() -> dict:
     last = out.stdout.strip().splitlines()[-1]
     print(f"   exit 0 in {wall:.1f} s: {last}", flush=True)
     return dict(returncode=0, wall_s=wall, summary=last)
+
+
+def kernel_counters() -> dict:
+    """All ten kernels' launchers, whose `.launches` counts their launches,
+    by the names of the kernels' JSON line."""
+    from repro_torch.kernels.banded_attn import ops as band_ops
+    from repro_torch.kernels.hinge import ops as hinge_ops
+    from repro_torch.kernels.hvp import ops as hvp_ops
+    return {**serving_kernels(),
+            "hinge_obj_grad": hinge_ops.hinge_obj_grad_cuda,
+            "hvp": hvp_ops.hvp_cuda,
+            "banded_attention": band_ops.banded_attention_cuda}
+
+
+def lm_batches(cfg, seed: int, *, accum: int, micro: int, T: int,
+               steps: int) -> list:
+    """`steps` TokenPipeline batches of accum x micro sequences of T
+    tokens, each leaf shaped (accum, micro, T) for `make_train_step`."""
+    from repro_torch.data.lm import make_lm_batch_iterator
+    it = make_lm_batch_iterator(cfg.vocab, T, accum * micro, seed=seed)
+    return [{k: v.reshape(accum, micro, T) for k, v in next(it).items()}
+            for _ in range(steps)]
+
+
+def grad_error(got: dict, want: dict) -> float:
+    """The largest |got - want| over every element of every parameter's
+    gradient, over the largest |want| element."""
+    mag = max(float(w.abs().max()) for w in want.values())
+    return max(float((got[n].cpu().double() - w.cpu().double()).abs().max())
+               for n, w in want.items()) / mag
+
+
+def lm_train_smoke(seed: int) -> list:
+    """Phase 16 (a): the smoke configs on the card against the port on the
+    CPU, both heads (see LM_TRAIN_SMOKE)."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model as build_lm
+    from repro_torch.optim import adamw_init, adamw_update
+    from repro_torch.optim import linear_warmup_cosine
+    from repro_torch.train.trainer import (init_train_state, loss_and_grads,
+                                           make_train_step)
+    sh = LM_TRAIN_SMOKE_SHAPE
+    lr_fn = linear_warmup_cosine(*LM_TRAIN_LR)
+    tol = LM_TRAIN_TOL
+    rows = []
+    for arch in LM_TRAIN_SMOKE:
+        for head in ("dismec", "softmax"):
+            cfg = dataclasses.replace(get_config(arch, smoke=True),
+                                      head_type=head)
+            models = {"cpu": build_lm(cfg, device="cpu"),
+                      "cuda": build_lm(cfg)}
+            p0 = models["cpu"].init(torch.Generator().manual_seed(seed))
+            batches = lm_batches(cfg, seed, accum=sh["accum"],
+                                 micro=sh["micro"], T=sh["T"],
+                                 steps=sh["steps"])
+            grads = {dev: loss_and_grads(m, copy.deepcopy(p0).to(dev),
+                                         batches[0], sh["accum"])[2]
+                     for dev, m in models.items()}
+            g_err = grad_error(grads["cuda"], grads["cpu"])
+            updated = {}
+            for dev in models:
+                p = copy.deepcopy(p0).to(dev)
+                adamw_update(p, {n: g.to(dev) for n, g in
+                                 grads["cuda"].items()}, adamw_init(p),
+                             lr_fn(1))
+                updated[dev] = [t.detach().cpu() for t in p.parameters()]
+            adam_err = max(float(((a - b).abs() / b.abs().clamp_min(1e-3))
+                                 .max()) for a, b in zip(*updated.values()))
+
+            def run(dev):
+                p = copy.deepcopy(p0).to(dev)
+                step = make_train_step(models[dev], lr_fn=lr_fn,
+                                       accum=sh["accum"])
+                st = init_train_state(p)
+                opt, s, losses = st.opt, st.step, []
+                for b in batches:
+                    p, opt, met = step(p, opt, s, b)
+                    s = s + 1
+                    losses.append(float(met["loss"]))
+                return [t.detach() for t in p.parameters()], losses
+            _, host_losses = run("cpu")
+            (pa, la), (pb, lb) = run("cuda"), run("cuda")
+            bits = la == lb and all(torch.equal(a, b)
+                                    for a, b in zip(pa, pb))
+            loss_err = max(abs(a - b) / abs(b)
+                           for a, b in zip(la, host_losses))
+            row = dict(arch=cfg.name, head=head, losses=la,
+                       cpu_losses=host_losses, loss_rel_err=loss_err,
+                       grad_err=g_err, adam_rel_err=adam_err,
+                       bit_for_bit=bits)
+            rows.append(row)
+            print(f"   {cfg.name} {head}: losses {[f'{x:.4f}' for x in la]}"
+                  f" (CPU {[f'{x:.4f}' for x in host_losses]}), rel err "
+                  f"{loss_err:.2e}; first gradients {g_err:.2e} of their "
+                  f"magnitude; adamw card vs CPU {adam_err:.2e}; two card "
+                  f"runs bit for bit: {bits}", flush=True)
+            _need(loss_err <= tol["loss"] and g_err <= tol["grad"] and
+                  adam_err <= tol["adam"] and bits,
+                  f"lm train {cfg.name} {head}: card vs CPU beyond "
+                  f"{tol}: {row}")
+    return rows
+
+
+def flops_per_step(cfg, n_params: int, *, sequences: int, T: int) -> float:
+    """6 N tokens plus causal attention's products, forward and backward
+    (12 H hd per query-key pair a layer; no recompute counted)."""
+    pairs = T * (T + 1) // 2
+    return (6.0 * n_params * sequences * T + 12.0 * cfg.n_layers *
+            cfg.n_heads * cfg.head_dim * pairs * sequences)
+
+
+def lm_train_full(seed: int) -> dict:
+    """Phase 16 (b): hymba-1.5b at full width in bf16 (LM_TRAIN_FULL)."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model as build_lm
+    from repro_torch.optim import linear_warmup_cosine
+    from repro_torch.train.trainer import (init_train_state, loss_and_grads,
+                                           make_train_step)
+    sh = LM_TRAIN_FULL
+    cfg = get_config(LM_ARCH)
+    model = build_lm(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+    n_params = sum(p.numel() for p in params.parameters())
+    batches = lm_batches(cfg, seed, accum=sh["accum"], micro=sh["micro"],
+                         T=sh["T"], steps=sh["steps"])
+    # The first batch through an fp32 copy of the same weights.
+    p32 = copy.deepcopy(params).float()
+    l32, _, g32 = loss_and_grads(model, p32, batches[0], sh["accum"])
+    del p32
+    (l16, _, g16), profile = profiled(
+        "bf16 loss and gradients of the first batch (no optimizer step)",
+        lambda: loss_and_grads(model, params, batches[0], sh["accum"]))
+    dot = sum(float((g16[n].double() * g32[n].double()).sum()) for n in g32)
+    sq16 = sum(float(g16[n].double().square().sum()) for n in g32)
+    sq32 = sum(float(g32[n].double().square().sum()) for n in g32)
+    cos = dot / math.sqrt(sq16 * sq32)
+    loss_err = abs(float(l16) - float(l32)) / abs(float(l32))
+    last = f"block {cfg.n_layers - 1}"
+    groups = {"embed": "embed", "head": "head",
+              **{f"block {b}": f"blocks.{b}" for b in
+                 (0, cfg.n_layers // 2 - 1, cfg.n_layers - 1)}}
+    group_err, group_cos = {}, {}
+    for name, key in groups.items():
+        keys = [n for n in g32 if n == key or n.startswith(key + ".")]
+        a = [g16[n].double() for n in keys]
+        b = [g32[n].double() for n in keys]
+        d = sum(float((x - y).square().sum()) for x, y in zip(a, b))
+        w = sum(float(y.square().sum()) for y in b)
+        group_err[name] = math.sqrt(d / w)
+        group_cos[name] = sum(float((x * y).sum()) for x, y in zip(a, b)) \
+            / math.sqrt(sum(float(x.square().sum()) for x in a) * w)
+    del g32, g16
+    torch.cuda.empty_cache()
+    print(f"   bf16 against fp32 on the first batch: loss {float(l16):.4f} "
+          f"vs {float(l32):.4f} (rel {loss_err:.2e}), flattened gradient "
+          f"cosine {cos:.6f}; by group, relative error and cosine: " +
+          ", ".join(f"{k} {group_err[k]:.3e} / {group_cos[k]:.6f}"
+                    for k in groups), flush=True)
+    _need(loss_err <= LM_TRAIN_TOL["bf16_loss"] and
+          min(group_cos["head"], group_cos[last]) >= LM_TRAIN_TOL["cos"],
+          f"bf16 vs fp32: loss rel err {loss_err:.3e}, cosine of the head "
+          f"{group_cos['head']:.4f}, of {last} {group_cos[last]:.4f}")
+
+    step = make_train_step(model, lr_fn=linear_warmup_cosine(*LM_TRAIN_LR),
+                           accum=sh["accum"])
+    st = init_train_state(params)
+    opt, s = st.opt, st.step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hist, secs = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        params, opt, met = step(params, opt, s, b)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        s = s + 1
+        hist.append({k: float(v) for k, v in met.items()})
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [h["loss"] for h in hist]
+    _need(all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+              for h in hist), f"a non-finite loss or grad_norm: {hist}")
+    late = float(np.mean(losses[5:8]))
+    _need(late < losses[0], f"the loss did not fall: steps 5-7 mean "
+          f"{late:.4f} against step 0's {losses[0]:.4f}")
+    tokens = sh["accum"] * sh["micro"] * sh["T"]
+    s_step = float(np.median(secs[1:]))
+    flops = flops_per_step(cfg, n_params, sequences=sh["accum"] *
+                           sh["micro"], T=sh["T"])
+    share = flops / s_step / BF16_FLOPS_PER_S
+    norms = " ".join(f"{h['grad_norm']:.3g}" for h in hist)
+    print(f"   {len(hist)} steps of {tokens:,} tokens ((accum, micro, T) = "
+          f"({sh['accum']}, {sh['micro']}, {sh['T']:,})): loss "
+          f"{' '.join(f'{x:.2f}' for x in losses)}; grad_norm {norms}; "
+          f"{s_step:.3f} s a step (median of steps 1-{len(secs) - 1}; "
+          f"step 0 {secs[0]:.3f} s), {tokens / s_step:,.0f} tokens/s, "
+          f"peak {peak:.2f} GiB; {flops / 1e12:.1f} TFLOP a step, "
+          f"{100 * share:.1f}% of the bf16 dense peak", flush=True)
+    return dict(arch=LM_ARCH, params=n_params, **sh, lr=LM_TRAIN_LR,
+                history=hist, seconds=secs, s_per_step=s_step,
+                tokens_per_s=tokens / s_step, peak_gib=peak,
+                tflop_per_step=flops / 1e12, bf16_peak_share=share,
+                profile=profile,
+                bf16_vs_fp32=dict(loss16=float(l16), loss32=float(l32),
+                                  loss_rel_err=loss_err, grad_cosine=cos,
+                                  group_rel_err=group_err,
+                                  group_cosine=group_cos))
+
+
+def jax_layout_keys(params) -> dict:
+    """The JAX package's pytree key of each parameter and its shape there:
+    `blocks.<i>.a.b` is `blocks/a/b`, stacked over the layers."""
+    L = len(params.blocks)
+    keys = {}
+    for name, p in params.named_parameters():
+        parts = name.split(".")
+        if parts[0] == "blocks":
+            if parts[1] == "0":
+                keys["/".join(["blocks"] + parts[2:])] = [L, *p.shape]
+        else:
+            keys["/".join(parts)] = list(p.shape)
+    return keys
+
+
+def lm_train_cli(build_dir: Path) -> dict:
+    """Phase 16 (c): the training CLI on the card at LM_TRAIN_CLI's size,
+    its loss falling; then the same training in this process (the CLI's
+    seed 0 and defaults): `restore_pytree` of its checkpoint gives those
+    weights bit for bit, and its index has every key of the JAX layout."""
+    from repro_torch.checkpoint.io import restore_pytree
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm import make_lm_batch_iterator
+    from repro_torch.models.model import build_model as build_lm
+    from repro_torch.train.trainer import train_loop
+    c = LM_TRAIN_CLI
+    with tempfile.TemporaryDirectory(dir=build_dir) as out:
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+               LM_ARCH, "--smoke", "--steps", str(c["steps"]), "--seq-len",
+               str(c["seq_len"]), "--batch", str(c["batch"]), "--out", out]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, env=dict(os.environ,
+                                                      PYTHONPATH=str(SRC)),
+                              capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        _need(proc.returncode == 0, f"the training CLI exited "
+              f"{proc.returncode}:\n{proc.stdout}\n{proc.stderr}")
+        summary = next(line for line in proc.stdout.splitlines()
+                       if line.startswith("# trained"))
+        first, last = (float(x) for x in re.search(
+            r"loss (\S+) -> (\S+)$", summary).groups())
+        _need(last < first, f"the CLI's loss did not fall: {summary}")
+        cfg = get_config(LM_ARCH, smoke=True)
+        model = build_lm(cfg)
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        params, _ = train_loop(model, params, make_lm_batch_iterator(
+            cfg.vocab, c["seq_len"], c["batch"]), steps=c["steps"])
+        restored = restore_pytree(params, out)
+        same = all(torch.equal(a, b) for a, b in
+                   zip(restored.parameters(), params.parameters()))
+        with open(os.path.join(out, "index.json")) as f:
+            entries = json.load(f)["entries"]
+        want = jax_layout_keys(params)
+        missing = sorted(k for k, shape in want.items()
+                         if entries.get(k, {}).get("shape") != shape)
+    print(f"   `{' '.join(cmd[2:-2])}`: exit 0 in {wall:.1f} s; {summary}; "
+          f"restored == trained in this process bit for bit: {same}; "
+          f"{len(want)} JAX-layout keys, missing or misshapen: {missing}",
+          flush=True)
+    _need(same, "the CLI's checkpoint is not the weights this process "
+          "trained with the same seed and batches")
+    _need(not missing, f"index.json lacks JAX-layout keys: {missing}")
+    return dict(cmd=cmd[2:-2], wall_s=wall, summary=summary,
+                loss_first=first, loss_last=last, bit_for_bit=same,
+                keys=len(want))
+
+
+def lm_train(seed: int, build_dir: Path) -> dict:
+    """Phase 16: (a), (b) and (c), with every kernel's launch count set to
+    0 just before and read just after: training runs none of them."""
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    out, walls = {}, {}
+    for part, run in (("smoke", lambda: lm_train_smoke(seed)),
+                      ("full", lambda: lm_train_full(seed)),
+                      ("cli", lambda: lm_train_cli(build_dir))):
+        t0 = time.perf_counter()
+        out[part] = run()
+        walls[part] = time.perf_counter() - t0
+    out["launches"] = {k: fn.launches for k, fn in counters.items()}
+    out["wall_s"] = walls
+    print("   (a), (b), (c) took " + ", ".join(
+        f"{v:.1f}" for v in walls.values()) + " s", flush=True)
+    _need(not any(out["launches"].values()),
+          f"LM training launched a kernel: {out['launches']}")
+    print(f"   kernel launches in the phase: {out['launches']}", flush=True)
+    return out
 
 
 def train_data(seed: int):
@@ -3461,14 +3834,22 @@ def main() -> None:
                "version"):
         lm_pre = lm_prefill(lm, lm_params, lm_rng)
     with phase(f"lm decode: prefill {LM_DECODE} vs {LM_DECODE[1]:,} "
-               "teacher-forced decode steps"):
-        lm_dec = lm_decode(lm, lm_params, lm_rng)
+               f"teacher-forced decode steps, {LM_DECODE_LAYERS} layers"):
+        cut = build_lm(dataclasses.replace(
+            lm_cfg, n_layers=LM_DECODE_LAYERS,
+            global_attn_layers=LM_DECODE_GLOBAL))
+        lm_dec = lm_decode(cut, cut.init(torch.Generator(device="cuda")
+                                         .manual_seed(args.seed)), lm_rng)
+        del cut
     with phase("lm serve: serve_batch, ragged prompts"):
         lm_srv = lm_serve(lm, lm_params, lm_rng)
     del lm_params
     torch.cuda.empty_cache()
     with phase(f"lm CLI: launch.serve --arch {LM_ARCH}"):
         lm_cli_out = lm_cli()
+    with phase(f"lm train: smoke configs card vs CPU; {LM_ARCH} at full "
+               f"width, T = {LM_TRAIN_FULL['T']:,}; launch.train --arch"):
+        lm_tr = lm_train(args.seed, build_dir)
 
     head = next(r for r in bsr["sweep"] if r["n"] == HEADLINE_N)
     kernels = [
@@ -3576,7 +3957,8 @@ def main() -> None:
     print(json.dumps({"mesh": {"train": mesh_train, "serve": mesh_serve}}))
     print(json.dumps({"lm": {"arch": LM_ARCH, "params": n_params,
                              "prefill": lm_pre, "decode": lm_dec,
-                             "serve": lm_srv, "cli": lm_cli_out}}))
+                             "serve": lm_srv, "cli": lm_cli_out,
+                             "train": lm_tr}}))
     print(json.dumps({"baselines": base}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -850,3 +850,143 @@ def load_block_sparse_int8(directory: str, *, model=None, device=None):
         block_cols=model.block_cols, row_ptr=model.row_ptr,
         shape=model.shape, block_shape=model.block_shape,
         orig_shape=model.orig_shape), meta
+
+
+# --- Pytrees: `arrays.npz` + `index.json` (LM parameters) ------------------
+
+PYTREE_ARRAYS = "arrays.npz"
+PYTREE_INDEX = "index.json"
+
+
+def _flat_tree(tree, prefix: str = "") -> dict:
+    """A nested dict's leaves by their '/'-joined key paths, in key order
+    (the JAX package's flattening order)."""
+    flat = {}
+    for key in sorted(tree):
+        val = tree[key]
+        if isinstance(val, dict):
+            flat.update(_flat_tree(val, f"{prefix}{key}/"))
+        else:
+            flat[prefix + str(key)] = val
+    return flat
+
+
+def _leaf_array(leaf) -> tuple[np.ndarray, str]:
+    """(the array written for a leaf, the dtype name the index records):
+    a bf16 tensor as its exact float32 values under "bfloat16", which the
+    JAX package's `restore_pytree` casts back exactly."""
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.float().numpy(), "bfloat16"
+        return t.numpy(), str(t.dtype).removeprefix("torch.")
+    a = np.asarray(leaf)
+    return a, str(a.dtype)
+
+
+def save_pytree(tree, directory: str, *, sparse_threshold: float = 0.5):
+    """The JAX package's pytree checkpoint: `index.json` (every entry's
+    format, shape and dtype) and `arrays.npz` under '/'-joined key paths.
+    A 2-D leaf of more than 4,096 elements whose density is under
+    `sparse_threshold` is stored as coo (`::values`, `::rows`, `::cols`).
+    `tree`: an `LMParams` (written as the JAX package's parameter tree,
+    `blocks/attn/wq` with the layer axis first) or nested dicts of tensors
+    or arrays."""
+    from repro_torch.convert import lm_jax_tree
+    from repro_torch.models.transformer import LMParams
+    if isinstance(tree, LMParams):
+        tree = lm_jax_tree(tree)
+    os.makedirs(directory, exist_ok=True)
+    index: dict = {"entries": {}}
+    arrays = {}
+    for key, leaf in _flat_tree(tree).items():
+        arr, dtype = _leaf_array(leaf)
+        if arr.ndim == 2 and arr.size > 4096:
+            density = float((arr != 0).mean())
+            if density < sparse_threshold:
+                nz = np.nonzero(arr)
+                arrays[f"{key}::values"] = arr[nz]
+                arrays[f"{key}::rows"] = nz[0].astype(np.int32)
+                arrays[f"{key}::cols"] = nz[1].astype(np.int32)
+                index["entries"][key] = {"format": "coo",
+                                         "shape": list(arr.shape),
+                                         "dtype": dtype, "density": density}
+                continue
+        arrays[key] = arr
+        index["entries"][key] = {"format": "dense", "shape": list(arr.shape),
+                                 "dtype": dtype}
+    np.savez_compressed(os.path.join(directory, PYTREE_ARRAYS), **arrays)
+    with open(os.path.join(directory, PYTREE_INDEX), "w") as f:
+        json.dump(index, f, indent=1)
+
+
+def _stored(a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+    """A stored array as a tensor of `dtype`. The JAX package writes a
+    bf16 leaf as raw 2-byte records (numpy reads them as `|V2`, without
+    ml_dtypes as with it): their bits are the bf16 values."""
+    a = np.array(a, order="C")
+    if a.dtype.kind == "V" and a.dtype.itemsize == 2 or \
+            a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16) \
+            .to(dtype)
+    return torch.from_numpy(a).to(dtype)
+
+
+def _restored(data, meta: dict, key: str) -> torch.Tensor:
+    dtype = getattr(torch, meta["dtype"])
+    if meta["format"] == "coo":
+        out = torch.zeros(tuple(meta["shape"]), dtype=dtype)
+        rows = torch.from_numpy(data[f"{key}::rows"].astype(np.int64))
+        cols = torch.from_numpy(data[f"{key}::cols"].astype(np.int64))
+        out[rows, cols] = _stored(data[f"{key}::values"], dtype)
+        return out
+    return _stored(data[key], dtype)
+
+
+def restore_pytree(template, directory: str):
+    """The checkpoint in `directory` in the structure of `template`
+    (shapes must match): an `LMParams` (a new one, on the template's
+    device, each parameter of the template's type) or nested dicts of
+    tensors (each leaf on its template's device, of its type). Reads what
+    either package's `save_pytree` wrote."""
+    from repro_torch.convert import _unstacked, lm_params_from_flat
+    from repro_torch.models.transformer import LMParams
+    with open(os.path.join(directory, PYTREE_INDEX)) as f:
+        entries = json.load(f)["entries"]
+    data = np.load(os.path.join(directory, PYTREE_ARRAYS))
+
+    def fill(node, prefix: str = ""):
+        out = {}
+        for key, val in node.items():
+            path = f"{prefix}{key}"
+            if isinstance(val, dict):
+                out[key] = fill(val, path + "/")
+                continue
+            t = _restored(data, entries[path], path)
+            if tuple(t.shape) != tuple(val.shape):
+                raise ValueError(f"{path}: stored {tuple(t.shape)}, the "
+                                 f"template has {tuple(val.shape)}")
+            out[key] = t if val.is_meta else \
+                t.to(device=val.device, dtype=val.dtype)
+        return out
+
+    if not isinstance(template, LMParams):
+        return fill(template)
+    cfg, L = template.cfg, len(template.blocks)
+    shapes: dict = {}                   # the JAX tree, meta tensors
+    for name, p in template.named_parameters():
+        path, shape = name.split("."), tuple(p.shape)
+        if path[0] == "blocks":
+            if path[1] != "0":
+                continue
+            path, shape = ["blocks"] + path[2:], (L,) + shape
+        node = shapes
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = torch.empty(shape, device="meta")
+    stored = fill(shapes)
+    params = lm_params_from_flat(cfg, _unstacked(cfg, stored),
+                                 device=template.embed.device)
+    for p, q in zip(params.parameters(), template.parameters()):
+        p.data = p.data.to(q.dtype)
+    return params

@@ -3,8 +3,9 @@
 The JAX package holds jax arrays; handed over as numpy, they become the
 port's objects on a device: a packed `BlockSparseModel` or its int8
 form `Int8BlockSparseModel`, a trained `DiSMECModel`, a `TronResult`, a
-warm start W0, an LM's parameters (`lm_params_from_jax`), or a Table 2
-baseline's model (`*_model_from_numpy`). For example
+warm start W0, an LM's parameters (`lm_params_from_jax`; trained ones
+go back with `lm_params_to_jax`), or a Table 2 baseline's model
+(`*_model_from_numpy`). For example
 
     fields = {f: np.asarray(getattr(jax_model, f))
               for f in ("blocks", "block_rows", "block_cols", "row_ptr")}
@@ -107,6 +108,41 @@ def _tensor(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
+def _unstacked(cfg, tree: dict, leaf=lambda a: a) -> dict:
+    """State-dict entries of the JAX package's LM parameter tree: each
+    leaf through `leaf`, the leaves under `blocks` split at their leading
+    layer axis into `blocks.<i>.` entries."""
+    flat: dict = {}
+
+    def walk(prefix: str, sub: dict, layer: Optional[int]) -> None:
+        for key, val in sub.items():
+            if isinstance(val, dict):
+                walk(f"{prefix}{key}.", val, layer)
+            else:
+                a = leaf(val)
+                flat[prefix + key] = a if layer is None else a[layer]
+
+    for key, val in tree.items():
+        if key == "blocks":
+            for i in range(cfg.n_layers):
+                walk(f"blocks.{i}.", val, i)
+        elif isinstance(val, dict):
+            walk(f"{key}.", val, None)
+        else:
+            flat[key] = leaf(val)
+    return flat
+
+
+def lm_params_from_flat(cfg, flat: dict, *, device=None):
+    """`LMParams` on `device` (None: the card) from state-dict entries;
+    every leaf must fill a parameter of the same shape (cast to the
+    parameter's type), and none may be missing."""
+    from repro_torch.models.transformer import LMParams
+    params = LMParams(cfg, device=resolve_device(device))
+    params.load_state_dict(flat, strict=True)
+    return params
+
+
 def lm_params_from_jax(cfg, params_np: dict, *, device=None):
     """The port's LM parameters (`models.transformer.LMParams`) from the
     JAX package's parameter tree as numpy arrays: `embed`, `final_norm`,
@@ -115,29 +151,50 @@ def lm_params_from_jax(cfg, params_np: dict, *, device=None):
     `jax.tree.map(np.asarray, build_model(cfg).init(key))`. The layer axis
     is unstacked into `blocks.<i>.` entries; every leaf must fill a
     parameter of the same shape, and none may be missing."""
-    from repro_torch.models.transformer import LMParams
+    flat = {k: _tensor(a) for k, a in
+            _unstacked(cfg, params_np, np.asarray).items()}
+    return lm_params_from_flat(cfg, flat, device=device)
 
-    flat: dict[str, torch.Tensor] = {}
 
-    def walk(prefix: str, tree, layer: Optional[int]) -> None:
-        for key, val in tree.items():
-            if isinstance(val, dict):
-                walk(f"{prefix}{key}.", val, layer)
-            else:
-                a = np.asarray(val)
-                flat[prefix + key] = _tensor(a if layer is None else a[layer])
+def lm_jax_tree(params) -> dict:
+    """The JAX package's parameter tree of `params` (an `LMParams`) as
+    nested dicts of host tensors of the parameters' types: `embed`,
+    `final_norm`, `head` and `blocks`, whose leaves stack the layers'
+    parameters along a new leading axis."""
+    sd = {k: v.detach().cpu() for k, v in params.state_dict().items()}
+    tree: dict = {}
+    for name, t in sd.items():
+        path = name.split(".")
+        if path[0] == "blocks":
+            if path[1] != "0":
+                continue
+            rest = ".".join(path[2:])
+            path = ["blocks"] + path[2:]
+            t = torch.stack([sd[f"blocks.{i}.{rest}"]
+                             for i in range(len(params.blocks))])
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = t
+    return tree
 
-    for key, val in params_np.items():
-        if key == "blocks":
-            for i in range(cfg.n_layers):
-                walk(f"blocks.{i}.", val, i)
-        elif isinstance(val, dict):
-            walk(f"{key}.", val, None)
-        else:
-            flat[key] = _tensor(np.asarray(val))
-    params = LMParams(cfg, device=resolve_device(device))
-    params.load_state_dict(flat, strict=True)
-    return params
+
+def lm_params_to_jax(cfg, params) -> dict:
+    """The inverse of `lm_params_from_jax`: the JAX package's parameter
+    tree of the port's `params` as numpy arrays, the layer axis stacked
+    back (`lm_params_to_jax(cfg, lm_params_from_jax(cfg, t))` equals t).
+    numpy has no bfloat16 here, so a bf16 parameter comes back as its
+    exact float32 values."""
+    if len(params.blocks) != cfg.n_layers:
+        raise ValueError(f"{len(params.blocks)} blocks for a config of "
+                         f"{cfg.n_layers} layers")
+
+    def to_np(node):
+        if isinstance(node, dict):
+            return {k: to_np(v) for k, v in node.items()}
+        return (node.float() if node.dtype == torch.bfloat16
+                else node).numpy()
+    return to_np(lm_jax_tree(params))
 
 
 # --- The Table 2 baselines (`repro_torch.baselines`) ----------------------

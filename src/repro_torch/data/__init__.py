@@ -1,1 +1,2 @@
-"""Synthetic XMC data (a numpy copy of the JAX package's generator)."""
+"""Synthetic data: XMC (a numpy copy of the JAX package's generator) and
+the LM token pipeline."""

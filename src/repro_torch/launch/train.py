@@ -1,4 +1,16 @@
-"""Training launcher: the streaming XMC pipeline with the PyTorch port.
+"""Training launcher: LM training or the streaming XMC pipeline, with the
+PyTorch port.
+
+LM mode (`--arch`: build_model -> TokenPipeline batches -> train_loop with
+AdamW and the DiSMEC one-vs-rest head, or `--head softmax`; the history
+as JSON lines, then `save_pytree` to --out in the JAX package's layout):
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch hymba-1.5b \
+      --smoke --steps 20 --seq-len 128 --batch 8 --out /tmp/lm_ckpt
+
+The dense and hybrid families train; the moe, ssm, encoder-decoder and
+modality-prefix configs, and `--mesh` in LM mode, exit naming ROADMAP
+Queue A item 8c.
 
 XMC mode (flags -> XMCSpec -> repro_torch.xmc_api.fit: streaming
 label-batch pipeline -> servable sparse checkpoint with the spec in its
@@ -21,24 +33,56 @@ are fewer), or D*M entries of the CPU with `--device cpu`:
   PYTHONPATH=src python -m repro_torch.launch.train --xmc --mesh 2x4 \
       --shard-data --balance --device cpu --out /tmp/xmc_mesh
 
-Everything runs on the card unless `--device cpu` is given. LM training
-(`--arch`) is not ported (Queue A item 8b) and exits with an error. A
-port of the JAX package's launcher of the same name.
+Everything runs on the card unless `--device cpu` is given. A port of
+the JAX package's launcher of the same name.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import json
 import os
 import tempfile
 import time
 
 import torch
 
-#: What LM mode answers: LM training is not ported.
-LM_NOT_PORTED = ("LM training (--arch) is not ported to PyTorch yet; see "
-                 "ROADMAP Queue A item 8b. This launcher trains XMC models "
-                 "only: pass --xmc")
+
+def train_lm(args) -> None:
+    """--arch: train an LM from random weights (drawn from --seed) on the
+    synthetic token pipeline's batches (drawn from --seed)."""
+    from repro_torch.checkpoint.io import save_pytree
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm import make_lm_batch_iterator
+    from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import NOT_PORTED
+    from repro_torch.train.trainer import train_loop
+
+    if args.mesh:
+        raise SystemExit(f"--mesh: {NOT_PORTED['mesh']}")
+    cfg = get_config(args.arch, smoke=args.smoke)
+    if args.head:
+        cfg = dataclasses.replace(cfg, head_type=args.head)
+    try:
+        model = build_model(cfg, device=args.device)
+    except NotImplementedError as e:
+        raise SystemExit(str(e)) from None
+    params = model.init(torch.Generator(device=model.device)
+                        .manual_seed(args.seed))
+    batches = make_lm_batch_iterator(cfg.vocab, args.seq_len, args.batch,
+                                     seed=args.seed)
+    t0 = time.time()
+    params, hist = train_loop(model, params, batches, steps=args.steps,
+                              lr=args.lr)
+    for h in hist:
+        print(json.dumps(h))
+    print(f"# trained {args.steps} steps in {time.time() - t0:.1f}s on "
+          f"{model.device.type}; loss {hist[0]['loss']:.2f} -> "
+          f"{hist[-1]['loss']:.2f}")
+    if args.out:
+        save_pytree(params, args.out)
+        print(f"# checkpoint saved to {args.out}")
 
 
 def train_xmc(args) -> None:
@@ -122,10 +166,17 @@ def main() -> None:
     ap.add_argument("--xmc", action="store_true",
                     help="run the streaming XMC pipeline")
     ap.add_argument("--arch", default=None,
-                    help="LM training: not ported (exits with an error)")
+                    help="LM mode: architecture to train")
+    ap.add_argument("--smoke", action="store_true",
+                    help="LM mode: the reduced config")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--seq-len", type=int, default=128)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--head", choices=["dismec", "softmax"], default=None)
     ap.add_argument("--mesh", default=None,
-                    help="e.g. 2x4 (data x model): shard each batch's "
-                         "solve over that grid of devices")
+                    help="XMC mode, e.g. 2x4 (data x model): shard each "
+                         "batch's solve over that grid of devices")
     ap.add_argument("--out", default=None, help="checkpoint directory")
     ap.add_argument("--labels", type=int, default=512)
     ap.add_argument("--features", type=int, default=4096)
@@ -160,9 +211,12 @@ def main() -> None:
                          "default) or cpu")
     args = ap.parse_args()
 
-    if not args.xmc:
-        ap.error(LM_NOT_PORTED)
-    train_xmc(args)
+    if args.xmc:
+        train_xmc(args)
+    elif args.arch is None:
+        ap.error("--arch is required in LM mode (or pass --xmc)")
+    else:
+        train_lm(args)
 
 
 if __name__ == "__main__":

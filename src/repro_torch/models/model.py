@@ -8,8 +8,7 @@ engine treat the architectures alike:
   prefill(params, batch, *, use_swa, top_k=5)  -> (topk_vals, topk_idx, cache)
   decode_step(params, cache, tokens, pos, ...) -> (vals, idx, cache)
   init_cache(B, seq_len, *, use_swa)           -> cache dict
-  train_loss                                   raises: LM training is not
-                                                  ported yet
+  train_loss(params, batch)                    -> (loss, {"loss", "aux"})
 
 Everything runs on `device` (the card unless the caller passes "cpu").
 Only the `dense` and `hybrid` families are ported; the others raise
@@ -49,8 +48,9 @@ def build_model(cfg: ArchConfig, device=None) -> Model:
                              f"the model on {device}")
         return transformer.init_params(cfg, generator)
 
-    def train_loss(params, batch, **_):
-        raise NotImplementedError(transformer.NOT_PORTED["train"])
+    def train_loss(params, batch, *, mesh=None, batch_axes=()):
+        return transformer.train_loss(cfg, params, batch, mesh=mesh,
+                                      batch_axes=batch_axes)
 
     def prefill_fn(params, batch, *, use_swa: bool = False, top_k: int = 5):
         return transformer.prefill(cfg, params, batch["tokens"],

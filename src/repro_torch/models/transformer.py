@@ -1,39 +1,48 @@
-"""Decoder-only LM assembly: parameters, the serving cache, prefill and
-one-token decode.
+"""Decoder-only LM assembly: parameters, the training forward and head
+losses, the serving cache, prefill and one-token decode.
 
-The port of the serving half of the JAX package's `models/transformer.py`
-for the `dense` and `hybrid` (hymba) families. The JAX package stacks the
-layers' parameters and scans over them; here a `ModuleList` of `Block`s
-holds them and a Python loop runs them, so each layer's attention window
-is a plain int, as the JAX package keeps it static. `state_dict` keys are
-the JAX parameter paths with the layer index spelled out
-(`blocks.3.attn.wq` is JAX's `blocks["attn"]["wq"][3]`).
+The port of the JAX package's `models/transformer.py` for the `dense` and
+`hybrid` (hymba) families. The JAX package stacks the layers' parameters
+and scans over them; here a `ModuleList` of `Block`s holds them and a
+Python loop runs them, so each layer's attention window is a plain int,
+as the JAX package keeps it static. `state_dict` keys are the JAX
+parameter paths with the layer index spelled out (`blocks.3.attn.wq` is
+JAX's `blocks["attn"]["wq"][3]`).
 
+  train_loss  — full-sequence `forward` (each block rematerialised in the
+                backward, as `jax.checkpoint` does per block) + the DiSMEC
+                OvR (or softmax) head loss over token chunks
   prefill     — full-sequence forward that fills the serving cache and
                 returns the last position's top-k
   decode_step — ONE token against the cache
 
-Long sequences (T > DENSE_ATTN_MAX_T) attend in bands where a layer's
-window cuts work (`layers.banded_attention`: the banded-attention kernel
-on the card), blockwise with an online softmax elsewhere. Every top-k goes
-through the port's top-k ops (the blocked top-k kernel on the card).
+All three run one block body (`_block`). Long sequences (T >
+DENSE_ATTN_MAX_T) attend in bands where a layer's window cuts work
+(`layers.banded_attention`: the banded-attention kernel on the card),
+blockwise with an online softmax elsewhere. `forward` (training) gives
+every layer the whole causal prefix, as the JAX package's `train_loss`
+does (it passes no `use_swa`), so no kernel runs in training.
+Every top-k goes through the port's top-k ops (the blocked top-k kernel
+on the card).
 
-The `moe` and `ssm` families, the encoder-decoder and modality prefixes
-raise NotImplementedError naming their ROADMAP item; `forward` and the
-training loss come with LM training. `prefill` and `decode_step` run
-under `torch.inference_mode`.
+The `moe` and `ssm` families, the encoder-decoder, modality prefixes and
+training over a mesh raise NotImplementedError naming their ROADMAP item.
+`prefill` and `decode_step` run under `torch.inference_mode`.
 """
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core.head import init_head
+from repro_torch.core.head import init_head, target_logit
 from repro_torch.kernels.topk import ops as topk_ops
 from repro_torch.models import layers, ssm
 from repro_torch.models.layers import matmul, param
@@ -48,8 +57,8 @@ NOT_PORTED = {
               "yet: ROADMAP Queue A item 8c",
     "prefix": "modality prefixes (VLM patches, audio frames) are not "
               "ported yet: ROADMAP Queue A item 8c",
-    "train": "LM training (forward, train_loss, the OvR and softmax head "
-             "losses) is not ported yet: ROADMAP Queue A item 8b",
+    "mesh": "LM training over a mesh (models/sharding.py) is not ported "
+            "yet: ROADMAP Queue A item 8c",
 }
 
 
@@ -162,15 +171,16 @@ def _init_block(cfg: ArchConfig, generator: torch.Generator, kind: str,
 
 class LMParams(nn.Module):
     """embed (Vp, d), final_norm, blocks (a ModuleList of n_layers Blocks)
-    and head (Vp, d) unless the embeddings are tied. With a generator the
-    values are drawn from it, on its device (embed, then the blocks in
-    order, then head); without one they are left unset for
-    `convert.lm_params_from_jax` to load."""
+    and head (Vp, d) unless the embeddings are tied; `cfg` is the config
+    they were made for. With a generator the values are drawn from it, on
+    its device (embed, then the blocks in order, then head); without one
+    they are left unset for `convert.lm_params_from_jax` to load."""
 
     def __init__(self, cfg: ArchConfig, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         check_ported(cfg)
+        self.cfg = cfg
         if generator is not None:
             device = generator.device
         dtype, Vp, d = _dtype(cfg), cfg.padded_vocab(), cfg.d_model
@@ -249,6 +259,168 @@ def _ffn(cfg: ArchConfig, blk: Block, x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def _block(cfg: ArchConfig, blk: Block, kind: str, x: torch.Tensor,
+           positions: torch.Tensor, window: int, rope=None):
+    """One block over the full sequence -> (x, k, v, mamba state or None):
+    norm1, the attention (and, for hybrid, Mamba) mix, the residual, the
+    FFN."""
+    h = layers.apply_norm(cfg, blk.norm1, x)
+    sst = None
+    if kind == "hybrid":
+        mix, k, v, sst = _hybrid_mix(cfg, blk, h, positions, window, rope)
+    else:
+        mix, k, v = _attention_window(cfg, blk.attn, h, positions, window,
+                                      rope=rope)
+    return _ffn(cfg, blk, x + mix), k, v, sst
+
+
+# ---------------------------------------------------------------------------
+# Training: forward and the head losses
+# ---------------------------------------------------------------------------
+
+def _no_mesh(mesh, batch_axes) -> None:
+    if mesh is not None or batch_axes:
+        raise NotImplementedError(NOT_PORTED["mesh"])
+
+
+def forward(cfg: ArchConfig, params: "LMParams", tokens,
+            prefix: Optional[torch.Tensor] = None, *, mesh=None,
+            batch_axes=(), remat: bool = True):
+    """Embeds tokens, runs the stack, returns (final-norm features
+    (B, T, d), aux), with autograd. Every layer attends over the whole
+    causal prefix, as the JAX package's `train_loss` runs its `forward`
+    (no `use_swa`): the banded-attention kernel has no backward. remat:
+    each block's activations are recomputed in the backward (one (B, T, d)
+    input kept per block), as the JAX package's `jax.checkpoint` per block
+    with no saving policy. aux is the MoE router loss, 0 for the dense and
+    hybrid families."""
+    check_ported(cfg)
+    _no_mesh(mesh, batch_axes)
+    if prefix is not None:
+        raise NotImplementedError(NOT_PORTED["prefix"])
+    # F.embedding, not indexing: on the card its backward sums the rows of
+    # a repeated token in a fixed order, so two steps give the same bits.
+    x = F.embedding(_tokens(tokens, params.embed.device), params.embed)
+    B, T, _ = x.shape
+    positions = torch.arange(T, device=x.device).expand(B, T)
+    rope = layers.rope_tables(cfg, positions)
+    for i, blk in enumerate(params.blocks):
+        fn = partial(_block_out, cfg, blk, block_kind(cfg, i),
+                     positions=positions, window=0, rope=rope)
+        x = checkpoint(fn, x, use_reentrant=False,
+                       preserve_rng_state=False) if remat else fn(x)
+    x = layers.apply_norm(cfg, params.final_norm, x)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _block_out(cfg, blk, kind, x, *, positions, window, rope):
+    return _block(cfg, blk, kind, x, positions, window, rope)[0]
+
+
+# Token-chunk size for the head losses: the (tokens, labels) logit block is
+# the largest activation of training. Each chunk's block is rebuilt in the
+# backward (the paper's Algorithm-1 outer batch loop, applied to the head).
+HEAD_CHUNK = 32768
+
+
+def _chunked_rows(n: int, target: Optional[int] = None) -> int:
+    c = layers.largest_divisor_leq(n, HEAD_CHUNK if target is None
+                                   else target)
+    return c if c > 1 else n
+
+
+def _chunked_sum(chunk_fn, f2, t2, v2) -> torch.Tensor:
+    """sum of chunk_fn over token chunks of `_chunked_rows` rows, each
+    chunk rematerialised in the backward, added in order from 0."""
+    n = f2.shape[0]
+    c = _chunked_rows(n)
+    if c == n:
+        return chunk_fn(f2, t2, v2)
+    total = torch.zeros((), dtype=torch.float32, device=f2.device)
+    for a in range(0, n, c):
+        total = total + checkpoint(chunk_fn, f2[a:a + c], t2[a:a + c],
+                                   v2[a:a + c], use_reentrant=False,
+                                   preserve_rng_state=False)
+    return total
+
+
+def _rows(feats, targets, valid):
+    """(feats (n, d) float32, targets (n,) long, valid (n,) float32: ones
+    without a mask)."""
+    f2 = feats.reshape(-1, feats.shape[-1]).float()
+    t2 = _tokens(targets, f2.device).reshape(-1)
+    v2 = (_on(valid, f2.device).reshape(-1).float() if valid is not None
+          else torch.ones(f2.shape[0], dtype=torch.float32,
+                          device=f2.device))
+    return f2, t2, v2
+
+
+def ovr_loss_from_feats(cfg: ArchConfig, W: torch.Tensor,
+                        feats: torch.Tensor, targets, valid=None, *,
+                        mesh=None, batch_axes=()) -> torch.Tensor:
+    """DiSMEC OvR squared-hinge loss over the padded vocabulary, token
+    chunk by token chunk: C * sum of per-token losses / valid tokens +
+    ovr_reg * ||W||^2."""
+    _no_mesh(mesh, batch_axes)
+    f2, t2, v2 = _rows(feats, targets, valid)
+    Wf = W.float()
+
+    def chunk_loss(f_c, t_c, v_c):
+        z = f_c @ Wf.T                                  # (c, Vp)
+        z_y = target_logit(z, t_c)
+        neg = torch.clamp(1.0 + z, min=0.0)
+        neg_sum = torch.sum(neg * neg, dim=-1)          # every label negative
+        neg_y = torch.clamp(1.0 + z_y, min=0.0)
+        pos_y = torch.clamp(1.0 - z_y, min=0.0)
+        per_tok = neg_sum - neg_y * neg_y + pos_y * pos_y
+        return torch.sum(per_tok * v_c)
+
+    total = _chunked_sum(chunk_loss, f2, t2, v2)
+    denom = (torch.clamp(torch.sum(v2), min=1.0) if valid is not None
+             else f2.shape[0])
+    l2 = cfg.ovr_reg * torch.sum(Wf ** 2)
+    return cfg.ovr_C * total / denom + l2
+
+
+def softmax_loss_from_feats(W: torch.Tensor, feats: torch.Tensor, targets,
+                            valid=None, *, mesh=None,
+                            batch_axes=()) -> torch.Tensor:
+    """The baseline softmax cross-entropy head, token-chunked like the OvR
+    head."""
+    _no_mesh(mesh, batch_axes)
+    f2, t2, v2 = _rows(feats, targets, valid)
+    Wf = W.float()
+
+    def chunk_nll(f_c, t_c, v_c):
+        z = f_c @ Wf.T
+        nll = torch.logsumexp(z, dim=-1) - target_logit(z, t_c)
+        return torch.sum(nll * v_c)
+
+    total = _chunked_sum(chunk_nll, f2, t2, v2)
+    denom = (torch.clamp(torch.sum(v2), min=1.0) if valid is not None
+             else f2.shape[0])
+    return total / denom
+
+
+def train_loss(cfg: ArchConfig, params: "LMParams", batch: dict, *,
+               mesh=None, batch_axes=()):
+    """batch: tokens (B, T), targets (B, T), valid (B, T), as numpy arrays
+    or tensors -> (loss + router_aux_coef * aux, {"loss", "aux"})."""
+    if batch.get("prefix") is not None:
+        raise NotImplementedError(NOT_PORTED["prefix"])
+    feats, aux = forward(cfg, params, batch["tokens"], mesh=mesh,
+                         batch_axes=batch_axes)
+    W = head_weight(cfg, params)
+    if cfg.head_type == "dismec":
+        loss = ovr_loss_from_feats(cfg, W, feats, batch["targets"],
+                                   batch.get("valid"))
+    else:
+        loss = softmax_loss_from_feats(W, feats, batch["targets"],
+                                       batch.get("valid"))
+    total = loss + cfg.router_aux_coef * aux
+    return total, {"loss": loss, "aux": aux}
+
+
 # ---------------------------------------------------------------------------
 # Serving: cache init, prefill, one-token decode
 # ---------------------------------------------------------------------------
@@ -325,10 +497,15 @@ def _decode_block(cfg: ArchConfig, blk: Block, kind: str, x: torch.Tensor,
     return _ffn(cfg, blk, x + mix), sst
 
 
+def _on(a, device) -> torch.Tensor:
+    """An array-like or tensor as a tensor on `device`."""
+    if not isinstance(a, torch.Tensor):
+        a = torch.from_numpy(np.array(a))               # a writable copy
+    return a.to(device)
+
+
 def _tokens(tokens, device) -> torch.Tensor:
-    if not isinstance(tokens, torch.Tensor):
-        tokens = torch.from_numpy(np.array(tokens))     # a writable copy
-    return tokens.to(device=device, dtype=torch.long)
+    return _on(tokens, device).long()
 
 
 def _top_k(cfg: ArchConfig, params: LMParams, x: torch.Tensor, k: int):
@@ -389,17 +566,12 @@ def prefill(cfg: ArchConfig, params: LMParams, tokens,
     rope = layers.rope_tables(cfg, positions)
     states = []
     for i, blk in enumerate(params.blocks):
-        h = layers.apply_norm(cfg, blk.norm1, x)
-        if block_kind(cfg, i) == "hybrid":
-            mix, k, v, sst = _hybrid_mix(cfg, blk, h, positions, wins[i],
-                                         rope)
+        x, k, v, sst = _block(cfg, blk, block_kind(cfg, i), x, positions,
+                              wins[i], rope)
+        if sst is not None:
             states.append(sst)
-        else:
-            mix, k, v = _attention_window(cfg, blk.attn, h, positions,
-                                          wins[i], rope=rope)
         cache["k"][i].copy_(k[:, T - t_eff:])
         cache["v"][i].copy_(v[:, T - t_eff:])
-        x = _ffn(cfg, blk, x + mix)
     if states:
         cache["ssm"] = ssm.MambaState(*(torch.stack(a) for a in
                                         zip(*states)))

@@ -1,1 +1,2 @@
-"""DiSMEC's streaming label-batch training engine."""
+"""Training: DiSMEC's streaming label-batch engine (`xmc`) and the LM
+trainer (`trainer`)."""

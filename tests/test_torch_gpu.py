@@ -1402,3 +1402,102 @@ def test_fastxml_card_tree_is_the_cpu_tree(cuda, baseline_data):
     np.testing.assert_array_equal(card.predict_topk(d.X_test, 5)[1].cpu()
                                   .numpy(),
                                   host.predict_topk(d.X_test, 5)[1].numpy())
+
+
+# --- LM training (train/trainer.py): no kernel runs in training --------------
+
+def _kernel_launches() -> dict:
+    from repro_torch.kernels.banded_attn import ops as band_ops
+    fns = (bsr_ops.bsr_predict_cuda, bsr_ops.bsr_predict_int8_cuda,
+           bsr_ops.bsr_predict_gather_cuda,
+           bsr_ops.bsr_predict_gather_int8_cuda,
+           bsr_ops.bsr_predict_gather_pq_cuda,
+           bsr_ops.bsr_predict_gather_pq_int8_cuda,
+           topk_ops.blocked_topk_cuda, hinge_ops.hinge_obj_grad_cuda,
+           hvp_ops.hvp_cuda, band_ops.banded_attention_cuda)
+    return {fn.__name__: fn.launches for fn in fns}
+
+
+def _lm_train_setup(arch, T, accum=2, micro=2, steps=3, seed=0):
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm import make_lm_batch_iterator
+    from repro_torch.models.model import build_model
+    cfg = get_config(arch, smoke=True)
+    host = build_model(cfg, device="cpu")
+    p0 = host.init(torch.Generator().manual_seed(seed))
+    it = make_lm_batch_iterator(cfg.vocab, T, accum * micro, seed=seed)
+    batches = [{k: v.reshape(accum, micro, T) for k, v in next(it).items()}
+               for _ in range(steps)]
+    return cfg, host, build_model(cfg), p0, batches
+
+
+def _run_steps(model, p, batches, accum=2):
+    from repro_torch.optim import linear_warmup_cosine
+    from repro_torch.train.trainer import init_train_state, make_train_step
+    step = make_train_step(model, lr_fn=linear_warmup_cosine(3e-4, 2, 8),
+                           accum=accum)
+    st = init_train_state(p)
+    opt, s, losses = st.opt, st.step, []
+    for b in batches:
+        p, opt, met = step(p, opt, s, b)
+        s = s + 1
+        losses.append(float(met["loss"]))
+    return p, losses
+
+
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "qwen1.5-0.5b"])
+def test_lm_train_step_on_the_card_matches_the_cpu(cuda, arch):
+    """The smoke config (fp32), `make_train_step` with accum = 2 on the
+    card against the port on the CPU: the first step's gradients within
+    1e-5 of the largest |element|, `adamw_update` of the card's gradients
+    on both within 1e-6 relative, three steps' losses within 1e-4."""
+    from repro_torch.optim import adamw_init, adamw_update
+    from repro_torch.train.trainer import loss_and_grads
+    cfg, host, card, p0, batches = _lm_train_setup(arch, 64)
+    _, _, gh = loss_and_grads(host, copy.deepcopy(p0), batches[0], 2)
+    _, _, gc = loss_and_grads(card, copy.deepcopy(p0).to(cuda), batches[0],
+                              2)
+    mag = max(float(g.abs().max()) for g in gh.values())
+    for n, g in gh.items():
+        assert float((gc[n].cpu() - g).abs().max()) <= 1e-5 * mag, n
+    updated = []
+    for dev in ("cpu", cuda):
+        p = copy.deepcopy(p0).to(dev)
+        adamw_update(p, {n: g.to(dev) for n, g in gc.items()},
+                     adamw_init(p), 1.5e-4)
+        updated.append([t.detach().cpu() for t in p.parameters()])
+    for a, b in zip(*updated):
+        assert bool(((a - b).abs() <= 1e-6 * b.abs() + 1e-9).all())
+    _, lh = _run_steps(host, copy.deepcopy(p0), batches)
+    _, lc = _run_steps(card, copy.deepcopy(p0).to(cuda), batches)
+    np.testing.assert_allclose(lc, lh, rtol=1e-4)
+
+
+def test_lm_train_steps_repeat_bit_for_bit(cuda):
+    """Three steps twice from the same weights and batches on the card:
+    the same losses and weights, bit for bit."""
+    cfg, _, card, p0, batches = _lm_train_setup("hymba-1.5b", 64)
+    pa, la = _run_steps(card, copy.deepcopy(p0).to(cuda), batches)
+    pb, lb = _run_steps(card, copy.deepcopy(p0).to(cuda), batches)
+    assert la == lb
+    assert all(torch.equal(a, b) for a, b in zip(pa.parameters(),
+                                                 pb.parameters()))
+
+
+@pytest.mark.parametrize("T", [2304, 4096])
+def test_lm_forward_backward_above_dense_t_on_the_card(cuda, T):
+    """hymba-1.5b-smoke's `train_loss` and its backward at T = 2,304 and
+    4,096 (blockwise attention in every layer, the SSD over 9 and 16
+    chunks): finite loss and gradients, and none of the ten kernels
+    launched."""
+    from repro_torch.train.trainer import loss_and_grads
+    cfg, _, card, p0, batches = _lm_train_setup("hymba-1.5b", T, accum=1,
+                                                micro=1, steps=1)
+    before = _kernel_launches()
+    loss, _, grads = loss_and_grads(card, copy.deepcopy(p0).to(cuda),
+                                    {k: v[0] for k, v in batches[0].items()})
+    torch.cuda.synchronize()
+    assert _kernel_launches() == before
+    assert bool(torch.isfinite(loss))
+    for n, g in grads.items():
+        assert bool(torch.isfinite(g).all()), n

@@ -302,9 +302,18 @@ def test_unported_families_raise(arch, item):
 
 
 def test_train_loss_names_its_item():
+    """`train_loss` runs for a ported family (its values are held to the
+    JAX package's in test_torch_lm_train.py); a moe config names the item
+    that ports it."""
     m = build_model(get_config("qwen1.5-0.5b", smoke=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A item 8b"):
-        m.train_loss(None, {})
+    p = m.init(torch.Generator().manual_seed(0))
+    toks = np.random.default_rng(0).integers(0, m.cfg.vocab, size=(2, 9))
+    loss, metrics = m.train_loss(p, {"tokens": toks[:, :-1],
+                                     "targets": toks[:, 1:]})
+    assert loss.shape == () and bool(torch.isfinite(loss))
+    assert set(metrics) == {"loss", "aux"}
+    with pytest.raises(NotImplementedError, match="Queue A item 8c"):
+        build_model(get_config("mixtral-8x22b", smoke=True), device="cpu")
 
 
 def test_serve_cli_lm_mode_on_the_cpu():
