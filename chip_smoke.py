@@ -218,7 +218,7 @@ kernels (their counts set to 0 before the phase and read after):
                    loss, the first gradients, `adamw_update` of the card's
                    gradients), and twice on the card, bit for bit; (b)
                    hymba-1.5b at full width in bf16, T = 4,096 (train_4k's
-                   length), micro-batch 1 x accum 2, 8 steps of
+                   length), micro-batch 1 x accum 2, 3 steps of
                    TokenPipeline batches: first the same first batch's
                    loss and gradients in bf16 (under `torch.profiler`)
                    against an fp32 copy of the weights, then seconds a
@@ -229,11 +229,37 @@ kernels (their counts set to 0 before the phase and read after):
                    with its loss falling, and `restore_pytree(DIR)` equals
                    the same training in this process bit for bit.
 
+Then the moe, ssm and prefix families (ROADMAP A-8c), weights drawn
+from the seed:
+
+ 17. lm families — (a) the smoke configs of qwen2-moe-a2.7b,
+                   mixtral-8x22b, xlstm-125m and internvl2-26b in fp32
+                   on the card against the port on the CPU: prefill,
+                   8 decode steps, a `make_train_step` with accum = 2, the
+                   dropped counts, and twice on the card, bit for bit; (b)
+                   qwen2-moe-a2.7b at full width (24 layers, bf16):
+                   prefill (1, 4,096) with the share of assignments
+                   dropped in each layer, the expert product's two routes
+                   timed, prefill against 256 teacher-forced decode steps
+                   at capacity factor 15 (layer 0's k/v bit for bit),
+                   `serve_batch`, the serving CLI, two training steps at 2
+                   layers; (c) mixtral-8x22b at full width cut to 2
+                   layers: prefill (1, 8,192) on kernel 10 (launched once
+                   a layer) and on its plain version, then kernel 10 alone
+                   at (1, 8,192, 48, 8, 128, 4,096), timed as phase 13;
+                   (d) xlstm-125m: prefill (2, 4,096), prefill against
+                   1,024 decode steps, 4 training steps at (2, 2,048);
+                   (e) internvl2-26b at full width: prefill of a 256-patch
+                   prefix and 1,792 tokens, bit for bit the prefill of the
+                   2,048 tokens whose embeddings the prefix holds; two
+                   training steps with a prefix at 4 layers.
+
 The lines before the last are the kernels' JSON summary (all ten
 kernels; `launches_mesh` for kernels 1, 2 and 9 counts phases 10b and
 10c, `launches_baselines` for kernel 9 phase 12b's predictions), the
-training, server, sweep, mesh, LM (phase 16 under "train") and baselines
-JSON summaries and the
+training, server, sweep, mesh, LM (phase 16 under "train"), baselines
+and LM families (phase 17; kernels 9 and 10 also count its launches
+under `launches_families`) JSON summaries and the
 card's name and power limit from nvidia-smi; the last line is `{"ok":
 true, "device": {...}}`.
 Any failure exits non-zero before it. Without a CUDA card, or outside a
@@ -422,7 +448,7 @@ LM_CACHE = 2e-1
 # both sides within LM_TRAIN_TOL["adam"] relative; two card runs bit for
 # bit. (b) hymba-1.5b at full width in bf16 at train_4k's length
 # (configs/base.py), its global batch of 256 cut to micro-batch 1 x accum 2,
-# 8 steps of TokenPipeline batches; the same first batch through an fp32
+# 3 steps of TokenPipeline batches; the same first batch through an fp32
 # copy of the weights: the bf16 loss within LM_TRAIN_TOL["bf16_loss"]
 # relative, and the cosine of the bf16 and fp32 gradients of the head and
 # of the last block >= LM_TRAIN_TOL["cos"]; the flattened gradients'
@@ -442,11 +468,53 @@ LM_CACHE = 2e-1
 # bit for bit.
 LM_TRAIN_SMOKE = ("hymba-1.5b", "qwen1.5-0.5b")
 LM_TRAIN_SMOKE_SHAPE = dict(accum=2, micro=2, T=64, steps=3)
-LM_TRAIN_FULL = dict(accum=2, micro=1, T=4096, steps=8)
+LM_TRAIN_FULL = dict(accum=2, micro=1, T=4096, steps=3)   # 8 before phase 17
 LM_TRAIN_LR = (3e-4, 2, 8)       # linear_warmup_cosine: lr > 0 from step 1
 LM_TRAIN_CLI = dict(steps=20, seq_len=128, batch=8)
 LM_TRAIN_TOL = dict(loss=1e-4, grad=1e-5, adam=1e-6, bf16_loss=1e-2,
                     cos=0.95)
+
+# Phase 17: the moe, ssm and prefix families (ROADMAP A-8c). (a) Their
+# smoke configs in fp32, the card against the port on the CPU: prefill
+# (mixtral's at T = 2,304 so that kernel 10 runs, window 32; internvl2's
+# with a prefix of 16; the others at 320, past one 256-row mLSTM chunk)
+# and FAM_SMOKE["decode"] teacher-forced decode steps from its cache: the
+# top-5 values within FAM_SMOKE_TOL["values"] (decode's within
+# FAM_SMOKE_TOL["decode"]: one-token attention rounds its softmax weights
+# and its output to the bf16 cache's type, as the CPU tests' 1e-2 allows
+# for), ids on decisive rows, each
+# layer's cache or state within FAM_SMOKE_TOL["cache"] (relative; bf16
+# caches round near-equal fp32 values apart by an ulp), the MoE's dropped
+# counts equal; `make_train_step` with accum 2 as phase 16 (a), aux within
+# FAM_SMOKE_TOL["aux"]; two card runs bit for bit. (b) qwen2-moe-a2.7b at
+# full width, 24 layers: prefill at train_4k's length with the share of
+# assignments dropped in each layer; prefill against FAM_MOE_DECODE[1]
+# teacher-forced decode steps at a capacity factor of n_experts / top_k
+# (nothing can drop), held as phase 15a; serve_batch and the CLI as 15b,
+# 15c; two training steps at 2 layers (its AdamW moments do not fit at 24).
+# (c) mixtral-8x22b at full width cut to 2 layers: prefill at (1, 8,192)
+# on kernel 10 and on its plain version, held as phase 14, then kernel 10
+# alone at mixtral's heads. (d) xlstm-125m whole: prefill at (2, 4,096),
+# prefill against 1,024 decode steps, 4 training steps. (e) internvl2-26b
+# at full width: prefill of a 256-patch prefix and 1,792 tokens, equal bit
+# for bit to the prefill of the 2,048 tokens whose embeddings the prefix
+# holds; two training steps with a prefix at 4 layers.
+FAM_ARCHS = ("qwen2-moe-a2.7b", "mixtral-8x22b", "xlstm-125m",
+             "internvl2-26b")
+FAM_SMOKE = dict(T=320, T_swa=2304, decode=8)
+FAM_SMOKE_TOL = dict(values=1e-3, decode=1e-2, cache=1e-3, loss=1e-4,
+                     grad=1e-5, aux=1e-6)
+FAM_MOE = "qwen2-moe-a2.7b"
+FAM_MOE_PREFILL = (1, 4096)                     # train_4k's length
+FAM_MOE_DECODE = (2, 256)
+FAM_MOE_TRAIN = dict(layers=2, accum=2, micro=1, T=4096, steps=2)
+FAM_MIXTRAL, FAM_MIXTRAL_LAYERS = "mixtral-8x22b", 2
+FAM_MIXTRAL_PREFILL = (1, 8192)                 # two windows of 4,096
+FAM_XLSTM = "xlstm-125m"
+FAM_XLSTM_PREFILL, FAM_XLSTM_DECODE = (2, 4096), (2, 1024)
+FAM_XLSTM_TRAIN = dict(accum=2, micro=1, T=2048, steps=4, falling=True)
+FAM_VLM, FAM_VLM_TOKENS = "internvl2-26b", 1792
+FAM_VLM_TRAIN = dict(layers=4, accum=2, micro=1, T=768, steps=2)
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
@@ -2932,8 +3000,9 @@ def band_pairs(T: int, window: int) -> int:
     return w * (w + 1) // 2 + (T - w) * w
 
 
-def check_banded(cfg, gen, flush) -> dict:
-    """Phase 13: kernel 10 against its plain version at hymba's heads,
+def check_banded(cfg, gen, flush, cases=LM_KERNEL_CASES) -> dict:
+    """Phase 13: kernel 10 against its plain version at `cfg`'s heads
+    (hymba's; mixtral's in phase 17c) in each of `cases` ((B, T, dtype)),
     two launches bit for bit, timed like phase 3 beside its bound and
     `F.scaled_dot_product_attention` with a boolean band mask (k and v
     repeated to the query heads outside the timing)."""
@@ -2945,7 +3014,7 @@ def check_banded(cfg, gen, flush) -> dict:
     H, KV, hd, w = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, \
         cfg.sliding_window
     rows = []
-    for B, T, dt_name in LM_KERNEL_CASES:
+    for B, T, dt_name in cases:
         dt = getattr(torch, dt_name)
         q = torch.randn((B, T, H, hd), generator=gen, device="cuda").to(dt)
         k = torch.randn((B, T, KV, hd), generator=gen, device="cuda").to(dt)
@@ -3251,25 +3320,30 @@ def trace_decode(model, params, toks, n: int = 5) -> dict:
 
 
 def lm_serve(model, params, rng) -> dict:
-    """Phase 15b: `serve_batch` with ragged prompts of 4-12 tokens, greedy
-    decode; the blocked top-k kernel launched in that run."""
+    """Phase 15b (17b): `serve_batch` with ragged prompts of 4-12 tokens,
+    greedy decode, `use_swa` as the architecture has it; the blocked top-k
+    kernel launched once a decode step for the head and once a layer for
+    a MoE router, and nowhere else."""
     from repro_torch.kernels.topk import ops as topk_ops
     from repro_torch.serve import serve_batch
     cfg = model.cfg
+    use_swa = cfg.swa_always
     reqs = [rng.integers(2, cfg.vocab, size=rng.integers(4, 13))
             for _ in range(LM_SERVE["batch"])]
-    serve_batch(model, params, reqs[:1], steps=2, use_swa=True)     # warm
+    serve_batch(model, params, reqs[:1], steps=2, use_swa=use_swa)  # warm
     topk_ops.blocked_topk_cuda.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     outs = serve_batch(model, params, reqs, steps=LM_SERVE["steps"],
-                       use_swa=True)
+                       use_swa=use_swa)
     wall = time.perf_counter() - t0
     launches = topk_ops.blocked_topk_cuda.launches
     T0 = max(len(r) for r in reqs)
-    _need(launches == T0 + LM_SERVE["steps"] - 1,
+    n_steps = T0 + LM_SERVE["steps"] - 1
+    per_step = 1 + (cfg.n_layers if cfg.family == "moe" else 0)
+    _need(launches == n_steps * per_step,
           f"serve_batch launched the top-k kernel {launches} times, "
-          f"expected one per decode step ({T0 + LM_SERVE['steps'] - 1})")
+          f"expected {per_step} per decode step ({n_steps * per_step})")
     _need(all(o.shape == (LM_SERVE["steps"],) and
               0 <= o.min() and o.max() < cfg.padded_vocab() for o in outs),
           f"serve_batch returned {[o.tolist() for o in outs]}")
@@ -3277,17 +3351,17 @@ def lm_serve(model, params, rng) -> dict:
     print(f"   {len(reqs)} prompts of {[len(r) for r in reqs]} tokens, "
           f"{LM_SERVE['steps']} steps: {wall:.3f} s, "
           f"{1e3 * wall / n_tok:.2f} ms a generated token, "
-          f"{1e3 * wall / (T0 + LM_SERVE['steps'] - 1):.2f} ms a decode "
-          f"step; top-k launches {launches}; req[0] -> {outs[0].tolist()}",
-          flush=True)
+          f"{1e3 * wall / n_steps:.2f} ms a decode step; top-k launches "
+          f"{launches}; req[0] -> {outs[0].tolist()}", flush=True)
     return dict(prompt_lens=[len(r) for r in reqs], wall_s=wall,
                 ms_per_token=1e3 * wall / n_tok, topk_launches=launches)
 
 
-def lm_cli() -> dict:
-    """Phase 15c: the serving CLI's LM mode at full width on the card."""
+def lm_cli(arch: str = LM_ARCH) -> dict:
+    """Phase 15c (17b): the serving CLI's LM mode at full width on the
+    card."""
     cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
-           LM_ARCH, "--steps", str(LM_SERVE["steps"]), "--batch",
+           arch, "--steps", str(LM_SERVE["steps"]), "--batch",
            str(LM_SERVE["batch"])]
     env = dict(os.environ, PYTHONPATH=str(SRC))
     t0 = time.perf_counter()
@@ -3485,9 +3559,11 @@ def lm_train_full(seed: int) -> dict:
     losses = [h["loss"] for h in hist]
     _need(all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
               for h in hist), f"a non-finite loss or grad_norm: {hist}")
-    late = float(np.mean(losses[5:8]))
-    _need(late < losses[0], f"the loss did not fall: steps 5-7 mean "
-          f"{late:.4f} against step 0's {losses[0]:.4f}")
+    half = len(losses) // 2
+    late = float(np.mean(losses[half:]))
+    _need(late < losses[0], f"the loss did not fall: steps {half}-"
+          f"{len(losses) - 1} mean {late:.4f} against step 0's "
+          f"{losses[0]:.4f}")
     tokens = sh["accum"] * sh["micro"] * sh["T"]
     s_step = float(np.median(secs[1:]))
     flops = flops_per_step(cfg, n_params, sequences=sh["accum"] *
@@ -3599,6 +3675,574 @@ def lm_train(seed: int, build_dir: Path) -> dict:
     _need(not any(out["launches"].values()),
           f"LM training launched a kernel: {out['launches']}")
     print(f"   kernel launches in the phase: {out['launches']}", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: the moe, ssm and prefix families (ROADMAP A-8c)
+# ---------------------------------------------------------------------------
+
+def new_family_counters() -> dict:
+    """The two kernels these families run: kernel 9 (the head's and every
+    MoE router's top-k) and kernel 10 (mixtral's sliding window)."""
+    c = kernel_counters()
+    return {k: c[k] for k in ("blocked_topk", "banded_attention")}
+
+
+@contextlib.contextmanager
+def counted(launches: dict, name: str):
+    """Sets kernels 9 and 10's counts to 0 just before the block and
+    stores what the block launched under `name`."""
+    fns = new_family_counters()
+    for fn in fns.values():
+        fn.launches = 0
+    yield
+    launches[name] = {k: fn.launches for k, fn in fns.items()}
+
+
+def smoke_inputs(cfg, seed: int) -> tuple[dict, np.ndarray]:
+    """Phase 17a's prefill batch and its decode tokens."""
+    rng = np.random.default_rng([seed, 17])
+    T = FAM_SMOKE["T_swa"] if cfg.swa_always else FAM_SMOKE["T"]
+    batch = {"tokens": rng.integers(2, cfg.vocab, size=(2, T))}
+    if cfg.n_prefix:
+        batch["prefix"] = (0.05 * rng.normal(
+            size=(2, cfg.n_prefix, cfg.d_model))).astype(np.float32)
+    return batch, rng.integers(2, cfg.vocab, size=(2, FAM_SMOKE["decode"]))
+
+
+def cache_rel(a: dict, b: dict) -> dict:
+    """Each cache entry's largest relative error over its layers (k/v
+    relative Frobenius per layer; each recurrent state's C exp(m) for an
+    mLSTM, every field for an sLSTM), float64."""
+    out = {}
+    if "states" in a:
+        for n, (x, y) in enumerate(zip(a["states"], b["states"])):
+            if hasattr(x, "C"):
+                fx = x.C.double().cpu() * torch.exp(
+                    x.m.double().cpu())[..., None, None]
+                fy = y.C.double().cpu() * torch.exp(
+                    y.m.double().cpu())[..., None, None]
+                out[f"state_{n}"] = float((fx - fy).norm() / fy.norm())
+            else:
+                out[f"state_{n}"] = max(
+                    float((u.double().cpu() - w.double().cpu()).norm() /
+                          w.double().cpu().norm().clamp_min(1e-300))
+                    for u, w in zip(x[:3], y[:3]))
+        return out
+    for key in ("k", "v"):
+        x, y = a[key].double().cpu(), b[key].double().cpu()
+        out[key] = max(float((x[l] - y[l]).norm() / y[l].norm())
+                       for l in range(x.shape[0]))
+    return out
+
+
+def caches_equal(a: dict, b: dict) -> bool:
+    if "states" in a:
+        return all(torch.equal(u, w) for x, y in zip(a["states"],
+                                                     b["states"])
+                   for u, w in zip(x, y))
+    return all(torch.equal(a[k], b[k]) for k in a)
+
+
+def continued(cache: dict, cfg, n: int) -> dict:
+    """A copy of a prefill cache with room for n more positions (a ring
+    cache, or recurrent states, continue as they are)."""
+    if "states" in cache:
+        return {"states": [type(s)(*(t.clone() for t in s))
+                           for s in cache["states"]]}
+    if cfg.swa_always:
+        return {k: t.clone() for k, t in cache.items()}
+    return {k: torch.nn.functional.pad(t, (0, 0, 0, 0, 0, n))
+            for k, t in cache.items()}
+
+
+def fam_smoke_one(arch: str, seed: int) -> dict:
+    """Phase 17a for one smoke config (fp32): the card against the port on
+    the CPU and against itself (see FAM_SMOKE)."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.model import build_model as build_lm
+    from repro_torch.optim import linear_warmup_cosine
+    from repro_torch.train.trainer import (init_train_state, loss_and_grads,
+                                           make_train_step)
+    cfg = get_config(arch, smoke=True)
+    models = {"cpu": build_lm(cfg, device="cpu"), "cuda": build_lm(cfg)}
+    p0 = models["cpu"].init(torch.Generator().manual_seed(seed))
+    batch, dec = smoke_inputs(cfg, seed)
+    T = batch["tokens"].shape[1] + cfg.n_prefix
+    sh = LM_TRAIN_SMOKE_SHAPE
+    tb = lm_batches(cfg, seed, accum=sh["accum"], micro=sh["micro"],
+                    T=sh["T"], steps=1)[0]
+    if cfg.n_prefix:
+        tb["prefix"] = np.full((sh["accum"], sh["micro"], cfg.n_prefix,
+                                cfg.d_model), 0.01, np.float32)
+    lr_fn = linear_warmup_cosine(*LM_TRAIN_LR)
+    runs, launches = {}, {}
+
+    def serve(dev, tag):
+        m = models[dev]
+        p = copy.deepcopy(p0).to(dev)
+        with counted(launches, tag), moe.count_dropped() as drops:
+            v, i, cache = m.prefill(p, batch, use_swa=cfg.swa_always,
+                                    top_k=6)
+            c = continued(cache, cfg, FAM_SMOKE["decode"])
+            steps = []
+            for s in range(FAM_SMOKE["decode"]):
+                dv, di, c = m.decode_step(p, c, dec[:, s:s + 1], T + s,
+                                          use_swa=cfg.swa_always, top_k=6)
+                steps.append((dv.cpu(), di.cpu()))
+        prefill_drops = [int(d) for _, d in drops[:cfg.n_layers]] \
+            if cfg.family == "moe" else []
+        return dict(v=v.cpu(), i=i.cpu(), cache=cache, steps=steps, end=c,
+                    drops=prefill_drops)
+
+    def train(dev):
+        p = copy.deepcopy(p0).to(dev)
+        mb = {k: v[0] for k, v in tb.items()}
+        _, met = models[dev].train_loss(p, mb)
+        loss, _, grads = loss_and_grads(models[dev], p, tb, sh["accum"])
+        step = make_train_step(models[dev], lr_fn=lr_fn, accum=sh["accum"])
+        st = init_train_state(p)
+        p, _, _ = step(p, st.opt, st.step, tb)
+        return dict(loss=float(loss), aux=float(met["aux"]), grads=grads,
+                    params=[t.detach().cpu() for t in p.parameters()])
+
+    runs["cpu"] = serve("cpu", "cpu")
+    runs["cuda"] = serve("cuda", "cuda")
+    again = serve("cuda", "cuda again")
+    a, b = runs["cuda"], runs["cpu"]
+    torch.cuda.synchronize()
+    bits = (torch.equal(a["v"], again["v"]) and
+            torch.equal(a["i"], again["i"]) and
+            caches_equal(a["cache"], again["cache"]) and
+            caches_equal(a["end"], again["end"]) and
+            a["drops"] == again["drops"])
+    ids = decisive_ids(a["v"], a["i"], b["v"], b["i"])
+    val_err = float((a["v"] - b["v"]).abs().max())
+    dec_err = max(float((x[0] - y[0]).abs().max())
+                  for x, y in zip(a["steps"], b["steps"]))
+    for (av, ai), (bv, bi) in zip(a["steps"], b["steps"]):
+        decisive_ids(av, ai, bv, bi)
+    rel = {"prefill": cache_rel(a["cache"], b["cache"]),
+           "decode": cache_rel(a["end"], b["end"])}
+    tr = {dev: train(dev) for dev in ("cpu", "cuda")}
+    tr2 = train("cuda")
+    g_err = grad_error(tr["cuda"]["grads"], tr["cpu"]["grads"])
+    loss_err = abs(tr["cuda"]["loss"] - tr["cpu"]["loss"]) / \
+        abs(tr["cpu"]["loss"])
+    aux_err = abs(tr["cuda"]["aux"] - tr["cpu"]["aux"]) / \
+        max(abs(tr["cpu"]["aux"]), 1e-30)
+    train_bits = all(torch.equal(x, y) for x, y in
+                     zip(tr["cuda"]["params"], tr2["params"]))
+    worst = max(max(r.values()) for r in rel.values())
+    row = dict(arch=cfg.name, T=T, prefill_ids=ids, prefill_val_err=val_err,
+               decode_val_err=dec_err, cache_rel=rel, drops=a["drops"],
+               cpu_drops=b["drops"], bit_for_bit=bits,
+               train=dict(loss=tr["cuda"]["loss"], cpu_loss=tr["cpu"]["loss"],
+                          loss_rel_err=loss_err, grad_err=g_err,
+                          aux=tr["cuda"]["aux"], aux_rel_err=aux_err,
+                          bit_for_bit=train_bits),
+               launches=launches["cuda"])
+    print(f"   {cfg.name} (T = {T:,}): top-5 {a['i'][0, :5].tolist()}, "
+          f"values {val_err:.2e} from the CPU's, decode {dec_err:.2e}; "
+          f"caches/states {worst:.2e}; drops {a['drops']} (CPU "
+          f"{b['drops']}); train loss {loss_err:.2e}, gradients "
+          f"{g_err:.2e}, aux {aux_err:.2e}; bit for bit {bits} / "
+          f"{train_bits}; launches {launches['cuda']}", flush=True)
+    tol = FAM_SMOKE_TOL
+    _need(val_err <= tol["values"] and dec_err <= tol["decode"] and
+          worst <= tol["cache"] and a["drops"] == b["drops"] and bits and
+          loss_err <= tol["loss"] and g_err <= tol["grad"] and
+          aux_err <= tol["aux"] and train_bits,
+          f"phase 17a {cfg.name}: card vs CPU beyond {tol}: {row}")
+    _need(launches["cuda"]["blocked_topk"] > 0,
+          f"{cfg.name}: no blocked top-k launched")
+    if cfg.swa_always:
+        _need(launches["cuda"]["banded_attention"] == cfg.n_layers,
+              f"{cfg.name}: the banded kernel ran "
+              f"{launches['cuda']['banded_attention']} times in prefill, "
+              f"not once a layer")
+    return row
+
+
+def expert_products(cfg, n: int) -> dict:
+    """The MoE's expert product at a prefill of n tokens, (E, capacity, d)
+    @ (E, d, f) in bf16 with a float32 result, by `moe._f32_bmm`'s two
+    routes: `torch.bmm(..., out_dtype=torch.float32)` (serving) and the
+    operands widened to float32 first (training: the first has no
+    backward); CUDA events, cold L2, and the largest difference."""
+    from repro_torch.models import moe
+    C = moe.capacity(cfg, n)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    a = torch.randn((cfg.n_experts, C, cfg.d_model), generator=g,
+                    device="cuda").bfloat16()
+    b = (torch.randn((cfg.n_experts, cfg.d_model, cfg.moe_d_ff),
+                     generator=g, device="cuda") * 0.02).bfloat16()
+    flush = torch.empty(64 * 2**20, device="cuda")
+    with torch.no_grad():
+        direct = moe._f32_bmm(a, b)
+        ms = cuda_ms(lambda: moe._f32_bmm(a, b), 10, flush)
+    b.requires_grad_(True)
+    wide = moe._f32_bmm(a, b)
+    out = dict(shape=[cfg.n_experts, C, cfg.d_model, cfg.moe_d_ff],
+               out_dtype_ms=ms,
+               widened_ms=cuda_ms(lambda: moe._f32_bmm(a, b), 10, flush),
+               max_abs_diff=float((direct - wide.detach()).abs().max()))
+    print(f"   expert product {tuple(out['shape'])}: bmm(out_dtype=float32) "
+          f"{ms:.4f} ms (serving), widened to fp32 {out['widened_ms']:.4f} "
+          f"ms (training), max |diff| {out['max_abs_diff']:.3e}", flush=True)
+    return out
+
+
+def moe_full(seed: int, rng, launches: dict) -> dict:
+    """Phase 17b: qwen2-moe-a2.7b at full width, 24 layers, bf16."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.model import build_model as build_lm
+    cfg = get_config(FAM_MOE)
+    model = build_lm(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"   {cfg.name}: {n_params / 1e9:.3f} B parameters "
+          f"({sum(p.nbytes for p in params.parameters()) / 1e9:.2f} GB), "
+          f"drawn in {time.perf_counter() - t0:.1f} s", flush=True)
+    B, T = FAM_MOE_PREFILL
+    toks = torch.from_numpy(rng.integers(2, cfg.vocab, size=(B, T))).cuda()
+    model.prefill(params, {"tokens": toks[:, :64]})                 # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with counted(launches, "qwen2-moe prefill"), \
+            moe.count_dropped() as drops:
+        t0 = time.perf_counter()
+        v, i, cache = model.prefill(params, {"tokens": toks}, top_k=6)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    share = [int(d) / int(a) for a, d in drops]
+    _need(launches["qwen2-moe prefill"]["blocked_topk"] ==
+          cfg.n_layers + 1, f"prefill launched the top-k kernel "
+          f"{launches['qwen2-moe prefill']} times, expected "
+          f"{cfg.n_layers + 1} (each router and the head)")
+    _need(bool(torch.isfinite(v).all()) and v.shape == (B, 6),
+          f"prefill gave {v}")
+    del cache
+    print(f"   prefill ({B}, {T:,}): {wall:.3f} s ({B * T / wall:,.0f} "
+          f"tokens/s), peak {peak:.2f} GiB; dropped per layer "
+          f"{' '.join(f'{x:.3f}' for x in share)}; top-5 "
+          f"{i[0, :5].tolist()}", flush=True)
+    out = dict(arch=cfg.name, params=n_params,
+               prefill=dict(B=B, T=T, wall_s=wall, tokens_per_s=B * T / wall,
+                            peak_gib=peak, dropped_share=share),
+               expert_products=expert_products(cfg, B * T))
+
+    # Prefill against teacher-forced decode, nothing dropped.
+    nodrop = build_lm(dataclasses.replace(
+        cfg, capacity_factor=cfg.n_experts / cfg.moe_top_k))
+    B, T = FAM_MOE_DECODE
+    toks = torch.from_numpy(rng.integers(2, cfg.vocab, size=(B, T))).cuda()
+    with moe.count_dropped() as drops:
+        v, i, cache_p = nodrop.prefill(params, {"tokens": toks}, top_k=6)
+    _need(not any(int(d) for _, d in drops), "the prefill at capacity "
+          "factor n_experts / top_k dropped an assignment")
+    cache_d = nodrop.init_cache(B, T)
+    torch.cuda.synchronize()
+    with counted(launches, "qwen2-moe decode"):
+        t0 = time.perf_counter()
+        for t in range(T):
+            dv, di, cache_d = nodrop.decode_step(params, cache_d,
+                                                 toks[:, t:t + 1], t,
+                                                 top_k=6)
+        torch.cuda.synchronize()
+        dwall = time.perf_counter() - t0
+    ids = decisive_ids(v, i, dv, di)
+    exact = all(torch.equal(cache_p[k][0], cache_d[k][0])
+                for k in ("k", "v"))
+    # Layer 0's k/v come before any expert: bit for bit. Above it a bf16
+    # rounding can move a token to another expert, so every layer is held
+    # to LM_CACHE only.
+    errs = cache_errors(cache_p, cache_d, T, 1, LM_CACHE)
+    del cache_p, cache_d
+    print(f"   {T} decode steps at B = {B} (capacity factor "
+          f"{nodrop.cfg.capacity_factor:g}): {dwall:.2f} s, "
+          f"{1e3 * dwall / T:.2f} ms a step; top-5 decisive rows "
+          f"{ids['decisive']} of {ids['rows']}, agree {ids['agree']}; k/v "
+          f"rel err {errs['k']:.2e} / {errs['v']:.2e} (layers 0-2 "
+          f"{errs['k_first_layers']}); layer 0 bit for bit: {exact}",
+          flush=True)
+    out["decode"] = dict(B=B, T=T, wall_s=dwall, ms_per_step=1e3 * dwall / T,
+                         top5=ids, cache_rel_err=errs, layer0_exact=exact)
+    with counted(launches, "qwen2-moe serve_batch"):
+        out["serve"] = lm_serve(model, params, rng)
+    del params
+    torch.cuda.empty_cache()
+    out["cli"] = lm_cli(FAM_MOE)
+    out["train"] = fam_train(dataclasses.replace(
+        cfg, n_layers=FAM_MOE_TRAIN["layers"]), seed, FAM_MOE_TRAIN,
+        launches, "qwen2-moe train")
+    return out
+
+
+def fam_train(cfg, seed: int, sh: dict, launches: dict, tag: str,
+              prefix: int = 0) -> dict:
+    """A few `make_train_step` steps of cfg in bf16 (sh: accum, micro, T,
+    steps) from weights drawn from the seed: the loss finite (and, with
+    `falling`, the last below the first), s a step, tokens/s, peak."""
+    from repro_torch.models.model import build_model as build_lm
+    from repro_torch.optim import linear_warmup_cosine
+    from repro_torch.train.trainer import init_train_state, make_train_step
+    model = build_lm(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+    batches = lm_batches(cfg, seed, accum=sh["accum"], micro=sh["micro"],
+                         T=sh["T"], steps=sh["steps"])
+    if prefix:
+        for b in batches:
+            b["prefix"] = np.full((sh["accum"], sh["micro"], prefix,
+                                   cfg.d_model), 0.01, np.float32)
+    step = make_train_step(model, lr_fn=linear_warmup_cosine(*LM_TRAIN_LR),
+                           accum=sh["accum"])
+    st = init_train_state(params)
+    opt, s = st.opt, st.step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hist, secs = [], []
+    with counted(launches, tag):
+        for b in batches:
+            t0 = time.perf_counter()
+            params, opt, met = step(params, opt, s, b)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            s = s + 1
+            hist.append({k: float(v) for k, v in met.items()})
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [h["loss"] for h in hist]
+    _need(all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+              for h in hist), f"{cfg.name}: a non-finite loss: {hist}")
+    if sh.get("falling"):
+        _need(losses[-1] < losses[0], f"{cfg.name}: the loss did not fall: "
+              f"{losses}")
+    tokens = sh["accum"] * sh["micro"] * sh["T"]
+    s_step = float(np.median(secs[1:])) if len(secs) > 1 else secs[0]
+    plus = f" + prefix {prefix}" if prefix else ""
+    print(f"   {cfg.name} at {cfg.n_layers} layers, {len(hist)} steps of "
+          f"{tokens:,} tokens (accum, micro, T) = ({sh['accum']}, "
+          f"{sh['micro']}, {sh['T']:,}){plus}: loss {' '.join(f'{x:.2f}' for x in losses)}; "
+          f"{s_step:.3f} s a step (step 0 {secs[0]:.3f} s), "
+          f"{tokens / s_step:,.0f} tokens/s, peak {peak:.2f} GiB; launches "
+          f"{launches[tag]}", flush=True)
+    del model, params, opt
+    torch.cuda.empty_cache()
+    return dict(n_layers=cfg.n_layers, **sh, prefix=prefix, history=hist,
+                seconds=secs, s_per_step=s_step, tokens_per_s=tokens / s_step,
+                peak_gib=peak)
+
+
+def mixtral_full(seed: int, rng, launches: dict) -> dict:
+    """Phase 17c: mixtral-8x22b at full width cut to FAM_MIXTRAL_LAYERS
+    layers, bf16: prefill on kernel 10 and on its plain version, then
+    kernel 10 alone at mixtral's heads."""
+    from unittest import mock
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.banded_attn import ops as band_ops
+    from repro_torch.kernels.banded_attn import ref as band_ref
+    from repro_torch.models import moe
+    from repro_torch.models.model import build_model as build_lm
+    cfg = dataclasses.replace(get_config(FAM_MIXTRAL),
+                              n_layers=FAM_MIXTRAL_LAYERS)
+    model = build_lm(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+    n_params = sum(p.numel() for p in params.parameters())
+    B, T = FAM_MIXTRAL_PREFILL
+    toks = torch.from_numpy(rng.integers(2, cfg.vocab, size=(B, T))).cuda()
+    model.prefill(params, {"tokens": toks[:, :64]}, use_swa=True)   # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with counted(launches, "mixtral prefill"), moe.count_dropped() as kdrops:
+        t0 = time.perf_counter()
+        v, i, cache = model.prefill(params, {"tokens": toks}, use_swa=True,
+                                    top_k=6)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    got = launches["mixtral prefill"]
+    _need(got["banded_attention"] == cfg.n_layers and
+          got["blocked_topk"] == cfg.n_layers + 1,
+          f"mixtral prefill launched {got}: expected kernel 10 once a "
+          f"layer and kernel 9 once a router and once for the head")
+    _need(cache["k"].shape[2] == cfg.sliding_window,
+          f"the cache holds {cache['k'].shape[2]} positions, not a ring of "
+          f"{cfg.sliding_window}")
+
+    def plain(q, k, v, *, window, softcap=None, q_chunk=512):
+        return band_ref.banded_attention(q, k, v, window=window,
+                                         q_chunk=q_chunk, softcap=softcap)
+    with mock.patch.object(band_ops, "banded_attention", plain), \
+            moe.count_dropped() as pdrops:
+        before = band_ops.banded_attention_cuda.launches
+        t0 = time.perf_counter()
+        pv, pi, pcache = model.prefill(params, {"tokens": toks},
+                                       use_swa=True, top_k=6)
+        torch.cuda.synchronize()
+        pwall = time.perf_counter() - t0
+        _need(band_ops.banded_attention_cuda.launches == before,
+              "the plain prefill launched the kernel")
+    ids = decisive_ids(v, i, pv, pi)
+    # Layer 0's k/v come before any attention: bit for bit. A rounding in
+    # its attention moves tokens across experts, and at capacity changes
+    # which assignments drop, so layer 1 is held to LM_CACHE only.
+    errs = cache_errors(cache, pcache, cfg.sliding_window, 1, LM_CACHE)
+    drops = {"kernel": [int(d) for _, d in kdrops],
+             "plain": [int(d) for _, d in pdrops]}
+    del cache, pcache, params
+    torch.cuda.empty_cache()
+    print(f"   {cfg.name} at {cfg.n_layers} layers ({n_params / 1e9:.2f} B "
+          f"parameters): prefill ({B}, {T:,}) {wall:.3f} s on the kernel "
+          f"({B * T / wall:,.0f} tokens/s), {pwall:.3f} s on the plain "
+          f"version; peak {peak:.2f} GiB; top-5 {i[0, :5].tolist()} vs "
+          f"{pi[0, :5].tolist()} (decisive {ids['decisive']} of "
+          f"{ids['rows']}); k/v rel err {errs['k']:.2e} / {errs['v']:.2e} "
+          f"(layer 1 {errs['k_first_layers'][1]:.2e}); dropped assignments "
+          f"by layer {drops}; launches {got}", flush=True)
+    flush = torch.empty(64 * 2**20, device="cuda")
+    kernel = check_banded(cfg, torch.Generator(device="cuda")
+                          .manual_seed(seed), flush,
+                          cases=((1, T, "bfloat16"),))
+    del flush
+    torch.cuda.empty_cache()
+    return dict(arch=cfg.name, n_layers=cfg.n_layers, params=n_params,
+                prefill=dict(B=B, T=T, wall_s=wall, plain_wall_s=pwall,
+                             tokens_per_s=B * T / wall, peak_gib=peak,
+                             top5=ids, cache_rel_err=errs, dropped=drops),
+                kernel=kernel)
+
+
+def xlstm_full(seed: int, rng, launches: dict) -> dict:
+    """Phase 17d: xlstm-125m whole (12 layers), bf16."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model as build_lm
+    cfg = get_config(FAM_XLSTM)
+    model = build_lm(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+    n_params = sum(p.numel() for p in params.parameters())
+    B, T = FAM_XLSTM_PREFILL
+    toks = torch.from_numpy(rng.integers(2, cfg.vocab, size=(B, T))).cuda()
+    model.prefill(params, {"tokens": toks[:, :300]})               # warm
+    torch.cuda.synchronize()
+    with counted(launches, "xlstm prefill"):
+        t0 = time.perf_counter()
+        v, i, _ = model.prefill(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    _need(bool(torch.isfinite(v).all()), f"xlstm prefill gave {v}")
+    B, T = FAM_XLSTM_DECODE
+    toks = toks[:, :T]
+    v, i, cache_p = model.prefill(params, {"tokens": toks}, top_k=6)
+    cache_d = model.init_cache(B, T)
+    torch.cuda.synchronize()
+    with counted(launches, "xlstm decode"):
+        t0 = time.perf_counter()
+        for t in range(T):
+            dv, di, cache_d = model.decode_step(params, cache_d,
+                                                toks[:, t:t + 1], t, top_k=6)
+        torch.cuda.synchronize()
+        dwall = time.perf_counter() - t0
+    ids = decisive_ids(v, i, dv, di)
+    rel = cache_rel(cache_p, cache_d)
+    n_tok = FAM_XLSTM_PREFILL[0] * FAM_XLSTM_PREFILL[1]
+    print(f"   {cfg.name} ({n_params / 1e6:.1f} M parameters): prefill "
+          f"{FAM_XLSTM_PREFILL} {wall:.3f} s ({n_tok / wall:,.0f} "
+          f"tokens/s); prefill {FAM_XLSTM_DECODE} against {T:,} decode "
+          f"steps ({dwall:.2f} s, {1e3 * dwall / T:.2f} ms a step): top-5 "
+          f"decisive {ids['decisive']} of {ids['rows']}, states rel err "
+          f"max {max(rel.values()):.2e} ({rel})", flush=True)
+    _need(max(rel.values()) <= LM_CACHE, f"xlstm states of prefill and "
+          f"decode differ beyond {LM_CACHE}: {rel}")
+    del params, cache_p, cache_d
+    torch.cuda.empty_cache()
+    return dict(arch=cfg.name, params=n_params,
+                prefill=dict(B=FAM_XLSTM_PREFILL[0], T=FAM_XLSTM_PREFILL[1],
+                             wall_s=wall, tokens_per_s=n_tok / wall),
+                decode=dict(B=B, T=T, wall_s=dwall,
+                            ms_per_step=1e3 * dwall / T, top5=ids,
+                            state_rel_err=rel),
+                train=fam_train(cfg, seed, FAM_XLSTM_TRAIN, launches,
+                                "xlstm train"))
+
+
+def internvl_full(seed: int, rng, launches: dict) -> dict:
+    """Phase 17e: internvl2-26b at full width (48 layers), bf16, its 256
+    patch embeddings as a prefix."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model as build_lm
+    cfg = get_config(FAM_VLM)
+    model = build_lm(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"   {cfg.name}: {n_params / 1e9:.3f} B parameters "
+          f"({sum(p.nbytes for p in params.parameters()) / 1e9:.2f} GB), "
+          f"drawn in {time.perf_counter() - t0:.1f} s", flush=True)
+    P, T = cfg.n_prefix, FAM_VLM_TOKENS
+    toks = torch.from_numpy(rng.integers(2, cfg.vocab, size=(1, P + T))) \
+        .cuda()
+    model.prefill(params, {"tokens": toks[:, :64]})                # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    prefix = params.embed[toks[:, :P]]                # (1, 256, 6,144)
+    with counted(launches, "internvl2 prefill"):
+        t0 = time.perf_counter()
+        v, i, cache = model.prefill(params, {"tokens": toks[:, P:],
+                                             "prefix": prefix})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    v2, i2, cache2 = model.prefill(params, {"tokens": toks})
+    same = (torch.equal(v, v2) and torch.equal(i, i2) and
+            caches_equal(cache, cache2))
+    print(f"   prefill of a ({1}, {P}, {cfg.d_model:,}) prefix and {T:,} "
+          f"tokens: {wall:.3f} s ({(P + T) / wall:,.0f} positions/s), peak "
+          f"{peak:.2f} GiB; top-5 {i[0].tolist()}; == prefill of the {P + T:,}"
+          f" tokens, bit for bit: {same}", flush=True)
+    _need(same, "prefill(tokens, prefix=embed[p]) differs from "
+          "prefill(concat(p, tokens))")
+    _need(launches["internvl2 prefill"]["blocked_topk"] == 1,
+          f"internvl2 prefill launched {launches['internvl2 prefill']}")
+    del params, cache, cache2, prefix
+    torch.cuda.empty_cache()
+    return dict(arch=cfg.name, params=n_params,
+                prefill=dict(prefix=P, T=T, wall_s=wall, peak_gib=peak,
+                             positions_per_s=(P + T) / wall,
+                             prefix_identity_bit_for_bit=same),
+                train=fam_train(dataclasses.replace(
+                    cfg, n_layers=FAM_VLM_TRAIN["layers"]), seed,
+                    FAM_VLM_TRAIN, launches, "internvl2 train", prefix=P))
+
+
+def families(seed: int) -> dict:
+    """Phase 17: (a) the four smoke configs, then (b)-(e) at full width."""
+    rng = np.random.default_rng([seed, 17])
+    launches: dict = {}
+    out, walls = {}, {}
+    for part, run in (
+            ("smoke", lambda: [fam_smoke_one(a, seed) for a in FAM_ARCHS]),
+            ("qwen2_moe", lambda: moe_full(seed, rng, launches)),
+            ("mixtral", lambda: mixtral_full(seed, rng, launches)),
+            ("xlstm", lambda: xlstm_full(seed, rng, launches)),
+            ("internvl2", lambda: internvl_full(seed, rng, launches))):
+        t0 = time.perf_counter()
+        out[part] = run()
+        walls[part] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    out["launches"] = launches
+    out["wall_s"] = walls
+    print("   (a)-(e) took " + ", ".join(f"{v:.1f}" for v in walls.values())
+          + " s", flush=True)
     return out
 
 
@@ -3850,6 +4494,10 @@ def main() -> None:
     with phase(f"lm train: smoke configs card vs CPU; {LM_ARCH} at full "
                f"width, T = {LM_TRAIN_FULL['T']:,}; launch.train --arch"):
         lm_tr = lm_train(args.seed, build_dir)
+    with phase("lm families: smoke configs card vs CPU; qwen2-moe-a2.7b, "
+               "mixtral-8x22b (2 layers), xlstm-125m, internvl2-26b at full "
+               "width"):
+        fam = families(args.seed)
 
     head = next(r for r in bsr["sweep"] if r["n"] == HEADLINE_N)
     kernels = [
@@ -3877,7 +4525,9 @@ def main() -> None:
              cases=topk["cases"], launches_mesh={
                  f"sharded {k}": v["launches"]["blocked_topk"]
                  for k, v in mesh_serve.items()},
-             launches_baselines=base["topk_launches"]),
+             launches_baselines=base["topk_launches"],
+             launches_families={k: v["blocked_topk"]
+                                for k, v in fam["launches"].items()}),
     ]
     at = "(L, N, D) = ({}, {}, {})".format(*train_k["shape"])
     for name, key, src, replaces, err_key in (
@@ -3945,7 +4595,10 @@ def main() -> None:
             band["B"], band["T"], *banded["shape"], band["dtype"]),
         design="bf16: wgmma (m64n64k16 Q.K^T, P.V with P from registers) on "
         "TMA tiles; fp32: FFMA", redesigned=True, hgmma=banded["hgmma"],
-        sweep=banded["rows"]))
+        sweep=banded["rows"], launches_families={
+            k: v["banded_attention"] for k, v in fam["launches"].items()},
+        mixtral=dict(shape=fam["mixtral"]["kernel"]["shape"],
+                     **fam["mixtral"]["kernel"]["rows"][0])))
     print(json.dumps({"kernels": kernels, "serve": {
         k: served[k] for k in ("p50_ms", "p99_ms", "p99_limit_ms",
                                "meets_limit", "large_requests", "load_s",
@@ -3960,6 +4613,7 @@ def main() -> None:
                              "serve": lm_srv, "cli": lm_cli_out,
                              "train": lm_tr}}))
     print(json.dumps({"baselines": base}))
+    print(json.dumps({"lm_families": fam}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

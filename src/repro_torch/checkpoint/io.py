@@ -858,13 +858,20 @@ PYTREE_ARRAYS = "arrays.npz"
 PYTREE_INDEX = "index.json"
 
 
-def _flat_tree(tree, prefix: str = "") -> dict:
-    """A nested dict's leaves by their '/'-joined key paths, in key order
+def _items(node):
+    """(key, child) of a dict in key order or of a list in index order
     (the JAX package's flattening order)."""
+    if isinstance(node, list):
+        return list(enumerate(node))
+    return [(key, node[key]) for key in sorted(node)]
+
+
+def _flat_tree(tree, prefix: str = "") -> dict:
+    """A tree's leaves (nested dicts and lists) by their '/'-joined key
+    paths, in the JAX package's flattening order."""
     flat = {}
-    for key in sorted(tree):
-        val = tree[key]
-        if isinstance(val, dict):
+    for key, val in _items(tree):
+        if isinstance(val, (dict, list)):
             flat.update(_flat_tree(val, f"{prefix}{key}/"))
         else:
             flat[prefix + str(key)] = val
@@ -890,8 +897,9 @@ def save_pytree(tree, directory: str, *, sparse_threshold: float = 0.5):
     A 2-D leaf of more than 4,096 elements whose density is under
     `sparse_threshold` is stored as coo (`::values`, `::rows`, `::cols`).
     `tree`: an `LMParams` (written as the JAX package's parameter tree,
-    `blocks/attn/wq` with the layer axis first) or nested dicts of tensors
-    or arrays."""
+    `blocks/attn/wq` with the layer axis first, or xLSTM's
+    `blocks/0/mixer/wq`) or nested dicts (and lists) of tensors or
+    arrays."""
     from repro_torch.convert import lm_jax_tree
     from repro_torch.models.transformer import LMParams
     if isinstance(tree, LMParams):
@@ -949,17 +957,18 @@ def restore_pytree(template, directory: str):
     device, each parameter of the template's type) or nested dicts of
     tensors (each leaf on its template's device, of its type). Reads what
     either package's `save_pytree` wrote."""
-    from repro_torch.convert import _unstacked, lm_params_from_flat
+    from repro_torch.convert import (_unstacked, lm_jax_tree,
+                                     lm_params_from_flat)
     from repro_torch.models.transformer import LMParams
     with open(os.path.join(directory, PYTREE_INDEX)) as f:
         entries = json.load(f)["entries"]
     data = np.load(os.path.join(directory, PYTREE_ARRAYS))
 
     def fill(node, prefix: str = ""):
-        out = {}
-        for key, val in node.items():
+        out = [None] * len(node) if isinstance(node, list) else {}
+        for key, val in _items(node):
             path = f"{prefix}{key}"
-            if isinstance(val, dict):
+            if isinstance(val, (dict, list)):
                 out[key] = fill(val, path + "/")
                 continue
             t = _restored(data, entries[path], path)
@@ -972,18 +981,9 @@ def restore_pytree(template, directory: str):
 
     if not isinstance(template, LMParams):
         return fill(template)
-    cfg, L = template.cfg, len(template.blocks)
-    shapes: dict = {}                   # the JAX tree, meta tensors
-    for name, p in template.named_parameters():
-        path, shape = name.split("."), tuple(p.shape)
-        if path[0] == "blocks":
-            if path[1] != "0":
-                continue
-            path, shape = ["blocks"] + path[2:], (L,) + shape
-        node = shapes
-        for key in path[:-1]:
-            node = node.setdefault(key, {})
-        node[path[-1]] = torch.empty(shape, device="meta")
+    cfg = template.cfg
+    shapes = lm_jax_tree(template, lambda t: torch.empty(t.shape,
+                                                         device="meta"))
     stored = fill(shapes)
     params = lm_params_from_flat(cfg, _unstacked(cfg, stored),
                                  device=template.embed.device)

@@ -111,8 +111,11 @@ def _tensor(a: np.ndarray) -> torch.Tensor:
 def _unstacked(cfg, tree: dict, leaf=lambda a: a) -> dict:
     """State-dict entries of the JAX package's LM parameter tree: each
     leaf through `leaf`, the leaves under `blocks` split at their leading
-    layer axis into `blocks.<i>.` entries."""
+    layer axis into `blocks.<i>.` entries (or, for xLSTM, the i-th tree of
+    the list)."""
+    from repro_torch.models.transformer import uses_layer_scan
     flat: dict = {}
+    stacked = uses_layer_scan(cfg)
 
     def walk(prefix: str, sub: dict, layer: Optional[int]) -> None:
         for key, val in sub.items():
@@ -125,7 +128,10 @@ def _unstacked(cfg, tree: dict, leaf=lambda a: a) -> dict:
     for key, val in tree.items():
         if key == "blocks":
             for i in range(cfg.n_layers):
-                walk(f"blocks.{i}.", val, i)
+                if stacked:
+                    walk(f"blocks.{i}.", val, i)
+                else:
+                    walk(f"blocks.{i}.", val[i], None)
         elif isinstance(val, dict):
             walk(f"{key}.", val, None)
         else:
@@ -147,7 +153,7 @@ def lm_params_from_jax(cfg, params_np: dict, *, device=None):
     """The port's LM parameters (`models.transformer.LMParams`) from the
     JAX package's parameter tree as numpy arrays: `embed`, `final_norm`,
     `head` and `blocks`, whose leaves are stacked over the n_layers
-    layers (leading dim L), e.g.
+    layers (leading dim L; for xLSTM a list of per-layer trees), e.g.
     `jax.tree.map(np.asarray, build_model(cfg).init(key))`. The layer axis
     is unstacked into `blocks.<i>.` entries; every leaf must fill a
     parameter of the same shape, and none may be missing."""
@@ -156,23 +162,30 @@ def lm_params_from_jax(cfg, params_np: dict, *, device=None):
     return lm_params_from_flat(cfg, flat, device=device)
 
 
-def lm_jax_tree(params) -> dict:
+def lm_jax_tree(params, leaf=lambda t: t.detach().cpu()) -> dict:
     """The JAX package's parameter tree of `params` (an `LMParams`) as
-    nested dicts of host tensors of the parameters' types: `embed`,
-    `final_norm`, `head` and `blocks`, whose leaves stack the layers'
-    parameters along a new leading axis."""
-    sd = {k: v.detach().cpu() for k, v in params.state_dict().items()}
+    nested dicts of each parameter through `leaf` (by default a host
+    tensor of its type): `embed`, `final_norm`, `head` and `blocks`, whose
+    leaves stack the layers' parameters along a new leading axis (for
+    xLSTM, `blocks` is a list of per-layer trees)."""
+    from repro_torch.models.transformer import uses_layer_scan
+    sd = {k: leaf(v) for k, v in params.state_dict().items()}
+    stacked = uses_layer_scan(params.cfg)
     tree: dict = {}
+    if not stacked:
+        tree["blocks"] = [{} for _ in params.blocks]
     for name, t in sd.items():
         path = name.split(".")
-        if path[0] == "blocks":
+        node = tree
+        if path[0] == "blocks" and not stacked:
+            node, path = tree["blocks"][int(path[1])], path[2:]
+        elif path[0] == "blocks":
             if path[1] != "0":
                 continue
             rest = ".".join(path[2:])
             path = ["blocks"] + path[2:]
             t = torch.stack([sd[f"blocks.{i}.{rest}"]
                              for i in range(len(params.blocks))])
-        node = tree
         for key in path[:-1]:
             node = node.setdefault(key, {})
         node[path[-1]] = t
@@ -192,6 +205,8 @@ def lm_params_to_jax(cfg, params) -> dict:
     def to_np(node):
         if isinstance(node, dict):
             return {k: to_np(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [to_np(v) for v in node]
         return (node.float() if node.dtype == torch.bfloat16
                 else node).numpy()
     return to_np(lm_jax_tree(params))

@@ -9,9 +9,10 @@ LM mode (batched greedy decode of ragged prompts; random weights from
   PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
       --smoke --device cpu                  # the smoke config, on the CPU
 
-Only the dense and hybrid families are ported; the others, the
-encoder-decoder and the modality-prefix archs exit with an error naming
-their ROADMAP item.
+The text-only archs serve (dense, hybrid, moe, ssm). The modality-prefix
+(VLM) archs exit, as the JAX package's CLI does: their prompts go in
+through `model.prefill(params, {"tokens", "prefix"})`. The
+encoder-decoder exits naming its ROADMAP item.
 
 XMC mode (the paper's distributed prediction as a service; trains and
 checkpoints a small sparse model first if --ckpt does not exist yet, then
@@ -264,10 +265,11 @@ def serve_lm(args) -> None:
     from repro_torch.serve import serve_batch
 
     cfg = get_config(args.arch, smoke=args.smoke)
-    if cfg.is_encoder_decoder or cfg.n_prefix:
-        raise SystemExit("serve CLI drives text-only archs; encoder-decoder "
-                         "and VLM serving is not ported yet: ROADMAP Queue "
-                         "A item 8c")
+    if cfg.n_prefix and not cfg.is_encoder_decoder:
+        raise SystemExit("serve CLI drives text-only archs, as the JAX "
+                         "package's does; a VLM prompt takes its patch "
+                         "prefix through model.prefill(params, {'tokens', "
+                         "'prefix'})")
     try:
         model = build_model(cfg, device=args.device)
     except NotImplementedError as e:

@@ -8,9 +8,9 @@ as JSON lines, then `save_pytree` to --out in the JAX package's layout):
   PYTHONPATH=src python -m repro_torch.launch.train --arch hymba-1.5b \
       --smoke --steps 20 --seq-len 128 --batch 8 --out /tmp/lm_ckpt
 
-The dense and hybrid families train; the moe, ssm, encoder-decoder and
-modality-prefix configs, and `--mesh` in LM mode, exit naming ROADMAP
-Queue A item 8c.
+Every decoder-only family trains (a VLM config takes the JAX launcher's
+prefix batches, patch embeddings of 0.01); the encoder-decoder configs,
+and `--mesh` in LM mode, exit naming ROADMAP Queue A item 8e.
 
 XMC mode (flags -> XMCSpec -> repro_torch.xmc_api.fit: streaming
 label-batch pipeline -> servable sparse checkpoint with the spec in its
@@ -46,6 +46,7 @@ import os
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 
@@ -70,10 +71,18 @@ def train_lm(args) -> None:
         raise SystemExit(str(e)) from None
     params = model.init(torch.Generator(device=model.device)
                         .manual_seed(args.seed))
-    batches = make_lm_batch_iterator(cfg.vocab, args.seq_len, args.batch,
-                                     seed=args.seed)
+    tokens = make_lm_batch_iterator(cfg.vocab, args.seq_len, args.batch,
+                                    seed=args.seed)
+    # The JAX launcher's stand-in patch embeddings for a prefix config.
+    prefix = np.ones((args.batch, cfg.n_prefix, cfg.d_model),
+                     np.float32) * 0.01
+
+    def batches():
+        for b in tokens:
+            yield {**b, "prefix": prefix} if cfg.n_prefix else b
+
     t0 = time.time()
-    params, hist = train_loop(model, params, batches, steps=args.steps,
+    params, hist = train_loop(model, params, batches(), steps=args.steps,
                               lr=args.lr)
     for h in hist:
         print(json.dumps(h))

@@ -1,4 +1,4 @@
-"""The LM side's models: layers, the Mamba mixer, the KV cache, the
-decoder-only stack (`transformer`) and `build_model`. The dense and hybrid
-families serve (prefill and decode); see `transformer.NOT_PORTED` for the
-rest."""
+"""The LM side's models: layers, the recurrent mixers (xLSTM's mLSTM and
+sLSTM, Mamba), the MoE FFN, the KV cache, the decoder-only stack
+(`transformer`) and `build_model`. Every decoder-only family serves and
+trains; see `transformer.NOT_PORTED` for the rest."""

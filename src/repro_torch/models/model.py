@@ -11,8 +11,10 @@ engine treat the architectures alike:
   train_loss(params, batch)                    -> (loss, {"loss", "aux"})
 
 Everything runs on `device` (the card unless the caller passes "cpu").
-Only the `dense` and `hybrid` families are ported; the others raise
-NotImplementedError naming their ROADMAP item when the model is built.
+Every decoder-only family is ported (dense, hybrid, moe, ssm, and vlm,
+whose patch embeddings go in as `batch["prefix"]`); the encoder-decoder
+raises NotImplementedError naming its ROADMAP item when the model is
+built.
 """
 
 from __future__ import annotations

@@ -1,13 +1,16 @@
 """Decoder-only LM assembly: parameters, the training forward and head
 losses, the serving cache, prefill and one-token decode.
 
-The port of the JAX package's `models/transformer.py` for the `dense` and
-`hybrid` (hymba) families. The JAX package stacks the layers' parameters
-and scans over them; here a `ModuleList` of `Block`s holds them and a
-Python loop runs them, so each layer's attention window is a plain int,
-as the JAX package keeps it static. `state_dict` keys are the JAX
-parameter paths with the layer index spelled out (`blocks.3.attn.wq` is
-JAX's `blocks["attn"]["wq"][3]`).
+The port of the JAX package's `models/transformer.py` for the decoder-only
+families: `dense`, `hybrid` (hymba), `moe` (qwen2-moe, mixtral), `ssm`
+(xLSTM's mLSTM and sLSTM blocks) and `vlm` (a modality prefix of patch
+embeddings before the tokens). The JAX package stacks the layers'
+parameters and scans over them (all but xLSTM, whose blocks differ); here
+a `ModuleList` of `Block`s holds them and a Python loop runs them, so each
+layer's attention window is a plain int, as the JAX package keeps it
+static. `state_dict` keys are the JAX parameter paths with the layer
+index spelled out (`blocks.3.attn.wq` is JAX's `blocks["attn"]["wq"][3]`,
+or `blocks[3]["attn"]["wq"]` for xLSTM's list of blocks).
 
   train_loss  — full-sequence `forward` (each block rematerialised in the
                 backward, as `jax.checkpoint` does per block) + the DiSMEC
@@ -25,9 +28,14 @@ does (it passes no `use_swa`), so no kernel runs in training.
 Every top-k goes through the port's top-k ops (the blocked top-k kernel
 on the card).
 
-The `moe` and `ssm` families, the encoder-decoder, modality prefixes and
-training over a mesh raise NotImplementedError naming their ROADMAP item.
-`prefill` and `decode_step` run under `torch.inference_mode`.
+A prefix (B, P, d) goes before the token embeddings in `forward` and
+`prefill`, cast to the activations' type; `train_loss` drops its positions
+from the features. The MoE layers add their router's aux loss, summed
+over the layers, to `train_loss` (`router_aux_coef`).
+
+The encoder-decoder and training over a mesh raise NotImplementedError
+naming their ROADMAP item. `prefill` and `decode_step` run under
+`torch.inference_mode`.
 """
 
 from __future__ import annotations
@@ -44,21 +52,15 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.head import init_head, target_logit
 from repro_torch.kernels.topk import ops as topk_ops
-from repro_torch.models import layers, ssm
+from repro_torch.models import layers, moe, ssm
 from repro_torch.models.layers import matmul, param
 
 #: What the port does not run yet, by the ROADMAP item that ports it.
 NOT_PORTED = {
-    "moe": "the moe family (models/moe.py) is not ported yet: ROADMAP "
-           "Queue A item 8c",
-    "ssm": "the ssm family (xLSTM's mLSTM and sLSTM) is not ported yet: "
-           "ROADMAP Queue A item 8c",
     "encdec": "encoder-decoder models (models/encdec.py) are not ported "
-              "yet: ROADMAP Queue A item 8c",
-    "prefix": "modality prefixes (VLM patches, audio frames) are not "
-              "ported yet: ROADMAP Queue A item 8c",
+              "yet: ROADMAP Queue A item 8e",
     "mesh": "LM training over a mesh (models/sharding.py) is not ported "
-            "yet: ROADMAP Queue A item 8c",
+            "yet: ROADMAP Queue A item 8e",
 }
 
 
@@ -66,10 +68,6 @@ def check_ported(cfg: ArchConfig) -> None:
     """Raise NotImplementedError for a config the port does not run."""
     if cfg.is_encoder_decoder:
         raise NotImplementedError(f"{cfg.name}: {NOT_PORTED['encdec']}")
-    if cfg.n_prefix or cfg.modality != "text":
-        raise NotImplementedError(f"{cfg.name}: {NOT_PORTED['prefix']}")
-    if cfg.family in ("moe", "ssm"):
-        raise NotImplementedError(f"{cfg.name}: {NOT_PORTED[cfg.family]}")
 
 
 # ---------------------------------------------------------------------------
@@ -135,38 +133,47 @@ def _dtype(cfg: ArchConfig) -> torch.dtype:
 
 
 class Block(nn.Module):
-    """norm1, attn [+ mamba for hybrid], norm2 + mlp (when d_ff > 0)."""
+    """norm1; the mixer: attn [+ mamba for hybrid], or `mixer` (an mLSTM
+    or sLSTM); then, when d_ff > 0, norm2 and the FFN: mlp, or moe for the
+    moe family."""
 
-    def __init__(self, cfg: ArchConfig, attn: layers.Attention,
-                 mamba: Optional[ssm.Mamba], mlp: Optional[layers.MLP],
-                 device=None):
+    def __init__(self, cfg: ArchConfig, mixers: dict,
+                 ffn: Optional[nn.Module], device=None):
         super().__init__()
         self.norm1 = layers.init_norm(cfg, cfg.d_model, device=device)
-        self.attn = attn
-        if mamba is not None:
-            self.mamba = mamba
+        for name, m in mixers.items():
+            self.add_module(name, m)
         if cfg.d_ff > 0:
             self.norm2 = layers.init_norm(cfg, cfg.d_model, device=device)
-            self.mlp = mlp
+            self.add_module("moe" if cfg.family == "moe" else "mlp", ffn)
 
 
-def _empty_block(cfg: ArchConfig, kind: str, dtype, device) -> Block:
-    return Block(
-        cfg, layers.Attention(cfg, dtype, device=device),
-        ssm.Mamba(cfg, dtype, cfg.d_model, device=device)
-        if kind == "hybrid" else None,
-        layers.MLP(cfg.d_model, cfg.d_ff, dtype, cfg.act, device=device)
-        if cfg.d_ff > 0 else None, device=device)
-
-
-def _init_block(cfg: ArchConfig, generator: torch.Generator, kind: str,
-                dtype) -> Block:
-    return Block(
-        cfg, layers.init_attention(cfg, generator, dtype),
-        ssm.init_mamba(cfg, generator, dtype, cfg.d_model)
-        if kind == "hybrid" else None,
-        layers.init_mlp(generator, cfg.d_model, cfg.d_ff, dtype, cfg.act)
-        if cfg.d_ff > 0 else None, device=generator.device)
+def _make_block(cfg: ArchConfig, kind: str, dtype, device,
+                generator: Optional[torch.Generator] = None) -> Block:
+    """A block of `kind`, its values drawn from `generator` (mixers, then
+    the FFN, as the JAX package draws them) or, without one, left unset."""
+    g, d = generator, cfg.d_model
+    drawn = g is not None
+    mixers: dict = {}
+    if kind in ("attn", "hybrid"):
+        mixers["attn"] = (layers.init_attention(cfg, g, dtype) if drawn else
+                          layers.Attention(cfg, dtype, device=device))
+    if kind == "hybrid":
+        mixers["mamba"] = (ssm.init_mamba(cfg, g, dtype, d) if drawn else
+                           ssm.Mamba(cfg, dtype, d, device=device))
+    if kind in ("mlstm", "slstm"):
+        cls, init = ((ssm.MLSTM, ssm.init_mlstm) if kind == "mlstm" else
+                     (ssm.SLSTM, ssm.init_slstm))
+        mixers["mixer"] = (init(cfg, g, dtype) if drawn else
+                           cls(cfg, dtype, device=device))
+    ffn = None
+    if cfg.d_ff > 0 and cfg.family == "moe":
+        ffn = (moe.init_moe(cfg, g, dtype) if drawn else
+               moe.MoE(cfg, dtype, device=device))
+    elif cfg.d_ff > 0:
+        ffn = (layers.init_mlp(g, d, cfg.d_ff, dtype, cfg.act) if drawn else
+               layers.MLP(d, cfg.d_ff, dtype, cfg.act, device=device))
+    return Block(cfg, mixers, ffn, device=device)
 
 
 class LMParams(nn.Module):
@@ -190,9 +197,7 @@ class LMParams(nn.Module):
             layers.normal(generator, (Vp, d), d ** -0.5, dtype))
         self.final_norm = layers.init_norm(cfg, d, device=device)
         self.blocks = nn.ModuleList(
-            _empty_block(cfg, block_kind(cfg, i), dtype, device)
-            if generator is None else
-            _init_block(cfg, generator, block_kind(cfg, i), dtype)
+            _make_block(cfg, block_kind(cfg, i), dtype, device, generator)
             for i in range(cfg.n_layers))
         if not cfg.tie_embeddings:
             self.head = param(
@@ -252,26 +257,38 @@ def _hybrid_mix(cfg: ArchConfig, blk: Block, h: torch.Tensor,
     return matmul(0.5 * mixed, w_cat), k, v, sst
 
 
-def _ffn(cfg: ArchConfig, blk: Block, x: torch.Tensor) -> torch.Tensor:
+def _ffn(cfg: ArchConfig, blk: Block, x: torch.Tensor):
+    """The FFN sublayer and its residual -> (x, MoE aux loss or None)."""
+    aux = None
     if cfg.d_ff > 0:
-        x = x + layers.mlp(blk.mlp, layers.apply_norm(cfg, blk.norm2, x),
-                           cfg.act)
-    return x
+        h = layers.apply_norm(cfg, blk.norm2, x)
+        if cfg.family == "moe":
+            out, aux = moe.moe_ffn(cfg, blk.moe, h)
+        else:
+            out = layers.mlp(blk.mlp, h, cfg.act)
+        x = x + out
+    return x, aux
 
 
 def _block(cfg: ArchConfig, blk: Block, kind: str, x: torch.Tensor,
            positions: torch.Tensor, window: int, rope=None):
-    """One block over the full sequence -> (x, k, v, mamba state or None):
-    norm1, the attention (and, for hybrid, Mamba) mix, the residual, the
-    FFN."""
+    """One block over the full sequence -> (x, k, v, recurrent state, aux):
+    norm1, the mix (attention, with Mamba for hybrid; or an mLSTM or
+    sLSTM), the residual, the FFN. k and v are None for xLSTM blocks, the
+    state None for attention blocks, aux None outside the moe family."""
     h = layers.apply_norm(cfg, blk.norm1, x)
-    sst = None
+    k = v = sst = None
     if kind == "hybrid":
         mix, k, v, sst = _hybrid_mix(cfg, blk, h, positions, window, rope)
-    else:
+    elif kind == "attn":
         mix, k, v = _attention_window(cfg, blk.attn, h, positions, window,
                                       rope=rope)
-    return _ffn(cfg, blk, x + mix), k, v, sst
+    elif kind == "mlstm":
+        mix, sst = ssm.mlstm(cfg, blk.mixer, h, return_state=True)
+    else:
+        mix, sst = ssm.slstm(cfg, blk.mixer, h, return_state=True)
+    x, aux = _ffn(cfg, blk, x + mix)
+    return x, k, v, sst, aux
 
 
 # ---------------------------------------------------------------------------
@@ -283,38 +300,54 @@ def _no_mesh(mesh, batch_axes) -> None:
         raise NotImplementedError(NOT_PORTED["mesh"])
 
 
+def _with_prefix(cfg: ArchConfig, x: torch.Tensor, prefix) -> torch.Tensor:
+    """[prefix, x] along the sequence: the modality prefix (B, P, d_model)
+    cast to the embeddings' type, before the token embeddings x."""
+    if prefix is None:
+        return x
+    prefix = _on(prefix, x.device)
+    if prefix.ndim != 3 or prefix.shape[0] != x.shape[0] or \
+            prefix.shape[2] != cfg.d_model:
+        raise ValueError(f"a prefix is (B, P, d_model) = ({x.shape[0]}, P, "
+                         f"{cfg.d_model}); got {tuple(prefix.shape)}")
+    return torch.cat([prefix.to(x.dtype), x], dim=1)
+
+
 def forward(cfg: ArchConfig, params: "LMParams", tokens,
             prefix: Optional[torch.Tensor] = None, *, mesh=None,
             batch_axes=(), remat: bool = True):
-    """Embeds tokens, runs the stack, returns (final-norm features
-    (B, T, d), aux), with autograd. Every layer attends over the whole
-    causal prefix, as the JAX package's `train_loss` runs its `forward`
-    (no `use_swa`): the banded-attention kernel has no backward. remat:
-    each block's activations are recomputed in the backward (one (B, T, d)
-    input kept per block), as the JAX package's `jax.checkpoint` per block
-    with no saving policy. aux is the MoE router loss, 0 for the dense and
-    hybrid families."""
+    """Embeds tokens (after the modality prefix, if any), runs the stack,
+    returns (final-norm features (B, P + T, d), aux), with autograd. Every
+    layer attends over the whole causal prefix, as the JAX package's
+    `train_loss` runs its `forward` (no `use_swa`): the banded-attention
+    kernel has no backward. remat: each block's activations are recomputed
+    in the backward (one (B, T, d) input kept per block), as the JAX
+    package's `jax.checkpoint` per block with no saving policy. aux is the
+    MoE router loss summed over the layers, 0 for the other families."""
     check_ported(cfg)
     _no_mesh(mesh, batch_axes)
-    if prefix is not None:
-        raise NotImplementedError(NOT_PORTED["prefix"])
     # F.embedding, not indexing: on the card its backward sums the rows of
     # a repeated token in a fixed order, so two steps give the same bits.
     x = F.embedding(_tokens(tokens, params.embed.device), params.embed)
+    x = _with_prefix(cfg, x, prefix)
     B, T, _ = x.shape
     positions = torch.arange(T, device=x.device).expand(B, T)
     rope = layers.rope_tables(cfg, positions)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, blk in enumerate(params.blocks):
         fn = partial(_block_out, cfg, blk, block_kind(cfg, i),
                      positions=positions, window=0, rope=rope)
-        x = checkpoint(fn, x, use_reentrant=False,
-                       preserve_rng_state=False) if remat else fn(x)
+        x, a = checkpoint(fn, x, use_reentrant=False,
+                          preserve_rng_state=False) if remat else fn(x)
+        if a is not None:
+            aux = aux + a
     x = layers.apply_norm(cfg, params.final_norm, x)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 def _block_out(cfg, blk, kind, x, *, positions, window, rope):
-    return _block(cfg, blk, kind, x, positions, window, rope)[0]
+    out = _block(cfg, blk, kind, x, positions, window, rope)
+    return out[0], out[4]
 
 
 # Token-chunk size for the head losses: the (tokens, labels) logit block is
@@ -404,12 +437,14 @@ def softmax_loss_from_feats(W: torch.Tensor, feats: torch.Tensor, targets,
 
 def train_loss(cfg: ArchConfig, params: "LMParams", batch: dict, *,
                mesh=None, batch_axes=()):
-    """batch: tokens (B, T), targets (B, T), valid (B, T), as numpy arrays
-    or tensors -> (loss + router_aux_coef * aux, {"loss", "aux"})."""
-    if batch.get("prefix") is not None:
-        raise NotImplementedError(NOT_PORTED["prefix"])
-    feats, aux = forward(cfg, params, batch["tokens"], mesh=mesh,
-                         batch_axes=batch_axes)
+    """batch: tokens (B, T), targets (B, T), valid (B, T) [+ prefix
+    (B, P, d)], as numpy arrays or tensors -> (loss + router_aux_coef *
+    aux, {"loss", "aux"}). The prefix positions carry no target."""
+    prefix = batch.get("prefix")
+    feats, aux = forward(cfg, params, batch["tokens"], prefix=prefix,
+                         mesh=mesh, batch_axes=batch_axes)
+    if prefix is not None:
+        feats = feats[:, prefix.shape[1]:]
     W = head_weight(cfg, params)
     if cfg.head_type == "dismec":
         loss = ovr_loss_from_feats(cfg, W, feats, batch["targets"],
@@ -434,13 +469,23 @@ def decode_cache_len(cfg: ArchConfig, seq_len: int, *, use_swa: bool) -> int:
     return seq_len
 
 
+def _state_init(cfg: ArchConfig, kind: str, B: int, device=None):
+    if kind == "mlstm":
+        return ssm.mlstm_init_state(cfg, B, device=device)
+    return ssm.slstm_init_state(cfg, B, device=device)
+
+
 def init_cache(cfg: ArchConfig, B: int, seq_len: int, *, use_swa: bool,
                dtype=torch.bfloat16, device=None) -> dict:
     """Serving cache: "k", "v" (n_layers, B, T, KV, hd) and, for hybrid
-    stacks, "ssm" (a MambaState stacked over layers)."""
+    stacks, "ssm" (a MambaState stacked over layers); for xLSTM, "states":
+    one float32 MLSTMState or SLSTMState per layer."""
     check_ported(cfg)
-    t_eff = decode_cache_len(cfg, seq_len, use_swa=use_swa)
     L = cfg.n_layers
+    if cfg.family == "ssm":
+        return {"states": [_state_init(cfg, block_kind(cfg, i), B, device)
+                           for i in range(L)]}
+    t_eff = decode_cache_len(cfg, seq_len, use_swa=use_swa)
     shape = (L, B, t_eff, cfg.n_kv_heads, cfg.head_dim)
     cache = {"k": torch.zeros(shape, dtype=dtype, device=device),
              "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -483,18 +528,22 @@ def _attention_decode_dyn(cfg: ArchConfig, p: layers.Attention,
 
 
 def _decode_block(cfg: ArchConfig, blk: Block, kind: str, x: torch.Tensor,
-                  positions: torch.Tensor, window: int, kc: torch.Tensor,
-                  vc: torch.Tensor, sst: Optional[ssm.MambaState],
+                  positions: torch.Tensor, window: int, kc, vc, sst,
                   pos: int, valid=None, rope=None):
-    """One decode block: x (B, 1, d) -> (x, mamba state); kc and vc are
-    updated in place."""
+    """One decode block: x (B, 1, d) -> (x, recurrent state); kc and vc
+    (None for xLSTM blocks) are updated in place."""
     h = layers.apply_norm(cfg, blk.norm1, x)
-    mix = _attention_decode_dyn(cfg, blk.attn, h, positions, kc, vc, pos,
-                                window, valid, rope)
+    if kind == "mlstm":
+        mix, sst = ssm.mlstm_decode(cfg, blk.mixer, h, sst)
+    elif kind == "slstm":
+        mix, sst = ssm.slstm_decode(cfg, blk.mixer, h, sst)
+    else:
+        mix = _attention_decode_dyn(cfg, blk.attn, h, positions, kc, vc,
+                                    pos, window, valid, rope)
     if kind == "hybrid":
         m, sst = ssm.mamba_decode(cfg, blk.mamba, h, sst, cfg.d_model)
         mix = 0.5 * (mix + m)
-    return _ffn(cfg, blk, x + mix), sst
+    return _ffn(cfg, blk, x + mix)[0], sst
 
 
 def _on(a, device) -> torch.Tensor:
@@ -520,13 +569,23 @@ def _top_k(cfg: ArchConfig, params: LMParams, x: torch.Tensor, k: int):
 def decode_step(cfg: ArchConfig, params: LMParams, cache: dict, tokens,
                 pos: int, *, use_swa: bool = False, top_k: int = 5):
     """ONE new token (B, 1) against the cache at position `pos` ->
-    (top-k values, top-k ids int32, cache), the cache updated in place."""
+    (top-k values, top-k ids int32, cache), the cache updated in place
+    (xLSTM's per-layer states replaced in its list)."""
     check_ported(cfg)
     x = params.embed[_tokens(tokens, params.embed.device)]      # (B, 1, d)
     B = x.shape[0]
     pos = int(pos)
     positions = torch.full((B, 1), pos, dtype=torch.long, device=x.device)
     wins = layer_windows(cfg, use_swa=use_swa)
+    if cfg.family == "ssm":
+        states = cache["states"]
+        for i, blk in enumerate(params.blocks):
+            x, states[i] = _decode_block(cfg, blk, block_kind(cfg, i), x,
+                                         positions, wins[i], None, None,
+                                         states[i], pos)
+        x = layers.apply_norm(cfg, params.final_norm, x)
+        vals, idx = _top_k(cfg, params, x[:, 0], top_k)
+        return vals, idx, cache
     T_max = cache["k"].shape[2]
     valid = {w: _decode_valid(T_max, pos, w, x.device) for w in set(wins)}
     rope = layers.rope_tables(cfg, positions)
@@ -552,12 +611,13 @@ def prefill(cfg: ArchConfig, params: LMParams, tokens,
             top_k: int = 5):
     """Full-sequence forward that fills the serving cache -> (top-k
     values, top-k ids int32, cache) at the last position (k = 5, as the
-    JAX package fixes it). Cache length == prompt length (bf16, as the JAX
-    package stores it)."""
+    JAX package fixes it). A prefix (B, P, d) goes before the tokens and
+    takes the first P positions of the cache. Cache length == sequence
+    length (bf16, as the JAX package stores it); xLSTM's cache holds each
+    layer's state after the sequence."""
     check_ported(cfg)
-    if prefix is not None:
-        raise NotImplementedError(NOT_PORTED["prefix"])
     x = params.embed[_tokens(tokens, params.embed.device)]
+    x = _with_prefix(cfg, x, prefix)
     B, T, _ = x.shape
     positions = torch.arange(T, device=x.device).expand(B, T)
     wins = layer_windows_static(cfg, use_swa=use_swa)
@@ -566,8 +626,11 @@ def prefill(cfg: ArchConfig, params: LMParams, tokens,
     rope = layers.rope_tables(cfg, positions)
     states = []
     for i, blk in enumerate(params.blocks):
-        x, k, v, sst = _block(cfg, blk, block_kind(cfg, i), x, positions,
-                              wins[i], rope)
+        x, k, v, sst, _ = _block(cfg, blk, block_kind(cfg, i), x,
+                                 positions, wins[i], rope)
+        if cfg.family == "ssm":
+            cache["states"][i] = sst
+            continue
         if sst is not None:
             states.append(sst)
         cache["k"][i].copy_(k[:, T - t_eff:])

@@ -34,9 +34,10 @@ def decays(params: Params) -> dict[str, bool]:
     package's tree has two or more dims. The JAX package stacks an LM's
     block parameters over the layers, so a block's norm scales, biases and
     Mamba vectors (1-D here, (L, n) there) are decayed, and only the
-    top-level 1-D leaves (`final_norm`) are not."""
-    from repro_torch.models.transformer import LMParams
-    stacked = isinstance(params, LMParams)
+    top-level 1-D leaves (`final_norm`) are not; xLSTM's blocks are a list
+    there, not stacked, so their 1-D leaves are not decayed either."""
+    from repro_torch.models.transformer import LMParams, uses_layer_scan
+    stacked = isinstance(params, LMParams) and uses_layer_scan(params.cfg)
     return {n: p.ndim + (stacked and n.startswith("blocks.")) >= 2
             for n, p in named(params).items()}
 

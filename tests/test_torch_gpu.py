@@ -1141,6 +1141,7 @@ BANDED_CASES = [  # (B, T, H, KV, hd, window): the JAX kernel test's four,
     (1, 777, 10, 2, 128, 129),
     (1, 300, 10, 2, 128, 500),
     (1, 65, 3, 3, 16, 7),
+    (1, 4608, 48, 8, 128, 4096),              # mixtral-8x22b's heads
 ]
 
 
@@ -1501,3 +1502,155 @@ def test_lm_forward_backward_above_dense_t_on_the_card(cuda, T):
     assert bool(torch.isfinite(loss))
     for n, g in grads.items():
         assert bool(torch.isfinite(g).all()), n
+
+
+# --- the MoE, xLSTM and prefix families --------------------------------------
+
+def _moe_cfg(E, k, d=256, f=192, shared=0):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    return dataclasses.replace(
+        get_config("qwen2-moe-a2.7b", smoke=True), d_model=d, n_experts=E,
+        moe_top_k=k, moe_d_ff=f, n_shared_experts=shared,
+        shared_d_ff=2 * f if shared else None, capacity_factor=1.0)
+
+
+@pytest.mark.parametrize("E,k,dtype", [(60, 4, torch.bfloat16),
+                                       (8, 2, torch.float32)])
+def test_moe_combine_repeats_bit_for_bit(cuda, E, k, dtype):
+    """`moe_ffn` at qwen2-moe's (60 experts, top-4, a shared expert) and
+    mixtral's (8, top-2) routing over 4,096 tokens, forward and backward,
+    twice: the same bits (no atomic adds in the dispatch or the combine),
+    with assignments dropped at a capacity factor of 1."""
+    from repro_torch.models import moe
+    cfg = _moe_cfg(E, k, shared=1 if E == 60 else 0)
+    g = torch.Generator(device=cuda).manual_seed(E)
+    p = moe.init_moe(cfg, g, dtype)
+    x = torch.randn((2, 2048, cfg.d_model), generator=g, device=cuda) \
+        .to(dtype)
+    runs = []
+    for _ in range(2):
+        p.requires_grad_(True)
+        xi = x.clone().requires_grad_(True)
+        with moe.count_dropped() as drops:
+            out, aux = moe.moe_ffn(cfg, p, xi)
+        loss = out.float().square().sum() + aux
+        grads = torch.autograd.grad(loss, [xi, *p.parameters()])
+        runs.append((out.detach(), aux.detach(), grads,
+                     int(drops[0][1])))
+    assert runs[0][3] == runs[1][3] > 0
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][2], runs[1][2]))
+
+
+def test_expert_products_on_the_card(cuda):
+    """`moe._f32_bmm` on bf16 operands: without a gradient to take,
+    `bmm(out_dtype=float32)`; with one, the widened product (and its
+    backward). Both within 1e-5 of the products' magnitude of each other,
+    each twice bit for bit."""
+    from repro_torch.models import moe
+    g = torch.Generator(device=cuda).manual_seed(3)
+    a = torch.randn((60, 341, 512), generator=g, device=cuda).bfloat16()
+    b = (torch.randn((60, 512, 352), generator=g, device=cuda) * 0.05) \
+        .bfloat16()
+    with torch.no_grad():
+        served = [moe._f32_bmm(a, b) for _ in range(2)]
+    b.requires_grad_(True)
+    trained = [moe._f32_bmm(a, b) for _ in range(2)]
+    grad = torch.autograd.grad(trained[0].sum(), b)[0]
+    mag = torch.bmm(a.float().abs(), b.detach().float().abs())
+    assert served[0].dtype == trained[0].dtype == torch.float32
+    assert torch.equal(*served) and torch.equal(*trained)
+    assert bool(((served[0] - trained[0]).abs() <= 1e-5 * mag).all())
+    assert grad.dtype == torch.bfloat16 and bool(torch.isfinite(grad).all())
+
+
+@pytest.mark.parametrize("E,k", [(8, 2), (60, 4)])
+def test_router_topk_matches_the_stable_sort(cuda, E, k):
+    """The router's top-k on the blocked top-k kernel at mixtral's and
+    qwen2-moe's widths: the stable sort's ids (the lowest id first on a
+    tie), rows of ties included, and the gate values gathered from the
+    probabilities."""
+    from repro_torch.models import moe
+    rng = np.random.default_rng(E)
+    P = rng.random((3000, E)).astype(np.float32)
+    P[::3] = np.round(P[::3] * 3) / 3 + 0.1         # rows of exact ties
+    P[1, :] = 0.25
+    P /= P.sum(axis=1, keepdims=True)
+    probs = torch.from_numpy(P).to(cuda)
+    before = topk_ops.blocked_topk_cuda.launches
+    vals, idx = moe.route(probs, k)
+    torch.cuda.synchronize()
+    assert topk_ops.blocked_topk_cuda.launches == before + 1
+    _, want = topk_ref.topk(torch.from_numpy(P), k)
+    assert torch.equal(idx.cpu(), want.long())
+    g = torch.gather(torch.from_numpy(P), 1, want.long())
+    torch.testing.assert_close(vals.cpu(), g / g.sum(dim=1, keepdim=True),
+                               rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("T", [256, 512])
+def test_mlstm_chunks_match_its_decode_on_the_card(cuda, T):
+    """xlstm-125m-smoke's mLSTM on the card: the chunked form against T
+    one-token steps, outputs and the final state (T a multiple of the
+    256-row chunk), within 1e-4 of their magnitudes."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm
+    cfg = get_config("xlstm-125m", smoke=True)
+    g = torch.Generator(device=cuda).manual_seed(T)
+    p = ssm.init_mlstm(cfg, g, torch.float32)
+    x = torch.randn((2, T, cfg.d_model), generator=g, device=cuda)
+    out, st = ssm.mlstm(cfg, p, x, return_state=True)
+    ds = ssm.mlstm_init_state(cfg, 2, device=cuda)
+    outs = []
+    for t in range(T):
+        y, ds = ssm.mlstm_decode(cfg, p, x[:, t:t + 1], ds)
+        outs.append(y)
+    dec = torch.cat(outs, dim=1)
+    assert float((dec - out).abs().max()) <= 1e-4 * float(out.abs().max())
+    wc = st.C * torch.exp(st.m)[..., None, None]
+    wd = ds.C * torch.exp(ds.m)[..., None, None]
+    assert float((wc - wd).norm() / wd.norm()) <= 1e-4
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "mixtral-8x22b",
+                                  "xlstm-125m", "internvl2-26b"])
+def test_new_families_on_the_card_match_the_cpu(cuda, arch):
+    """The smoke config (fp32) on the card against the same weights on the
+    CPU: prefill's top-5 ids (mixtral at T = 2,304 on the banded kernel,
+    internvl2 with its prefix), the blocked top-k kernel launched, the
+    MoE's dropped counts equal; then `make_train_step` with accum = 2:
+    the loss within 1e-4 relative."""
+    from repro_torch.kernels.banded_attn import ops as band_ops
+    from repro_torch.models import moe
+    cfg, host, card, p0, batches = _lm_train_setup(arch, 64, steps=1)
+    T = 2304 if cfg.swa_always else 320
+    toks = np.random.default_rng(1).integers(2, cfg.vocab, size=(2, T))
+    b = {"tokens": toks}
+    if cfg.n_prefix:
+        b["prefix"] = np.random.default_rng(2).normal(
+            size=(2, cfg.n_prefix, cfg.d_model)).astype(np.float32) * 0.05
+        for x in batches:
+            x["prefix"] = np.full((2, 2, cfg.n_prefix, cfg.d_model), 0.01,
+                                  np.float32)
+    out = {}
+    for dev, m, p in (("cpu", host, p0), ("cuda", card,
+                                          copy.deepcopy(p0).to(cuda))):
+        before = _kernel_launches()
+        with moe.count_dropped() as drops:
+            v, i, _ = m.prefill(p, b, use_swa=cfg.swa_always)
+        after = _kernel_launches()
+        out[dev] = (v.cpu(), i.cpu(), [int(d) for _, d in drops],
+                    {k: after[k] - before[k] for k in after})
+        _, lo = _run_steps(m, p, batches)
+        out[dev] += (lo,)
+    (hv, hi, hd, _, hl), (cv, ci, cd, launches, cl) = out["cpu"], \
+        out["cuda"]
+    assert torch.equal(ci, hi) and hd == cd
+    torch.testing.assert_close(cv, hv, rtol=1e-3, atol=1e-3)
+    assert launches["blocked_topk_cuda"] >= 1
+    if cfg.swa_always:
+        assert launches["banded_attention_cuda"] == cfg.n_layers
+    np.testing.assert_allclose(cl, hl, rtol=1e-4)

@@ -263,14 +263,17 @@ def test_remat_changes_no_bit():
 
 
 def test_training_refuses_a_mesh_and_a_prefix():
+    """A mesh names the item that ports it; a prefix that is not
+    (B, P, d_model) is refused (test_torch_lm_prefix.py holds a right one
+    to the JAX package)."""
     _, _, m, p = _lm_pair("qwen1.5-0.5b", "dismec")
     batch = _lm_batch(m.cfg, 1, 8, seed=0)
-    with pytest.raises(NotImplementedError, match="Queue A item 8c"):
+    with pytest.raises(NotImplementedError, match="Queue A item 8e"):
         m.train_loss(p, batch, mesh=object())
-    with pytest.raises(NotImplementedError, match="Queue A item 8c"):
+    with pytest.raises(NotImplementedError, match="Queue A item 8e"):
         m.train_loss(p, batch, batch_axes=("data",))
-    with pytest.raises(NotImplementedError, match="Queue A item 8c"):
-        m.train_loss(p, {**batch, "prefix": np.zeros((1, 2, 128))})
+    with pytest.raises(ValueError, match="d_model"):
+        m.train_loss(p, {**batch, "prefix": np.zeros((1, 2, 100))})
 
 
 # --- optim ------------------------------------------------------------------
