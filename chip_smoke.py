@@ -225,7 +225,7 @@ kernels (their counts set to 0 before the phase and read after):
                    step, tokens/s, peak memory and the share of the bf16
                    peak, the loss finite and falling; (c) `python -m
                    repro_torch.launch.train --arch hymba-1.5b --smoke
-                   --steps 20 --seq-len 128 --batch 8 --out DIR` exits 0
+                   --steps 10 --seq-len 128 --batch 8 --out DIR` exits 0
                    with its loss falling, and `restore_pytree(DIR)` equals
                    the same training in this process bit for bit.
 
@@ -240,7 +240,7 @@ from the seed:
                    qwen2-moe-a2.7b at full width (24 layers, bf16):
                    prefill (1, 4,096) with the share of assignments
                    dropped in each layer, the expert product's two routes
-                   timed, prefill against 256 teacher-forced decode steps
+                   timed, prefill against 128 teacher-forced decode steps
                    at capacity factor 15 (layer 0's k/v bit for bit),
                    `serve_batch`, the serving CLI, two training steps at 2
                    layers; (c) mixtral-8x22b at full width cut to 2
@@ -248,18 +248,40 @@ from the seed:
                    a layer) and on its plain version, then kernel 10 alone
                    at (1, 8,192, 48, 8, 128, 4,096), timed as phase 13;
                    (d) xlstm-125m: prefill (2, 4,096), prefill against
-                   1,024 decode steps, 4 training steps at (2, 2,048);
+                   256 decode steps, 3 training steps at (2, 2,048);
                    (e) internvl2-26b at full width: prefill of a 256-patch
                    prefix and 1,792 tokens, bit for bit the prefill of the
                    2,048 tokens whose embeddings the prefix holds; two
                    training steps with a prefix at 4 layers.
 
+Then the encoder-decoder and LM training over a mesh (ROADMAP A-8e):
+
+ 18. encdec, mesh — (a) seamless-m4t-medium's smoke config (fp32) on the
+                   card against the port on the CPU as 17a (its frames,
+                   four caches), and the mesh step (`make_train_step`,
+                   accum 2, batch axes ("data",)) of qwen1.5, qwen2-moe,
+                   xlstm and seamless smoke on a (2, 2) grid of cuda:0
+                   against the same on a grid of the CPU, the MoE's drops
+                   by shard equal, twice bit for bit; (b) seamless whole
+                   (bf16, 0.88 B parameters): prefill of 1,024 frames and
+                   4,096 tokens, prefill (2, 256) against 256 decode steps
+                   from an empty cache holding its memory k/v (layer 0's
+                   self k/v bit for bit); (c) 3 training steps at T =
+                   4,096, bf16 against an fp32 copy on the first batch;
+                   (d) seamless in fp32 at (2, 1,024) on the (2, 2) grid
+                   against one device, twice bit for bit, and qwen2-moe
+                   (2 layers) on (2, 1): each shard's drops equal to its
+                   rows run alone; (e) the training CLI for seamless and
+                   for qwen1.5 with `--mesh 2x2 --device cuda:0`, each
+                   checkpoint equal bit for bit to the same training here.
+
 The lines before the last are the kernels' JSON summary (all ten
 kernels; `launches_mesh` for kernels 1, 2 and 9 counts phases 10b and
 10c, `launches_baselines` for kernel 9 phase 12b's predictions), the
-training, server, sweep, mesh, LM (phase 16 under "train"), baselines
-and LM families (phase 17; kernels 9 and 10 also count its launches
-under `launches_families`) JSON summaries and the
+training, server, sweep, mesh, LM (phase 16 under "train"), baselines,
+LM families (phase 17; kernels 9 and 10 also count its launches
+under `launches_families`) and encoder-decoder and mesh (phase 18;
+kernel 9's `launches_encdec_mesh`) JSON summaries and the
 card's name and power limit from nvidia-smi; the last line is `{"ok":
 true, "device": {...}}`.
 Any failure exits non-zero before it. Without a CUDA card, or outside a
@@ -470,7 +492,7 @@ LM_TRAIN_SMOKE = ("hymba-1.5b", "qwen1.5-0.5b")
 LM_TRAIN_SMOKE_SHAPE = dict(accum=2, micro=2, T=64, steps=3)
 LM_TRAIN_FULL = dict(accum=2, micro=1, T=4096, steps=3)   # 8 before phase 17
 LM_TRAIN_LR = (3e-4, 2, 8)       # linear_warmup_cosine: lr > 0 from step 1
-LM_TRAIN_CLI = dict(steps=20, seq_len=128, batch=8)
+LM_TRAIN_CLI = dict(steps=10, seq_len=128, batch=8)  # 20 before phase 18
 LM_TRAIN_TOL = dict(loss=1e-4, grad=1e-5, adam=1e-6, bf16_loss=1e-2,
                     cos=0.95)
 
@@ -489,13 +511,16 @@ LM_TRAIN_TOL = dict(loss=1e-4, grad=1e-5, adam=1e-6, bf16_loss=1e-2,
 # FAM_SMOKE_TOL["aux"]; two card runs bit for bit. (b) qwen2-moe-a2.7b at
 # full width, 24 layers: prefill at train_4k's length with the share of
 # assignments dropped in each layer; prefill against FAM_MOE_DECODE[1]
-# teacher-forced decode steps at a capacity factor of n_experts / top_k
+# teacher-forced decode steps (256 before phase 18, cut for it) at a
+# capacity factor of n_experts / top_k
 # (nothing can drop), held as phase 15a; serve_batch and the CLI as 15b,
 # 15c; two training steps at 2 layers (its AdamW moments do not fit at 24).
 # (c) mixtral-8x22b at full width cut to 2 layers: prefill at (1, 8,192)
 # on kernel 10 and on its plain version, held as phase 14, then kernel 10
 # alone at mixtral's heads. (d) xlstm-125m whole: prefill at (2, 4,096),
-# prefill against 1,024 decode steps, 4 training steps. (e) internvl2-26b
+# prefill against 256 decode steps (1,024 before phase 18, cut for it; a
+# multiple of the mLSTM's 256-row chunk), 3 training steps (4 before phase
+# 18). (e) internvl2-26b
 # at full width: prefill of a 256-patch prefix and 1,792 tokens, equal bit
 # for bit to the prefill of the 2,048 tokens whose embeddings the prefix
 # holds; two training steps with a prefix at 4 layers.
@@ -506,15 +531,59 @@ FAM_SMOKE_TOL = dict(values=1e-3, decode=1e-2, cache=1e-3, loss=1e-4,
                      grad=1e-5, aux=1e-6)
 FAM_MOE = "qwen2-moe-a2.7b"
 FAM_MOE_PREFILL = (1, 4096)                     # train_4k's length
-FAM_MOE_DECODE = (2, 256)
+FAM_MOE_DECODE = (2, 128)                  # 256 before phase 18
 FAM_MOE_TRAIN = dict(layers=2, accum=2, micro=1, T=4096, steps=2)
 FAM_MIXTRAL, FAM_MIXTRAL_LAYERS = "mixtral-8x22b", 2
 FAM_MIXTRAL_PREFILL = (1, 8192)                 # two windows of 4,096
 FAM_XLSTM = "xlstm-125m"
-FAM_XLSTM_PREFILL, FAM_XLSTM_DECODE = (2, 4096), (2, 1024)
-FAM_XLSTM_TRAIN = dict(accum=2, micro=1, T=2048, steps=4, falling=True)
+FAM_XLSTM_PREFILL, FAM_XLSTM_DECODE = (2, 4096), (2, 256)  # 1,024 before 18
+FAM_XLSTM_TRAIN = dict(accum=2, micro=1, T=2048, steps=3, falling=True)
 FAM_VLM, FAM_VLM_TOKENS = "internvl2-26b", 1792
 FAM_VLM_TRAIN = dict(layers=4, accum=2, micro=1, T=768, steps=2)
+
+# Phase 18: the encoder-decoder and LM training over a mesh (ROADMAP
+# A-8e). (a) The smoke configs, the card against the port on the CPU:
+# seamless in fp32 as phase 17a (prefill, FAM_SMOKE["decode"] decode steps
+# from its cache, a `make_train_step` with accum 2; FAM_SMOKE_TOL, the four
+# caches); and the mesh step (`make_train_step` with accum 2, batch axes
+# ED_AXES, ED_MESH_SHAPE's (accum, micro, T)) of each of ED_MESH_ARCHS on
+# a grid of ED_MESH cuda:0 cells against the same mesh step of the port on
+# a grid of the CPU: the loss within FAM_SMOKE_TOL["loss"], the gradients
+# within FAM_SMOKE_TOL["grad"] of the largest, the MoE's dropped counts by
+# batch shard and layer equal; each twice on the card, bit for bit. (b)
+# seamless-m4t-medium whole in bf16 (12 + 12 layers, d 1,024, vocabulary
+# 256,206 padded to 256,512), weights from the seed: prefill of its
+# n_prefix = 1,024 frames and ED_PREFILL decoder tokens (train_4k's
+# length), tokens/s and peak memory; prefill at ED_DECODE against as many
+# teacher-forced decode steps from an empty `init_cache` that holds the
+# prefill's memory k/v: layer 0's self k/v bit for bit, every layer within
+# LM_CACHE, ids on decisive rows; kernel 9 once a prefill and once a
+# decode step. (c) seamless training at full width as phase 16 (b)
+# (ED_TRAIN, 1,024 frames from `train_prefix`): bf16 against an fp32 copy
+# on the first batch, the loss falling. (d) The mesh at full
+# width: seamless in fp32 at ED_MESH_FULL on the ED_MESH grid of cuda:0
+# against one device on the same batch, the loss within ED_MESH_TOL["loss"]
+# relative and the gradients within ED_MESH_TOL["grad"] of the largest,
+# twice bit for bit; qwen2-moe-a2.7b at full width cut to
+# ED_MOE_MESH["layers"] layers on ED_MOE_MESH["mesh"]: each batch shard's
+# dropped count in each layer equals that of the shard's rows run alone
+# (`moe_ffn_local` on that shard's tokens), the loss finite. mixtral-8x22b
+# at full depth waits for several cards (ROADMAP A-8f). (e) The training
+# CLI for seamless (as phase 16 (c), at ED_CLI's size) and for
+# qwen1.5-0.5b with `--mesh 2x2 --device cuda:0`, each checkpoint equal bit
+# for bit to the same training in this process. Kernels 1-8 and 10 launch nowhere in the phase.
+ED_ARCH = "seamless-m4t-medium"
+ED_MESH_ARCHS = ("qwen1.5-0.5b", "qwen2-moe-a2.7b", "xlstm-125m", ED_ARCH)
+ED_MESH, ED_AXES = (2, 2), ("data",)
+ED_MESH_SHAPE = dict(accum=2, micro=2, T=64)
+ED_PREFILL = (1, 4096)                          # train_4k's length
+ED_DECODE = (2, 256)
+ED_TRAIN = dict(accum=2, micro=1, T=4096, steps=3)
+ED_MESH_FULL = dict(B=2, T=1024)
+ED_MESH_TOL = dict(loss=1e-5, grad=1e-5)
+ED_MOE_MESH = dict(arch="qwen2-moe-a2.7b", layers=2, mesh=(2, 1), B=2,
+                   T=4096)
+ED_CLI = dict(steps=10, seq_len=64, batch=4)
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
@@ -3388,6 +3457,21 @@ def kernel_counters() -> dict:
             "banded_attention": band_ops.banded_attention_cuda}
 
 
+def train_prefix(cfg, lead: tuple, seed) -> np.ndarray:
+    """The prefix of a training batch (lead + (n_prefix, d_model)): a
+    VLM's the JAX launcher's stand-in patch embeddings, 0.01 everywhere;
+    an encoder-decoder's frames N(0, 0.05^2) from the seed. Frames of one
+    constant make every encoder layernorm's input a constant row, whose
+    variance is 0 up to rounding: the encoder's output is then rounding
+    noise times rsqrt(eps), no two summation orders agree, and neither
+    card against CPU nor bf16 against fp32 can be compared."""
+    shape = (*lead, cfg.n_prefix, cfg.d_model)
+    if not cfg.is_encoder_decoder:
+        return np.full(shape, 0.01, np.float32)
+    return (0.05 * np.random.default_rng(seed).normal(size=shape)) \
+        .astype(np.float32)
+
+
 def lm_batches(cfg, seed: int, *, accum: int, micro: int, T: int,
                steps: int) -> list:
     """`steps` TokenPipeline batches of accum x micro sequences of T
@@ -3489,36 +3573,56 @@ def flops_per_step(cfg, n_params: int, *, sequences: int, T: int) -> float:
 
 def lm_train_full(seed: int) -> dict:
     """Phase 16 (b): hymba-1.5b at full width in bf16 (LM_TRAIN_FULL)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(LM_ARCH)
+    L = cfg.n_layers
+    return bf16_training(cfg, seed, LM_TRAIN_FULL, groups={
+        "embed": "embed", "head": "head",
+        **{f"block {b}": f"blocks.{b}" for b in (0, L // 2 - 1, L - 1)}},
+        last=f"block {L - 1}", profile=True)
+
+
+def bf16_training(cfg, seed: int, sh: dict, *, groups: dict, last: str,
+                  profile: bool = False) -> dict:
+    """cfg at full width in bf16, `sh`'s (accum, micro, T) and steps of
+    TokenPipeline batches (with `train_prefix` for a config that has a
+    prefix): the first batch's gradients against an fp32
+    copy's (the loss, and the cosine of the `groups` of parameters, the
+    head's and `last`'s held), then the steps; `profile`: that bf16
+    fwd+bwd under `torch.profiler`, and the share of the bf16 peak."""
     import copy
 
-    from repro_torch.configs import get_config
     from repro_torch.models.model import build_model as build_lm
     from repro_torch.optim import linear_warmup_cosine
     from repro_torch.train.trainer import (init_train_state, loss_and_grads,
                                            make_train_step)
-    sh = LM_TRAIN_FULL
-    cfg = get_config(LM_ARCH)
     model = build_lm(cfg)
     params = model.init(torch.Generator(device="cuda").manual_seed(seed))
     n_params = sum(p.numel() for p in params.parameters())
     batches = lm_batches(cfg, seed, accum=sh["accum"], micro=sh["micro"],
                          T=sh["T"], steps=sh["steps"])
+    if cfg.n_prefix:
+        for k, b in enumerate(batches):
+            b["prefix"] = train_prefix(cfg, (sh["accum"], sh["micro"]),
+                                       [seed, k])
     # The first batch through an fp32 copy of the same weights.
     p32 = copy.deepcopy(params).float()
     l32, _, g32 = loss_and_grads(model, p32, batches[0], sh["accum"])
     del p32
-    (l16, _, g16), profile = profiled(
-        "bf16 loss and gradients of the first batch (no optimizer step)",
-        lambda: loss_and_grads(model, params, batches[0], sh["accum"]))
+
+    def first():
+        return loss_and_grads(model, params, batches[0], sh["accum"])
+    if profile:
+        (l16, _, g16), prof = profiled(
+            "bf16 loss and gradients of the first batch (no optimizer "
+            "step)", first)
+    else:
+        (l16, _, g16), prof = first(), None
     dot = sum(float((g16[n].double() * g32[n].double()).sum()) for n in g32)
     sq16 = sum(float(g16[n].double().square().sum()) for n in g32)
     sq32 = sum(float(g32[n].double().square().sum()) for n in g32)
     cos = dot / math.sqrt(sq16 * sq32)
     loss_err = abs(float(l16) - float(l32)) / abs(float(l32))
-    last = f"block {cfg.n_layers - 1}"
-    groups = {"embed": "embed", "head": "head",
-              **{f"block {b}": f"blocks.{b}" for b in
-                 (0, cfg.n_layers // 2 - 1, cfg.n_layers - 1)}}
     group_err, group_cos = {}, {}
     for name, key in groups.items():
         keys = [n for n in g32 if n == key or n.startswith(key + ".")]
@@ -3566,22 +3670,29 @@ def lm_train_full(seed: int) -> dict:
           f"{losses[0]:.4f}")
     tokens = sh["accum"] * sh["micro"] * sh["T"]
     s_step = float(np.median(secs[1:]))
-    flops = flops_per_step(cfg, n_params, sequences=sh["accum"] *
-                           sh["micro"], T=sh["T"])
-    share = flops / s_step / BF16_FLOPS_PER_S
+    # The decoder-only count; an encoder-decoder's is not this formula.
+    flops = None if cfg.is_encoder_decoder else flops_per_step(
+        cfg, n_params, sequences=sh["accum"] * sh["micro"], T=sh["T"])
+    share = None if flops is None else flops / s_step / BF16_FLOPS_PER_S
     norms = " ".join(f"{h['grad_norm']:.3g}" for h in hist)
-    print(f"   {len(hist)} steps of {tokens:,} tokens ((accum, micro, T) = "
-          f"({sh['accum']}, {sh['micro']}, {sh['T']:,})): loss "
+    rate = "" if flops is None else (
+        f"; {flops / 1e12:.1f} TFLOP a step, {100 * share:.1f}% of the bf16 "
+        "dense peak")
+    plus = f" + {cfg.n_prefix:,} frames" if cfg.is_encoder_decoder else ""
+    print(f"   {cfg.name} ({n_params / 1e9:.3f} B parameters): "
+          f"{len(hist)} steps of {tokens:,} tokens{plus} ((accum, micro, "
+          f"T) = ({sh['accum']}, {sh['micro']}, {sh['T']:,})): loss "
           f"{' '.join(f'{x:.2f}' for x in losses)}; grad_norm {norms}; "
           f"{s_step:.3f} s a step (median of steps 1-{len(secs) - 1}; "
           f"step 0 {secs[0]:.3f} s), {tokens / s_step:,.0f} tokens/s, "
-          f"peak {peak:.2f} GiB; {flops / 1e12:.1f} TFLOP a step, "
-          f"{100 * share:.1f}% of the bf16 dense peak", flush=True)
-    return dict(arch=LM_ARCH, params=n_params, **sh, lr=LM_TRAIN_LR,
+          f"peak {peak:.2f} GiB{rate}", flush=True)
+    del model, params, opt
+    torch.cuda.empty_cache()
+    return dict(arch=cfg.name, params=n_params, **sh, lr=LM_TRAIN_LR,
                 history=hist, seconds=secs, s_per_step=s_step,
                 tokens_per_s=tokens / s_step, peak_gib=peak,
-                tflop_per_step=flops / 1e12, bf16_peak_share=share,
-                profile=profile,
+                tflop_per_step=None if flops is None else flops / 1e12,
+                bf16_peak_share=share, profile=prof,
                 bf16_vs_fp32=dict(loss16=float(l16), loss32=float(l32),
                                   loss_rel_err=loss_err, grad_cosine=cos,
                                   group_rel_err=group_err,
@@ -3590,34 +3701,43 @@ def lm_train_full(seed: int) -> dict:
 
 def jax_layout_keys(params) -> dict:
     """The JAX package's pytree key of each parameter and its shape there:
-    `blocks.<i>.a.b` is `blocks/a/b`, stacked over the layers."""
-    L = len(params.blocks)
-    keys = {}
-    for name, p in params.named_parameters():
-        parts = name.split(".")
-        if parts[0] == "blocks":
-            if parts[1] == "0":
-                keys["/".join(["blocks"] + parts[2:])] = [L, *p.shape]
-        else:
-            keys["/".join(parts)] = list(p.shape)
-    return keys
+    `blocks.<i>.a.b` is `blocks/a/b`, stacked over the layers (an
+    encoder-decoder's `enc_blocks` and `dec_blocks` each over its own)."""
+    from repro_torch.convert import lm_jax_tree
+
+    def flat(node, prefix=""):
+        if isinstance(node, dict):
+            return {k: v for key, sub in node.items()
+                    for k, v in flat(sub, f"{prefix}{key}/").items()}
+        if isinstance(node, list):
+            return {k: v for i, sub in enumerate(node)
+                    for k, v in flat(sub, f"{prefix}{i}/").items()}
+        return {prefix[:-1]: list(node.shape)}
+    return flat(lm_jax_tree(params, lambda t: torch.empty(t.shape,
+                                                          device="meta")))
 
 
-def lm_train_cli(build_dir: Path) -> dict:
-    """Phase 16 (c): the training CLI on the card at LM_TRAIN_CLI's size,
-    its loss falling; then the same training in this process (the CLI's
-    seed 0 and defaults): `restore_pytree` of its checkpoint gives those
-    weights bit for bit, and its index has every key of the JAX layout."""
+def lm_train_cli(build_dir: Path, arch: str = LM_ARCH,
+                 mesh: tuple | None = None, c: dict = LM_TRAIN_CLI) -> dict:
+    """Phase 16 (c) (18e): the training CLI on the card at LM_TRAIN_CLI's
+    size (`--mesh DxM --device cuda:0`: the grid on the one card), its
+    loss falling; then the same training in this process (the CLI's seed 0
+    and defaults, its prefix batches, its mesh and batch axes):
+    `restore_pytree` of its checkpoint gives those weights bit for bit,
+    and its index has every key of the JAX layout. `c`: the CLI's steps,
+    seq_len and batch."""
     from repro_torch.checkpoint.io import restore_pytree
     from repro_torch.configs import get_config
     from repro_torch.data.lm import make_lm_batch_iterator
     from repro_torch.models.model import build_model as build_lm
     from repro_torch.train.trainer import train_loop
-    c = LM_TRAIN_CLI
     with tempfile.TemporaryDirectory(dir=build_dir) as out:
         cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-               LM_ARCH, "--smoke", "--steps", str(c["steps"]), "--seq-len",
-               str(c["seq_len"]), "--batch", str(c["batch"]), "--out", out]
+               arch, "--smoke", "--steps", str(c["steps"]), "--seq-len",
+               str(c["seq_len"]), "--batch", str(c["batch"])]
+        if mesh:
+            cmd += ["--mesh", f"{mesh[0]}x{mesh[1]}", "--device", "cuda:0"]
+        cmd += ["--out", out]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, cwd=ROOT, env=dict(os.environ,
                                                       PYTHONPATH=str(SRC)),
@@ -3630,11 +3750,17 @@ def lm_train_cli(build_dir: Path) -> dict:
         first, last = (float(x) for x in re.search(
             r"loss (\S+) -> (\S+)$", summary).groups())
         _need(last < first, f"the CLI's loss did not fall: {summary}")
-        cfg = get_config(LM_ARCH, smoke=True)
+        cfg = get_config(arch, smoke=True)
         model = build_lm(cfg)
         params = model.init(torch.Generator(device="cuda").manual_seed(0))
-        params, _ = train_loop(model, params, make_lm_batch_iterator(
-            cfg.vocab, c["seq_len"], c["batch"]), steps=c["steps"])
+        prefix = np.ones((c["batch"], cfg.n_prefix, cfg.d_model),
+                         np.float32) * 0.01
+        batches = ({**b, "prefix": prefix} if cfg.n_prefix else b
+                   for b in make_lm_batch_iterator(cfg.vocab, c["seq_len"],
+                                                   c["batch"]))
+        params, _ = train_loop(model, params, batches, steps=c["steps"],
+                               mesh=grid(mesh) if mesh else None,
+                               batch_axes=ED_AXES if mesh else ())
         restored = restore_pytree(params, out)
         same = all(torch.equal(a, b) for a, b in
                    zip(restored.parameters(), params.parameters()))
@@ -3712,8 +3838,8 @@ def smoke_inputs(cfg, seed: int) -> tuple[dict, np.ndarray]:
 
 
 def cache_rel(a: dict, b: dict) -> dict:
-    """Each cache entry's largest relative error over its layers (k/v
-    relative Frobenius per layer; each recurrent state's C exp(m) for an
+    """Each cache entry's largest relative error over its layers (k/v and
+    an encoder's memory k/v: relative Frobenius per layer; each recurrent state's C exp(m) for an
     mLSTM, every field for an sLSTM), float64."""
     out = {}
     if "states" in a:
@@ -3730,7 +3856,9 @@ def cache_rel(a: dict, b: dict) -> dict:
                           w.double().cpu().norm().clamp_min(1e-300))
                     for u, w in zip(x[:3], y[:3]))
         return out
-    for key in ("k", "v"):
+    for key in ("k", "v", "mem_k", "mem_v"):
+        if key not in a:
+            continue
         x, y = a[key].double().cpu(), b[key].double().cpu()
         out[key] = max(float((x[l] - y[l]).norm() / y[l].norm())
                        for l in range(x.shape[0]))
@@ -3747,14 +3875,15 @@ def caches_equal(a: dict, b: dict) -> bool:
 
 def continued(cache: dict, cfg, n: int) -> dict:
     """A copy of a prefill cache with room for n more positions (a ring
-    cache, or recurrent states, continue as they are)."""
+    cache, recurrent states and an encoder's memory continue as they
+    are)."""
     if "states" in cache:
         return {"states": [type(s)(*(t.clone() for t in s))
                            for s in cache["states"]]}
     if cfg.swa_always:
         return {k: t.clone() for k, t in cache.items()}
     return {k: torch.nn.functional.pad(t, (0, 0, 0, 0, 0, n))
-            for k, t in cache.items()}
+            if k in ("k", "v") else t.clone() for k, t in cache.items()}
 
 
 def fam_smoke_one(arch: str, seed: int) -> dict:
@@ -3772,13 +3901,14 @@ def fam_smoke_one(arch: str, seed: int) -> dict:
     models = {"cpu": build_lm(cfg, device="cpu"), "cuda": build_lm(cfg)}
     p0 = models["cpu"].init(torch.Generator().manual_seed(seed))
     batch, dec = smoke_inputs(cfg, seed)
-    T = batch["tokens"].shape[1] + cfg.n_prefix
+    # A VLM's prefix takes positions; an encoder-decoder's frames do not.
+    T = batch["tokens"].shape[1] + (0 if cfg.is_encoder_decoder else
+                                    cfg.n_prefix)
     sh = LM_TRAIN_SMOKE_SHAPE
     tb = lm_batches(cfg, seed, accum=sh["accum"], micro=sh["micro"],
                     T=sh["T"], steps=1)[0]
     if cfg.n_prefix:
-        tb["prefix"] = np.full((sh["accum"], sh["micro"], cfg.n_prefix,
-                                cfg.d_model), 0.01, np.float32)
+        tb["prefix"] = train_prefix(cfg, (sh["accum"], sh["micro"]), seed)
     lr_fn = linear_warmup_cosine(*LM_TRAIN_LR)
     runs, launches = {}, {}
 
@@ -4246,6 +4376,299 @@ def families(seed: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the encoder-decoder and LM training over a mesh (ROADMAP A-8e)
+# ---------------------------------------------------------------------------
+
+def grid(shape: tuple, device: str = "cuda:0"):
+    """A mesh of `shape` whose every cell is `device`."""
+    from repro_torch.launch.mesh import make_host_mesh
+    return make_host_mesh(*shape, devices=[device] * (shape[0] * shape[1]))
+
+
+def mesh_step_smoke(arch: str, seed: int) -> dict:
+    """Phase 18 (a): the mesh step of a smoke config on the card's grid
+    against the CPU's, and twice on the card."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.model import build_model as build_lm
+    from repro_torch.optim import linear_warmup_cosine
+    from repro_torch.train.trainer import (init_train_state, loss_and_grads,
+                                           make_train_step)
+    cfg = get_config(arch, smoke=True)
+    models = {"cpu": build_lm(cfg, device="cpu"), "cuda": build_lm(cfg)}
+    p0 = models["cpu"].init(torch.Generator().manual_seed(seed))
+    sh = ED_MESH_SHAPE
+    tb = lm_batches(cfg, seed, accum=sh["accum"], micro=sh["micro"],
+                    T=sh["T"], steps=1)[0]
+    if cfg.n_prefix:
+        tb["prefix"] = train_prefix(cfg, (sh["accum"], sh["micro"]), seed)
+    lr_fn = linear_warmup_cosine(*LM_TRAIN_LR)
+
+    def run(dev):
+        m, mesh = models[dev], grid(ED_MESH, "cpu" if dev == "cpu" else
+                                    "cuda:0")
+        p = copy.deepcopy(p0).to(dev)
+        with torch.no_grad(), moe.count_dropped() as d:
+            m.train_loss(p, {k: v[0] for k, v in tb.items()}, mesh=mesh,
+                         batch_axes=ED_AXES)
+        loss, _, grads = loss_and_grads(m, p, tb, sh["accum"], mesh=mesh,
+                                        batch_axes=ED_AXES)
+        step = make_train_step(m, lr_fn=lr_fn, mesh=mesh,
+                               batch_axes=ED_AXES, accum=sh["accum"])
+        st = init_train_state(p)
+        p, _, met = step(p, st.opt, st.step, tb)
+        return dict(loss=float(loss), grads=grads, drops=[int(x) for _, x
+                                                          in d],
+                    params=[t.detach().cpu() for t in p.parameters()],
+                    step_loss=float(met["loss"]))
+    cpu, a, b = run("cpu"), run("cuda"), run("cuda")
+    loss_err = abs(a["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    g_err = grad_error(a["grads"], cpu["grads"])
+    bits = a["step_loss"] == b["step_loss"] and all(
+        torch.equal(x, y) for x, y in zip(a["params"], b["params"]))
+    row = dict(arch=cfg.name, mesh=ED_MESH, loss=a["loss"],
+               cpu_loss=cpu["loss"], loss_rel_err=loss_err, grad_err=g_err,
+               drops=a["drops"], cpu_drops=cpu["drops"], bit_for_bit=bits)
+    print(f"   {cfg.name} on {ED_MESH} cuda:0 cells: loss {a['loss']:.5f} "
+          f"(CPU grid {cpu['loss']:.5f}, rel {loss_err:.2e}), gradients "
+          f"{g_err:.2e} of their magnitude; drops by shard and layer "
+          f"{a['drops']} (CPU {cpu['drops']}); two card steps bit for bit: "
+          f"{bits}", flush=True)
+    _need(loss_err <= FAM_SMOKE_TOL["loss"] and
+          g_err <= FAM_SMOKE_TOL["grad"] and a["drops"] == cpu["drops"] and
+          bits, f"phase 18a mesh step {cfg.name}: {row}")
+    return row
+
+
+def ed_full(seed: int, rng, launches: dict) -> dict:
+    """Phase 18 (b): seamless-m4t-medium whole, bf16."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model as build_lm
+    cfg = get_config(ED_ARCH)
+    model = build_lm(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    t0 = time.perf_counter()
+    params = model.init(gen)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"   {cfg.name}: {n_params / 1e9:.3f} B parameters "
+          f"({sum(p.nbytes for p in params.parameters()) / 1e9:.2f} GB), "
+          f"{len(params.enc_blocks)} + {len(params.dec_blocks)} layers, "
+          f"vocabulary {cfg.vocab:,} padded to {cfg.padded_vocab():,}; "
+          f"drawn in {time.perf_counter() - t0:.1f} s", flush=True)
+    P = cfg.n_prefix
+
+    def frames(B):
+        return torch.randn((B, P, cfg.d_model), generator=gen,
+                           device="cuda") * 0.05
+    B, T = ED_PREFILL
+    toks = torch.from_numpy(rng.integers(2, cfg.vocab, size=(B, T))).cuda()
+    batch = {"tokens": toks, "prefix": frames(B)}
+    model.prefill(params, {"tokens": toks[:, :64], "prefix": batch["prefix"]})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with counted(launches, "seamless prefill"):
+        t0 = time.perf_counter()
+        v, i, cache = model.prefill(params, batch, top_k=6)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    _need(launches["seamless prefill"]["blocked_topk"] == 1 and
+          bool(torch.isfinite(v).all()) and v.shape == (B, 6) and
+          tuple(cache["mem_k"].shape) == (cfg.n_layers, B, P,
+                                          cfg.n_kv_heads, cfg.head_dim),
+          f"prefill: {v}, launches {launches['seamless prefill']}")
+    del cache
+    print(f"   prefill of {P:,} frames and ({B}, {T:,}) tokens: {wall:.3f} "
+          f"s ({B * T / wall:,.0f} tokens/s), peak {peak:.2f} GiB; top-5 "
+          f"{i[0, :5].tolist()}", flush=True)
+    out = dict(arch=cfg.name, params=n_params,
+               prefill=dict(B=B, T=T, frames=P, wall_s=wall,
+                            tokens_per_s=B * T / wall, peak_gib=peak))
+
+    # Prefill against teacher-forced decode from an empty cache that holds
+    # the prefill's memory k/v.
+    B, T = ED_DECODE
+    toks = torch.from_numpy(rng.integers(2, cfg.vocab, size=(B, T))).cuda()
+    batch = {"tokens": toks, "prefix": frames(B)}
+    v, i, cache_p = model.prefill(params, batch, top_k=6)
+    cache_d = model.init_cache(B, T)
+    cache_d["mem_k"].copy_(cache_p["mem_k"])
+    cache_d["mem_v"].copy_(cache_p["mem_v"])
+    torch.cuda.synchronize()
+    with counted(launches, "seamless decode"):
+        t0 = time.perf_counter()
+        for t in range(T):
+            dv, di, cache_d = model.decode_step(params, cache_d,
+                                                toks[:, t:t + 1], t, top_k=6)
+        torch.cuda.synchronize()
+        dwall = time.perf_counter() - t0
+    _need(launches["seamless decode"]["blocked_topk"] == T,
+          f"{T} decode steps launched kernel 9 "
+          f"{launches['seamless decode']['blocked_topk']} times")
+    ids = decisive_ids(v, i, dv, di)
+    errs = cache_errors(cache_p, cache_d, T, 1, LM_CACHE)
+    del cache_p, cache_d, params
+    torch.cuda.empty_cache()
+    print(f"   {T} decode steps at B = {B} against prefill: {dwall:.2f} s, "
+          f"{1e3 * dwall / T:.2f} ms a step; top-5 decisive rows "
+          f"{ids['decisive']} of {ids['rows']}, agree {ids['agree']}; self "
+          f"k/v rel err {errs['k']:.2e} / {errs['v']:.2e} (layers 0-2 "
+          f"{errs['k_first_layers']}); layer 0 bit for bit", flush=True)
+    out["decode"] = dict(B=B, T=T, wall_s=dwall, ms_per_step=1e3 * dwall / T,
+                         top5=ids, cache_rel_err=errs)
+    return out
+
+
+def ed_train(seed: int, launches: dict) -> dict:
+    """Phase 18 (c): seamless training at full width in bf16."""
+    from repro_torch.configs import get_config
+    cfg = get_config(ED_ARCH)
+    L = cfg.n_layers
+    with counted(launches, "seamless train"):
+        return bf16_training(cfg, seed, ED_TRAIN, groups={
+            "embed": "embed", "head": "head", "enc block 0": "enc_blocks.0",
+            f"dec block {L - 1}": f"dec_blocks.{L - 1}"},
+            last=f"dec block {L - 1}")
+
+
+def ed_mesh_full(seed: int, launches: dict) -> dict:
+    """Phase 18 (d): the mesh at full width."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.model import build_model as build_lm
+    from repro_torch.train.trainer import loss_and_grads
+    rng = np.random.default_rng([seed, 18, 4])
+    cfg = dataclasses.replace(get_config(ED_ARCH), dtype="float32")
+    model = build_lm(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+    B, T = ED_MESH_FULL["B"], ED_MESH_FULL["T"]
+    batch = {k: v[0] for k, v in lm_batches(cfg, seed, accum=1, micro=B,
+                                            T=T, steps=1)[0].items()}
+    batch["prefix"] = (0.05 * rng.normal(size=(B, cfg.n_prefix,
+                                               cfg.d_model))
+                       ).astype(np.float32)
+    mesh = grid(ED_MESH)
+    with counted(launches, "seamless mesh"):
+        l1, _, g1 = loss_and_grads(model, params, batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        l2, _, g2 = loss_and_grads(model, params, batch, mesh=mesh,
+                                   batch_axes=ED_AXES)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        g_err = grad_error(g2, g1)
+        del g1
+        l3, _, g3 = loss_and_grads(model, params, batch, mesh=mesh,
+                                   batch_axes=ED_AXES)
+    bits = torch.equal(l2, l3) and all(torch.equal(g2[n], g3[n])
+                                       for n in g2)
+    loss_err = abs(float(l2) - float(l1)) / abs(float(l1))
+    del g2, g3, params, model
+    torch.cuda.empty_cache()
+    print(f"   {cfg.name} fp32, (B, T) = ({B}, {T:,}) + {cfg.n_prefix:,} "
+          f"frames on {ED_MESH} cuda:0 cells against one device: loss "
+          f"{float(l2):.4f} vs {float(l1):.4f} (rel {loss_err:.2e}), "
+          f"gradients {g_err:.2e} of their magnitude; the mesh step "
+          f"{wall:.2f} s; twice bit for bit: {bits}", flush=True)
+    _need(loss_err <= ED_MESH_TOL["loss"] and g_err <= ED_MESH_TOL["grad"]
+          and bits, f"phase 18d: loss {loss_err:.2e}, gradients "
+          f"{g_err:.2e}, bit for bit {bits}")
+    out = dict(seamless=dict(B=B, T=T, mesh=ED_MESH, loss=float(l2),
+                             one_device_loss=float(l1), loss_rel_err=loss_err,
+                             grad_err=g_err, wall_s=wall, bit_for_bit=bits))
+
+    mm = ED_MOE_MESH
+    cfg = dataclasses.replace(get_config(mm["arch"]), n_layers=mm["layers"])
+    model = build_lm(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+    batch = {k: v[0] for k, v in lm_batches(cfg, seed, accum=1,
+                                            micro=mm["B"], T=mm["T"],
+                                            steps=1)[0].items()}
+    mesh = grid(mm["mesh"])
+    from repro_torch.models.sharding import row_shards
+    shards = row_shards(mesh, mm["B"], ED_AXES)
+    with torch.no_grad(), counted(launches, "qwen2-moe mesh"):
+        with moe.count_dropped() as d:
+            t0 = time.perf_counter()
+            loss, met = model.train_loss(params, batch, mesh=mesh,
+                                         batch_axes=ED_AXES)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        on_mesh = np.array([int(x) for _, x in d]).reshape(len(shards),
+                                                           cfg.n_layers)
+        alone = []
+        for s in shards:
+            with moe.count_dropped() as d:
+                model.train_loss(params, {k: v[s.rows]
+                                          for k, v in batch.items()})
+            alone.append([int(x) for _, x in d])
+        with moe.count_dropped() as d:
+            whole, _ = model.train_loss(params, batch)
+        unsharded = [int(x) for _, x in d]
+    n_tok = mm["B"] * mm["T"] // len(shards)
+    print(f"   {cfg.name} at {cfg.n_layers} layers, (B, T) = ({mm['B']}, "
+          f"{mm['T']:,}) on {mm['mesh']} cuda:0 cells: loss "
+          f"{float(loss):.4f} (aux {float(met['aux']):.4f}; one device "
+          f"{float(whole):.4f}) in {wall:.2f} s; dropped by shard and layer "
+          f"{on_mesh.tolist()} of {n_tok * cfg.moe_top_k:,} assignments, "
+          f"each shard alone {alone}, unsharded {unsharded}", flush=True)
+    _need(bool(torch.isfinite(loss)) and on_mesh.tolist() == alone,
+          f"phase 18d {cfg.name}: loss {float(loss)}, drops {on_mesh} "
+          f"against {alone}")
+    del params, model
+    torch.cuda.empty_cache()
+    out["moe"] = dict(arch=cfg.name, n_layers=cfg.n_layers, B=mm["B"],
+                      T=mm["T"], mesh=mm["mesh"], loss=float(loss),
+                      aux=float(met["aux"]), wall_s=wall,
+                      dropped=on_mesh.tolist(), alone=alone,
+                      unsharded=unsharded)
+    return out
+
+
+def encdec_mesh(seed: int, build_dir: Path) -> dict:
+    """Phase 18: (a)-(e), with every kernel's launch count set to 0 just
+    before and read just after: kernel 9 only (seamless's and the MoE
+    routers' top-k), as the parts' counts say."""
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    rng = np.random.default_rng([seed, 18])
+    launches: dict = {}
+    out, walls = {}, {}
+    for part, run in (
+            ("smoke", lambda: dict(
+                seamless=fam_smoke_one(ED_ARCH, seed),
+                mesh=[mesh_step_smoke(a, seed) for a in ED_MESH_ARCHS])),
+            ("seamless", lambda: ed_full(seed, rng, launches)),
+            ("train", lambda: ed_train(seed, launches)),
+            ("mesh", lambda: ed_mesh_full(seed, launches)),
+            ("cli", lambda: dict(
+                seamless=lm_train_cli(build_dir, ED_ARCH, c=ED_CLI),
+                mesh=lm_train_cli(build_dir, "qwen1.5-0.5b", ED_MESH,
+                                  c=ED_CLI)))):
+        t0 = time.perf_counter()
+        out[part] = run()
+        walls[part] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    others = {k: fn.launches for k, fn in counters.items()
+              if k not in ("blocked_topk", "banded_attention")}
+    out["launches"] = launches
+    out["wall_s"] = walls
+    print("   (a)-(e) took " + ", ".join(f"{v:.1f}" for v in walls.values())
+          + f" s; kernel launches by part {launches}; kernels 1-8 {others}",
+          flush=True)
+    _need(not any(others.values()) and
+          not any(v["banded_attention"] for v in launches.values()),
+          f"phase 18 launched a kernel off its path: {others}, {launches}")
+    _need(launches["seamless train"]["blocked_topk"] == 0,
+          "seamless training launched the top-k kernel")
+    return out
+
+
 def train_data(seed: int):
     """Phases 5-10b's training data: Wiki10-31K's N and D."""
     from repro_torch.data.xmc import make_xmc_dataset
@@ -4498,6 +4921,10 @@ def main() -> None:
                "mixtral-8x22b (2 layers), xlstm-125m, internvl2-26b at full "
                "width"):
         fam = families(args.seed)
+    with phase(f"encoder-decoder and the LM mesh: smoke configs card vs "
+               f"CPU; {ED_ARCH} at full width; training on a {ED_MESH} "
+               f"grid"):
+        ed = encdec_mesh(args.seed, build_dir)
 
     head = next(r for r in bsr["sweep"] if r["n"] == HEADLINE_N)
     kernels = [
@@ -4527,7 +4954,9 @@ def main() -> None:
                  for k, v in mesh_serve.items()},
              launches_baselines=base["topk_launches"],
              launches_families={k: v["blocked_topk"]
-                                for k, v in fam["launches"].items()}),
+                                for k, v in fam["launches"].items()},
+             launches_encdec_mesh={k: v["blocked_topk"]
+                                   for k, v in ed["launches"].items()}),
     ]
     at = "(L, N, D) = ({}, {}, {})".format(*train_k["shape"])
     for name, key, src, replaces, err_key in (
@@ -4614,6 +5043,7 @@ def main() -> None:
                              "train": lm_tr}}))
     print(json.dumps({"baselines": base}))
     print(json.dumps({"lm_families": fam}))
+    print(json.dumps({"encdec_mesh": ed}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

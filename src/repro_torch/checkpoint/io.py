@@ -896,13 +896,13 @@ def save_pytree(tree, directory: str, *, sparse_threshold: float = 0.5):
     format, shape and dtype) and `arrays.npz` under '/'-joined key paths.
     A 2-D leaf of more than 4,096 elements whose density is under
     `sparse_threshold` is stored as coo (`::values`, `::rows`, `::cols`).
-    `tree`: an `LMParams` (written as the JAX package's parameter tree,
-    `blocks/attn/wq` with the layer axis first, or xLSTM's
-    `blocks/0/mixer/wq`) or nested dicts (and lists) of tensors or
-    arrays."""
+    `tree`: an `LMParams` or `EncDecParams` (written as the JAX package's
+    parameter tree, `blocks/attn/wq` or `dec_blocks/xattn/wq` with the
+    layer axis first, or xLSTM's `blocks/0/mixer/wq`) or nested dicts (and
+    lists) of tensors or arrays."""
     from repro_torch.convert import lm_jax_tree
-    from repro_torch.models.transformer import LMParams
-    if isinstance(tree, LMParams):
+    from repro_torch.models.model import PARAM_TYPES
+    if isinstance(tree, PARAM_TYPES):
         tree = lm_jax_tree(tree)
     os.makedirs(directory, exist_ok=True)
     index: dict = {"entries": {}}
@@ -953,13 +953,13 @@ def _restored(data, meta: dict, key: str) -> torch.Tensor:
 
 def restore_pytree(template, directory: str):
     """The checkpoint in `directory` in the structure of `template`
-    (shapes must match): an `LMParams` (a new one, on the template's
-    device, each parameter of the template's type) or nested dicts of
-    tensors (each leaf on its template's device, of its type). Reads what
-    either package's `save_pytree` wrote."""
+    (shapes must match): an `LMParams` or `EncDecParams` (a new one, on
+    the template's device, each parameter of the template's type) or
+    nested dicts of tensors (each leaf on its template's device, of its
+    type). Reads what either package's `save_pytree` wrote."""
     from repro_torch.convert import (_unstacked, lm_jax_tree,
                                      lm_params_from_flat)
-    from repro_torch.models.transformer import LMParams
+    from repro_torch.models.model import PARAM_TYPES
     with open(os.path.join(directory, PYTREE_INDEX)) as f:
         entries = json.load(f)["entries"]
     data = np.load(os.path.join(directory, PYTREE_ARRAYS))
@@ -979,7 +979,7 @@ def restore_pytree(template, directory: str):
                 t.to(device=val.device, dtype=val.dtype)
         return out
 
-    if not isinstance(template, LMParams):
+    if not isinstance(template, PARAM_TYPES):
         return fill(template)
     cfg = template.cfg
     shapes = lm_jax_tree(template, lambda t: torch.empty(t.shape,

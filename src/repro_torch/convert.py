@@ -108,14 +108,26 @@ def _tensor(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
+def layer_stacks(cfg) -> dict:
+    """The block lists of an LM's parameter tree and their layer counts:
+    `blocks` (n_layers) for the decoder-only stacks, `enc_blocks` and
+    `dec_blocks` for the encoder-decoder."""
+    if cfg.is_encoder_decoder:
+        from repro_torch.models.encdec import n_encoder_layers
+        return {"enc_blocks": n_encoder_layers(cfg),
+                "dec_blocks": cfg.n_layers}
+    return {"blocks": cfg.n_layers}
+
+
 def _unstacked(cfg, tree: dict, leaf=lambda a: a) -> dict:
     """State-dict entries of the JAX package's LM parameter tree: each
-    leaf through `leaf`, the leaves under `blocks` split at their leading
-    layer axis into `blocks.<i>.` entries (or, for xLSTM, the i-th tree of
-    the list)."""
+    leaf through `leaf`, the leaves under a block list (`layer_stacks`)
+    split at their leading layer axis into `<list>.<i>.` entries (or, for
+    xLSTM, the i-th tree of the list)."""
     from repro_torch.models.transformer import uses_layer_scan
     flat: dict = {}
     stacked = uses_layer_scan(cfg)
+    stacks = layer_stacks(cfg)
 
     def walk(prefix: str, sub: dict, layer: Optional[int]) -> None:
         for key, val in sub.items():
@@ -126,12 +138,12 @@ def _unstacked(cfg, tree: dict, leaf=lambda a: a) -> dict:
                 flat[prefix + key] = a if layer is None else a[layer]
 
     for key, val in tree.items():
-        if key == "blocks":
-            for i in range(cfg.n_layers):
+        if key in stacks:
+            for i in range(stacks[key]):
                 if stacked:
-                    walk(f"blocks.{i}.", val, i)
+                    walk(f"{key}.{i}.", val, i)
                 else:
-                    walk(f"blocks.{i}.", val[i], None)
+                    walk(f"{key}.{i}.", val[i], None)
         elif isinstance(val, dict):
             walk(f"{key}.", val, None)
         else:
@@ -140,20 +152,23 @@ def _unstacked(cfg, tree: dict, leaf=lambda a: a) -> dict:
 
 
 def lm_params_from_flat(cfg, flat: dict, *, device=None):
-    """`LMParams` on `device` (None: the card) from state-dict entries;
-    every leaf must fill a parameter of the same shape (cast to the
-    parameter's type), and none may be missing."""
-    from repro_torch.models.transformer import LMParams
-    params = LMParams(cfg, device=resolve_device(device))
+    """The LM parameters of cfg (an `LMParams`, or an `EncDecParams` for
+    the encoder-decoder) on `device` (None: the card) from state-dict
+    entries; every leaf must fill a parameter of the same shape (cast to
+    the parameter's type), and none may be missing."""
+    from repro_torch.models.model import params_type
+    params = params_type(cfg)(cfg, device=resolve_device(device))
     params.load_state_dict(flat, strict=True)
     return params
 
 
 def lm_params_from_jax(cfg, params_np: dict, *, device=None):
-    """The port's LM parameters (`models.transformer.LMParams`) from the
-    JAX package's parameter tree as numpy arrays: `embed`, `final_norm`,
-    `head` and `blocks`, whose leaves are stacked over the n_layers
-    layers (leading dim L; for xLSTM a list of per-layer trees), e.g.
+    """The port's LM parameters (`models.transformer.LMParams`, or
+    `models.encdec.EncDecParams`) from the JAX package's parameter tree as
+    numpy arrays: `embed`, `final_norm`, `head` and `blocks`, whose leaves
+    are stacked over the n_layers layers (leading dim L; for xLSTM a list
+    of per-layer trees), or the encoder-decoder's `enc_blocks`,
+    `enc_norm` and `dec_blocks`, each list stacked over its own count; e.g.
     `jax.tree.map(np.asarray, build_model(cfg).init(key))`. The layer axis
     is unstacked into `blocks.<i>.` entries; every leaf must fill a
     parameter of the same shape, and none may be missing."""
@@ -163,29 +178,30 @@ def lm_params_from_jax(cfg, params_np: dict, *, device=None):
 
 
 def lm_jax_tree(params, leaf=lambda t: t.detach().cpu()) -> dict:
-    """The JAX package's parameter tree of `params` (an `LMParams`) as
-    nested dicts of each parameter through `leaf` (by default a host
-    tensor of its type): `embed`, `final_norm`, `head` and `blocks`, whose
-    leaves stack the layers' parameters along a new leading axis (for
-    xLSTM, `blocks` is a list of per-layer trees)."""
+    """The JAX package's parameter tree of `params` (an `LMParams` or an
+    `EncDecParams`) as nested dicts of each parameter through `leaf` (by
+    default a host tensor of its type): the block lists' leaves
+    (`layer_stacks`) stack the layers' parameters along a new leading axis
+    (for xLSTM, `blocks` is a list of per-layer trees)."""
     from repro_torch.models.transformer import uses_layer_scan
     sd = {k: leaf(v) for k, v in params.state_dict().items()}
     stacked = uses_layer_scan(params.cfg)
+    stacks = {k: len(getattr(params, k)) for k in layer_stacks(params.cfg)}
     tree: dict = {}
     if not stacked:
         tree["blocks"] = [{} for _ in params.blocks]
     for name, t in sd.items():
         path = name.split(".")
         node = tree
-        if path[0] == "blocks" and not stacked:
+        if path[0] in stacks and not stacked:
             node, path = tree["blocks"][int(path[1])], path[2:]
-        elif path[0] == "blocks":
+        elif path[0] in stacks:
             if path[1] != "0":
                 continue
             rest = ".".join(path[2:])
-            path = ["blocks"] + path[2:]
-            t = torch.stack([sd[f"blocks.{i}.{rest}"]
-                             for i in range(len(params.blocks))])
+            t = torch.stack([sd[f"{path[0]}.{i}.{rest}"]
+                             for i in range(stacks[path[0]])])
+            path = [path[0]] + path[2:]
         for key in path[:-1]:
             node = node.setdefault(key, {})
         node[path[-1]] = t
@@ -198,9 +214,10 @@ def lm_params_to_jax(cfg, params) -> dict:
     back (`lm_params_to_jax(cfg, lm_params_from_jax(cfg, t))` equals t).
     numpy has no bfloat16 here, so a bf16 parameter comes back as its
     exact float32 values."""
-    if len(params.blocks) != cfg.n_layers:
-        raise ValueError(f"{len(params.blocks)} blocks for a config of "
-                         f"{cfg.n_layers} layers")
+    for key, n in layer_stacks(cfg).items():
+        if len(getattr(params, key)) != n:
+            raise ValueError(f"{len(getattr(params, key))} {key} for a "
+                             f"config of {n}")
 
     def to_np(node):
         if isinstance(node, dict):

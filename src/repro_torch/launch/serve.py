@@ -10,9 +10,9 @@ LM mode (batched greedy decode of ragged prompts; random weights from
       --smoke --device cpu                  # the smoke config, on the CPU
 
 The text-only archs serve (dense, hybrid, moe, ssm). The modality-prefix
-(VLM) archs exit, as the JAX package's CLI does: their prompts go in
-through `model.prefill(params, {"tokens", "prefix"})`. The
-encoder-decoder exits naming its ROADMAP item.
+(VLM) and encoder-decoder archs exit, as the JAX package's CLI does: their
+prompts go in through `model.prefill(params, {"tokens", "prefix"})`, the
+prefix being the patch or frame embeddings.
 
 XMC mode (the paper's distributed prediction as a service; trains and
 checkpoints a small sparse model first if --ckpt does not exist yet, then
@@ -265,15 +265,12 @@ def serve_lm(args) -> None:
     from repro_torch.serve import serve_batch
 
     cfg = get_config(args.arch, smoke=args.smoke)
-    if cfg.n_prefix and not cfg.is_encoder_decoder:
+    if cfg.is_encoder_decoder or cfg.n_prefix:
         raise SystemExit("serve CLI drives text-only archs, as the JAX "
-                         "package's does; a VLM prompt takes its patch "
-                         "prefix through model.prefill(params, {'tokens', "
-                         "'prefix'})")
-    try:
-        model = build_model(cfg, device=args.device)
-    except NotImplementedError as e:
-        raise SystemExit(str(e)) from None
+                         "package's does; an encoder-decoder or VLM prompt "
+                         "takes its frame or patch prefix through "
+                         "model.prefill(params, {'tokens', 'prefix'})")
+    model = build_model(cfg, device=args.device)
     params = model.init(torch.Generator(device=model.device)
                         .manual_seed(args.seed))
     rng = np.random.default_rng(0)

@@ -8,9 +8,16 @@ as JSON lines, then `save_pytree` to --out in the JAX package's layout):
   PYTHONPATH=src python -m repro_torch.launch.train --arch hymba-1.5b \
       --smoke --steps 20 --seq-len 128 --batch 8 --out /tmp/lm_ckpt
 
-Every decoder-only family trains (a VLM config takes the JAX launcher's
-prefix batches, patch embeddings of 0.01); the encoder-decoder configs,
-and `--mesh` in LM mode, exit naming ROADMAP Queue A item 8e.
+Every family trains: a VLM config takes the JAX launcher's prefix batches
+(patch embeddings of 0.01), and so does the encoder-decoder (its frame
+embeddings). `--mesh DxM` trains over a (data, model) grid of devices
+driven from this one process, the batch over "data" as the JAX launcher
+passes it, the DiSMEC head label-sharded over "model" (the distinct cards,
+or D*M entries of one device: `--device cpu`, or `--device cuda:0` for a
+grid on one card):
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \
+      --smoke --mesh 2x2 --device cpu --steps 10
 
 XMC mode (flags -> XMCSpec -> repro_torch.xmc_api.fit: streaming
 label-batch pipeline -> servable sparse checkpoint with the spec in its
@@ -28,7 +35,8 @@ label batches through the manifest's lease table and drain one queue into
 one checkpoint. `--mesh DxM [--shard-data] [--balance]` shards each
 batch's solve over a (data, model) grid of devices driven from this one
 process: the distinct cards cuda:0 ... cuda:D*M-1 (it raises when there
-are fewer), or D*M entries of the CPU with `--device cpu`:
+are fewer), or D*M entries of the one device `--device` names (cpu, or
+cuda:0):
 
   PYTHONPATH=src python -m repro_torch.launch.train --xmc --mesh 2x4 \
       --shard-data --balance --device cpu --out /tmp/xmc_mesh
@@ -50,6 +58,18 @@ import numpy as np
 import torch
 
 
+def _mesh(args):
+    """--mesh DxM: the distinct cards cuda:0 ... cuda:D*M-1 (--device
+    cuda), or D*M entries of the one device --device names (cpu, or a
+    card: cuda:0); None without the flag."""
+    from repro_torch.launch.mesh import make_host_mesh
+    if not args.mesh:
+        return None
+    d, m = (int(x) for x in args.mesh.split("x"))
+    return make_host_mesh(d, m, devices=None if args.device == "cuda"
+                          else [args.device] * (d * m))
+
+
 def train_lm(args) -> None:
     """--arch: train an LM from random weights (drawn from --seed) on the
     synthetic token pipeline's batches (drawn from --seed)."""
@@ -57,23 +77,19 @@ def train_lm(args) -> None:
     from repro_torch.configs import get_config
     from repro_torch.data.lm import make_lm_batch_iterator
     from repro_torch.models.model import build_model
-    from repro_torch.models.transformer import NOT_PORTED
     from repro_torch.train.trainer import train_loop
 
-    if args.mesh:
-        raise SystemExit(f"--mesh: {NOT_PORTED['mesh']}")
     cfg = get_config(args.arch, smoke=args.smoke)
     if args.head:
         cfg = dataclasses.replace(cfg, head_type=args.head)
-    try:
-        model = build_model(cfg, device=args.device)
-    except NotImplementedError as e:
-        raise SystemExit(str(e)) from None
+    mesh = _mesh(args)
+    model = build_model(cfg, device=mesh.first if mesh else args.device)
     params = model.init(torch.Generator(device=model.device)
                         .manual_seed(args.seed))
     tokens = make_lm_batch_iterator(cfg.vocab, args.seq_len, args.batch,
                                     seed=args.seed)
-    # The JAX launcher's stand-in patch embeddings for a prefix config.
+    # The JAX launcher's stand-in patch (or frame) embeddings for a prefix
+    # config.
     prefix = np.ones((args.batch, cfg.n_prefix, cfg.d_model),
                      np.float32) * 0.01
 
@@ -83,7 +99,8 @@ def train_lm(args) -> None:
 
     t0 = time.time()
     params, hist = train_loop(model, params, batches(), steps=args.steps,
-                              lr=args.lr)
+                              lr=args.lr, mesh=mesh,
+                              batch_axes=("data",) if mesh else ())
     for h in hist:
         print(json.dumps(h))
     print(f"# trained {args.steps} steps in {time.time() - t0:.1f}s on "
@@ -99,19 +116,13 @@ def train_xmc(args) -> None:
     streams the checkpoint, the handle quick-evals it."""
     from repro_torch.core.prediction import evaluate, predict_topk
     from repro_torch.data.xmc import make_xmc_dataset
-    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.specs import ScheduleSpec, SolverSpec
     from repro_torch.xmc_api import XMCSpec, fit
 
     if args.out is None:
         args.out = os.path.join(tempfile.gettempdir(),
                                 "repro_torch_xmc_train_ckpt")
-    mesh = None
-    if args.mesh:
-        d, m = (int(x) for x in args.mesh.split("x"))
-        mesh = make_host_mesh(d, m, devices=["cpu"] * (d * m)
-                              if args.device == "cpu" else None)
-
+    mesh = _mesh(args)
     data = make_xmc_dataset(n_train=args.train_n, n_test=args.test_n,
                             n_features=args.features, n_labels=args.labels,
                             seed=args.seed)
@@ -184,8 +195,9 @@ def main() -> None:
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--head", choices=["dismec", "softmax"], default=None)
     ap.add_argument("--mesh", default=None,
-                    help="XMC mode, e.g. 2x4 (data x model): shard each "
-                         "batch's solve over that grid of devices")
+                    help="e.g. 2x4 (data x model): shard each XMC batch's "
+                         "solve, or each LM step, over that grid of "
+                         "devices")
     ap.add_argument("--out", default=None, help="checkpoint directory")
     ap.add_argument("--labels", type=int, default=512)
     ap.add_argument("--features", type=int, default=4096)
@@ -217,7 +229,9 @@ def main() -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="where the model trains: cuda (the card, the "
-                         "default) or cpu")
+                         "default; with --mesh, the distinct cards), a "
+                         "card by index (cuda:0: with --mesh, every cell "
+                         "on it) or cpu")
     args = ap.parse_args()
 
     if args.xmc:

@@ -7,6 +7,11 @@ tree's paths; the functions take `(cfg, p, x, ...)` as the JAX ones do.
 Every parameter is created with `requires_grad=False`: this is the
 serving side.
 
+`attention` (causal, or an encoder's bidirectional), `cross_attention`
+(against an encoder's memory) and `attention_decode` (one token against a
+cache) are the JAX module's; the decoder-only stacks compose their own
+from `_qkv` and `_sdpa` (models/transformer.py).
+
 Attention variants: GQA with any kv_heads, RoPE on a fraction of the head
 dims (chatglm3 rotates half), per-head qk RMS-norm (qwen3), QKV bias
 (qwen1.5), sliding-window causal masks (hymba, mixtral, and the --swa
@@ -307,6 +312,65 @@ def causal_mask(Tq: int, Tk: int, *, q_offset: int = 0,
     if window is not None:
         m = m & (ki > qi - window)
     return m[None, None, None, :, :]
+
+
+def attention(cfg: ArchConfig, p: Attention, x: torch.Tensor,
+              positions: torch.Tensor, *, window: Optional[int] = None,
+              is_causal: bool = True) -> torch.Tensor:
+    """Full-sequence self-attention (an encoder's with is_causal=False):
+    dense scores up to DENSE_ATTN_MAX_T, the online-softmax blockwise
+    attention above."""
+    T = x.shape[1]
+    q, k, v = _qkv(cfg, p, x, positions)
+    if T > DENSE_ATTN_MAX_T:
+        out = blockwise_attention(cfg, q, k, v, window=window,
+                                  is_causal=is_causal)
+    else:
+        mask = causal_mask(T, T, window=window, device=x.device) \
+            if is_causal else None
+        out = _sdpa(cfg, q, k, v, mask)
+    return matmul(out, p.wo)
+
+
+def cross_attention(cfg: ArchConfig, p: Attention, x: torch.Tensor,
+                    memory_kv: tuple) -> torch.Tensor:
+    """Decoder cross-attention against precomputed encoder K/V (B, S, KV,
+    hd): the queries take wq alone (no bias, norm or rotation, as in the
+    JAX package); above DENSE_ATTN_MAX_T queries, blockwise against the
+    memory."""
+    B, T, _ = x.shape
+    q = matmul(x, p.wq).reshape(B, T, cfg.n_heads, cfg.head_dim)
+    k, v = memory_kv
+    if T > DENSE_ATTN_MAX_T:
+        out = blockwise_attention(cfg, q, k, v, is_causal=False)
+    else:
+        out = _sdpa(cfg, q, k, v, None)
+    return matmul(out, p.wo)
+
+
+def attention_decode(cfg: ArchConfig, p: Attention, x: torch.Tensor,
+                     positions: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, cache_index: int, *,
+                     window: Optional[int] = None):
+    """One-token decode: x (B, 1, d) against a cache (B, T_max, KV, hd),
+    written in place at slot `cache_index` (`cache_index % T_max` for a
+    sliding-window ring) -> (out, k_cache, v_cache). A ring slot holds the
+    absolute position p with p % T_max == slot, valid once written and
+    within the window; the JAX package's mask, term for term."""
+    T_max = k_cache.shape[1]
+    q, k, v = _qkv(cfg, p, x, positions)
+    slot = cache_index % T_max if window is not None else cache_index
+    k_cache[:, slot] = k[:, 0].to(k_cache.dtype)
+    v_cache[:, slot] = v[:, 0].to(v_cache.dtype)
+    slots = torch.arange(T_max, device=x.device)
+    if window is not None:
+        abs_pos = cache_index - (cache_index - slots) % T_max
+        valid = ((abs_pos >= 0) & (abs_pos > cache_index - (window or T_max))
+                 | (slots == slot)) & (abs_pos <= cache_index)
+    else:
+        valid = slots <= cache_index
+    out = _sdpa(cfg, q, k_cache, v_cache, valid[None, None, None, None, :])
+    return matmul(out, p.wo), k_cache, v_cache
 
 
 # ---------------------------------------------------------------------------

@@ -4,17 +4,19 @@ The port of the JAX package's module of the same name. `build_model(cfg)`
 returns a Model with uniform signatures, so the launcher and the serving
 engine treat the architectures alike:
 
-  init(generator)                              -> params (an LMParams)
+  init(generator)                              -> params
   prefill(params, batch, *, use_swa, top_k=5)  -> (topk_vals, topk_idx, cache)
   decode_step(params, cache, tokens, pos, ...) -> (vals, idx, cache)
-  init_cache(B, seq_len, *, use_swa)           -> cache dict
-  train_loss(params, batch)                    -> (loss, {"loss", "aux"})
+  init_cache(B, seq_len, *, use_swa, t_enc)    -> cache dict
+  train_loss(params, batch, *, mesh, batch_axes) -> (loss, {"loss", "aux"})
 
 Everything runs on `device` (the card unless the caller passes "cpu").
-Every decoder-only family is ported (dense, hybrid, moe, ssm, and vlm,
-whose patch embeddings go in as `batch["prefix"]`); the encoder-decoder
-raises NotImplementedError naming its ROADMAP item when the model is
-built.
+The decoder-only families (dense, hybrid, moe, ssm, and vlm, whose patch
+embeddings go in as `batch["prefix"]`) are `transformer`'s, their params an
+`LMParams`; the encoder-decoder (seamless) is `encdec`'s, its params an
+`EncDecParams`, its frames `batch["prefix"]`. `train_loss` takes a mesh
+(`launch/mesh.py`) and the batch axes; `prefill` and `decode_step` with a
+mesh raise NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -26,7 +28,15 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
+
+#: The parameter modules of the LM side.
+PARAM_TYPES = (transformer.LMParams, encdec.EncDecParams)
+
+
+def params_type(cfg: ArchConfig) -> type:
+    return encdec.EncDecParams if cfg.is_encoder_decoder else \
+        transformer.LMParams
 
 
 @dataclasses.dataclass
@@ -40,31 +50,50 @@ class Model:
     init_cache: Callable
 
 
-def build_model(cfg: ArchConfig, device=None) -> Model:
-    transformer.check_ported(cfg)
-    device = resolve_device(device)
+def _no_mesh_serving(mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError(transformer.NOT_PORTED["mesh_serving"])
 
-    def init(generator: torch.Generator) -> transformer.LMParams:
+
+def build_model(cfg: ArchConfig, device=None) -> Model:
+    device = resolve_device(device)
+    enc = cfg.is_encoder_decoder
+    mod = encdec if enc else transformer
+
+    def init(generator: torch.Generator):
         if generator.device.type != device.type:
             raise ValueError(f"the generator lies on {generator.device}; "
                              f"the model on {device}")
-        return transformer.init_params(cfg, generator)
+        return mod.init_params(cfg, generator)
 
     def train_loss(params, batch, *, mesh=None, batch_axes=()):
-        return transformer.train_loss(cfg, params, batch, mesh=mesh,
-                                      batch_axes=batch_axes)
+        return mod.train_loss(cfg, params, batch, mesh=mesh,
+                              batch_axes=batch_axes)
 
-    def prefill_fn(params, batch, *, use_swa: bool = False, top_k: int = 5):
+    def prefill_fn(params, batch, *, mesh=None, batch_axes=(),
+                   use_swa: bool = False, top_k: int = 5):
+        _no_mesh_serving(mesh)
+        if enc:
+            return encdec.prefill(cfg, params, batch["tokens"],
+                                  batch["prefix"], top_k=top_k)
         return transformer.prefill(cfg, params, batch["tokens"],
                                    prefix=batch.get("prefix"),
                                    use_swa=use_swa, top_k=top_k)
 
-    def decode_fn(params, cache, tokens, pos, *, use_swa: bool = False,
-                  top_k: int = 5):
+    def decode_fn(params, cache, tokens, pos, *, mesh=None, batch_axes=(),
+                  use_swa: bool = False, top_k: int = 5):
+        _no_mesh_serving(mesh)
+        if enc:
+            return encdec.decode_step(cfg, params, cache, tokens, pos,
+                                      top_k=top_k)
         return transformer.decode_step(cfg, params, cache, tokens, pos,
                                        use_swa=use_swa, top_k=top_k)
 
-    def init_cache(B: int, seq_len: int, *, use_swa: bool = False):
+    def init_cache(B: int, seq_len: int, *, use_swa: bool = False,
+                   t_enc=None):
+        if enc:
+            return encdec.init_cache(cfg, B, seq_len, t_enc or cfg.n_prefix,
+                                     device=device)
         return transformer.init_cache(cfg, B, seq_len, use_swa=use_swa,
                                       device=device)
 

@@ -27,13 +27,16 @@ type, with no atomic adds: two runs on the card give the same bits.
 
   moe_ffn(cfg, p, x)       (B, T, d) -> (out, Switch aux loss)
 
-The mesh branch (tokens sharded, experts tensor-parallel) is not ported.
+Over a mesh (`moe_ffn(mesh=)`, or a training forward's batch shard) the
+tokens stay on their batch shard and dispatch there at that shard's
+capacity, and the experts' d_ff is split over the model axis, as the JAX
+package's shard_map island does.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -41,6 +44,7 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.topk import ops as topk_ops
+from repro_torch.models import sharding
 from repro_torch.models.layers import matmul, normal, param
 
 
@@ -143,16 +147,15 @@ def route(probs: torch.Tensor, top_k: int):
     return vals / torch.clamp(vals.sum(dim=-1, keepdim=True), min=1e-9), idx
 
 
-def _dispatch_combine(xf: torch.Tensor, gate_vals: torch.Tensor,
-                      gate_idx: torch.Tensor, capacity: int,
-                      w1: torch.Tensor, w3: torch.Tensor,
-                      w2: torch.Tensor):
-    """Sort-based dispatch -> batched expert FFN -> weighted combine.
-    xf (n, d) tokens; gate_vals, gate_idx (n, k) from `route`; w1/w3
-    (E, d, f), w2 (E, f, d) -> (out (n, d), dropped assignments, 0-d)."""
+def _dispatch(xf: torch.Tensor, gate_vals: torch.Tensor,
+              gate_idx: torch.Tensor, capacity: int, E: int):
+    """Sort-based dispatch of the tokens xf (n, d), gate_vals and gate_idx
+    (n, k) from `route` -> (buf (E, capacity, d): each expert's rows, and
+    the plan `_combine` reads: each assignment's slot (E * capacity for a
+    dropped one), its gate value and the sorted position of each token's
+    k assignments), dropped assignments (0-d))."""
     n, d = xf.shape
     k = gate_idx.shape[1]
-    E = w1.shape[0]
     dev = xf.device
     e_s, order = torch.sort(gate_idx.reshape(-1), stable=True)
     tok_s = order // k
@@ -171,46 +174,104 @@ def _dispatch_combine(xf: torch.Tensor, gate_vals: torch.Tensor,
     buf = xf.new_zeros((E * capacity + 1, d)).index_put((dst,), rows)
     buf = buf[:-1].reshape(E, capacity, d)
 
-    h = _f32_bmm(buf, w1)
-    g = _f32_bmm(buf, w3)
-    h = (F.silu(h) * g).to(xf.dtype)
-    y = _f32_bmm(h, w2).to(xf.dtype)
-
-    y_flat = torch.cat([y.reshape(E * capacity, d),
-                        y.new_zeros((1, d))])
-    contrib = (y_flat[dst] * w_s[:, None]).to(xf.dtype)
     # Each token's k contributions in sorted (ascending expert) order:
     # the sorted positions of token t are where `order` holds t*k..t*k+k-1.
     at = torch.empty_like(order)
     at[order] = torch.arange(n * k, device=dev)
     at = torch.sort(at.reshape(n, k), dim=1).values
+    return buf, (dst, w_s, at), (~keep).sum()
+
+
+def _combine(buf: torch.Tensor, plan, w1: torch.Tensor, w3: torch.Tensor,
+             w2: torch.Tensor, dtype) -> torch.Tensor:
+    """The batched expert FFN over `buf` with w1/w3 (E, d, f), w2
+    (E, f, d) (all of d_ff, or one model cell's slice of it), then the
+    weighted combine of each token's k rows, added in order -> (n, d)."""
+    dst, w_s, at = plan
+    E, C, d = buf.shape
+    n, k = at.shape
+    h = _f32_bmm(buf, w1)
+    g = _f32_bmm(buf, w3)
+    h = (F.silu(h) * g).to(dtype)
+    y = _f32_bmm(h, w2).to(dtype)
+    y_flat = torch.cat([y.reshape(E * C, d), y.new_zeros((1, d))])
+    contrib = (y_flat[dst] * w_s[:, None]).to(dtype)
     parts = contrib[at.reshape(-1)].reshape(n, k, d)
     out = parts[:, 0]
     for j in range(1, k):
         out = out + parts[:, j]
-    return out, (~keep).sum()
+    return out
 
 
-def _shared_expert(p: SharedExpert, xf: torch.Tensor) -> torch.Tensor:
-    h = F.silu(matmul(xf, p.w1)) * matmul(xf, p.w3)
-    y = matmul(h, p.w2)
+def _dispatch_combine(xf: torch.Tensor, gate_vals: torch.Tensor,
+                      gate_idx: torch.Tensor, capacity: int,
+                      w1: torch.Tensor, w3: torch.Tensor,
+                      w2: torch.Tensor, cells: Sequence = ()):
+    """Sort-based dispatch -> batched expert FFN -> weighted combine.
+    xf (n, d) tokens; gate_vals, gate_idx (n, k) from `route`; w1/w3
+    (E, d, f), w2 (E, f, d) -> (out (n, d), dropped assignments, 0-d).
+    `cells`: the devices of a model axis. The experts' d_ff is then split
+    over them: each cell runs and combines its slice, and the partial
+    outputs are added on xf's device in the order of the cells."""
+    buf, plan, dropped = _dispatch(xf, gate_vals, gate_idx, capacity,
+                                   w1.shape[0])
+    if len(cells) <= 1:
+        return _combine(buf, plan, w1, w3, w2, xf.dtype), dropped
+    dst, w_s, at = plan
+    out = None
+    for dev, b, w, sl in zip(cells, sharding.replicate(buf, cells),
+                             sharding.replicate(w_s, cells),
+                             _f_slices(w1.shape[2], len(cells))):
+        part = _combine(b, (dst.to(dev), w, at.to(dev)),
+                        w1[:, :, sl].to(dev), w3[:, :, sl].to(dev),
+                        w2[:, sl].to(dev), xf.dtype).to(xf.device)
+        out = part if out is None else out + part
+    return out, dropped
+
+
+def _f_slices(f: int, m: int) -> list:
+    """The model cells' slices of a d_ff of f."""
+    edges = [f * j // m for j in range(m + 1)]
+    return [slice(a, b) for a, b in zip(edges, edges[1:])]
+
+
+def _shared_expert(p: SharedExpert, xf: torch.Tensor,
+                   cells: Sequence = ()) -> torch.Tensor:
+    """The gated shared expert; over `cells` (a model axis) its d_ff is
+    split as the routed experts' is, the partial products added in the
+    order of the cells before the gate."""
+    if len(cells) <= 1:
+        h = F.silu(matmul(xf, p.w1)) * matmul(xf, p.w3)
+        y = matmul(h, p.w2)
+    else:
+        y = None
+        for dev, x, sl in zip(cells, sharding.replicate(xf, cells),
+                              _f_slices(p.w1.shape[1], len(cells))):
+            h = F.silu(matmul(x, p.w1[:, sl].to(dev))) * \
+                matmul(x, p.w3[:, sl].to(dev))
+            part = matmul(h, p.w2[sl].to(dev)).to(xf.device)
+            y = part if y is None else y + part
     gate = torch.sigmoid(matmul(xf, p.gate).float()).to(y.dtype)
     return y * gate
 
 
-def moe_ffn_local(cfg: ArchConfig, p: MoE, xf: torch.Tensor):
-    """MoE FFN on the tokens xf (n, d) -> (out (n, d), aux loss)."""
+def moe_ffn_local(cfg: ArchConfig, p: MoE, xf: torch.Tensor,
+                  cells: Sequence = ()):
+    """MoE FFN on the tokens xf (n, d) -> (out (n, d), aux loss). `cells`:
+    the devices of the model axis the experts' d_ff is split over (none:
+    all of it here)."""
     E, k = cfg.n_experts, cfg.moe_top_k
     n = xf.shape[0]
     logits = matmul(xf, p.router.to(xf.dtype)).float()
     probs = torch.softmax(logits, dim=-1)
     gate_vals, gate_idx = route(probs, k)
     out, dropped = _dispatch_combine(xf, gate_vals, gate_idx,
-                                     capacity(cfg, n), p.w1, p.w3, p.w2)
+                                     capacity(cfg, n), p.w1, p.w3, p.w2,
+                                     cells)
     if _DROPS is not None:
         _DROPS.append((n * k, dropped.detach()))
     if cfg.n_shared_experts:
-        out = out + _shared_expert(p.shared, xf)
+        out = out + _shared_expert(p.shared, xf, cells)
     # Switch's load-balance loss: E * sum_e (token fraction)_e * (mass)_e,
     # the token's top-1 its first top-k id (the first maximum).
     f_e = torch.bincount(gate_idx[:, 0], minlength=E).float() / n
@@ -219,11 +280,28 @@ def moe_ffn_local(cfg: ArchConfig, p: MoE, xf: torch.Tensor):
 
 
 def moe_ffn(cfg: ArchConfig, p: MoE, x: torch.Tensor, *, mesh=None,
-            batch_axes: tuple = ()):
-    """MoE FFN on (B, T, d) -> (out (B, T, d), aux loss)."""
-    if mesh is not None or batch_axes:
-        from repro_torch.models.transformer import NOT_PORTED
-        raise NotImplementedError(NOT_PORTED["mesh"])
+            batch_axes: tuple = (), cells: Sequence = ()):
+    """MoE FFN on (B, T, d) -> (out (B, T, d), aux loss).
+
+    With a mesh, as the JAX package's shard_map island: the tokens stay on
+    their batch shard (`sharding.row_shards`: the batch axes where they
+    divide B, else "data", else every shard holds them all), each shard
+    dispatches its own tokens at its own capacity on its cell's device,
+    the experts' d_ff is split over the shard's row of the model axis,
+    and the aux loss is the mean over the shards. The outputs come back
+    to x's device. `cells` (no mesh): the tokens are already one shard's,
+    and these are the devices of its model axis."""
     B, T, d = x.shape
-    out, aux = moe_ffn_local(cfg, p, x.reshape(B * T, d))
-    return out.reshape(B, T, d), aux
+    if mesh is None:
+        out, aux = moe_ffn_local(cfg, p, x.reshape(B * T, d), cells)
+        return out.reshape(B, T, d), aux
+    shards = sharding.row_shards(mesh, B, batch_axes)
+    outs, aux = [], None
+    for s, ps in zip(shards, sharding.replicas(p, [s.device
+                                                   for s in shards])):
+        xs = x[s.rows].to(s.device)
+        o, a = moe_ffn_local(cfg, ps, xs.reshape(-1, d), s.cells)
+        outs.append(o.reshape(xs.shape).to(x.device))
+        a = a.to(x.device)
+        aux = a if aux is None else aux + a
+    return torch.cat(outs), aux / len(shards)

@@ -43,6 +43,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import sharding
 from repro_torch.models.layers import matmul, normal, param
 
 CHUNK = 256
@@ -367,10 +368,24 @@ class _SLSTMScan(torch.autograd.Function):
 def slstm(cfg: ArchConfig, p: SLSTM, x: torch.Tensor,
           return_state: bool = False, *, mesh=None, batch_axes=()):
     """sLSTM over the full sequence, one step at a time (`_SLSTMScan`).
-    x: (B, T, d)."""
-    if mesh is not None or batch_axes:
-        from repro_torch.models.transformer import NOT_PORTED
-        raise NotImplementedError(NOT_PORTED["mesh"])
+    x: (B, T, d).
+
+    With a mesh, as the JAX package's shard_map island: each batch shard
+    (`sharding.row_shards`) runs on its cell's device with a copy of the
+    weights, whose gradients are summed once, in shard order; outputs and
+    states come back to x's device. The rows are independent, so the
+    values are the unsharded ones."""
+    if mesh is not None:
+        shards = sharding.row_shards(mesh, x.shape[0], batch_axes)
+        outs = [slstm(cfg, ps, x[s.rows].to(s.device), return_state)
+                for s, ps in zip(shards, sharding.replicas(
+                    p, [s.device for s in shards]))]
+        if not return_state:
+            return torch.cat([o.to(x.device) for o in outs])
+        return (torch.cat([o.to(x.device) for o, _ in outs]),
+                SLSTMState(*(torch.cat([st[f].to(x.device)
+                                        for _, st in outs])
+                             for f in range(4))))
     H = _heads_of(cfg)
     xw = matmul(x, p.w).float()                   # (B, T, 4d)
     hs, *state = _SLSTMScan.apply(xw, p.r, p.b, H)

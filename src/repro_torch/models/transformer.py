@@ -33,8 +33,14 @@ A prefix (B, P, d) goes before the token embeddings in `forward` and
 from the features. The MoE layers add their router's aux loss, summed
 over the layers, to `train_loss` (`router_aux_coef`).
 
-The encoder-decoder and training over a mesh raise NotImplementedError
-naming their ROADMAP item. `prefill` and `decode_step` run under
+Training over a mesh (`forward` and `train_loss` with `mesh=`, the port's
+grid of devices): each batch shard's backbone runs forward and backward on
+its cell's device with a copy of the weights (`sharding.row_shards`,
+`sharding.replicas`), the MoE layers dispatch each shard's tokens at the
+shard's capacity with the experts' d_ff split over the model axis, and the
+head losses run one (row shard x label shard) block per cell, their
+partial sums added in a fixed order on the first cell. Serving over a mesh
+is not ported (`NOT_PORTED`). `prefill` and `decode_step` run under
 `torch.inference_mode`.
 """
 
@@ -52,22 +58,22 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.head import init_head, target_logit
 from repro_torch.kernels.topk import ops as topk_ops
-from repro_torch.models import layers, moe, ssm
+from repro_torch.models import layers, moe, sharding, ssm
 from repro_torch.models.layers import matmul, param
 
 #: What the port does not run yet, by the ROADMAP item that ports it.
 NOT_PORTED = {
-    "encdec": "encoder-decoder models (models/encdec.py) are not ported "
-              "yet: ROADMAP Queue A item 8e",
-    "mesh": "LM training over a mesh (models/sharding.py) is not ported "
-            "yet: ROADMAP Queue A item 8e",
+    "mesh_serving": "LM serving over a mesh (prefill and decode_step with "
+                    "mesh=) is not ported yet: ROADMAP Queue A item 8f",
 }
 
 
-def check_ported(cfg: ArchConfig) -> None:
-    """Raise NotImplementedError for a config the port does not run."""
+def check_decoder_only(cfg: ArchConfig) -> None:
+    """This module's stacks are decoder-only; an encoder-decoder config
+    runs in models/encdec.py (`models.model.build_model` picks it)."""
     if cfg.is_encoder_decoder:
-        raise NotImplementedError(f"{cfg.name}: {NOT_PORTED['encdec']}")
+        raise ValueError(f"{cfg.name} is an encoder-decoder: its model is "
+                         "models/encdec.py, through models.model.build_model")
 
 
 # ---------------------------------------------------------------------------
@@ -186,7 +192,7 @@ class LMParams(nn.Module):
     def __init__(self, cfg: ArchConfig, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        check_ported(cfg)
+        check_decoder_only(cfg)
         self.cfg = cfg
         if generator is not None:
             device = generator.device
@@ -257,13 +263,15 @@ def _hybrid_mix(cfg: ArchConfig, blk: Block, h: torch.Tensor,
     return matmul(0.5 * mixed, w_cat), k, v, sst
 
 
-def _ffn(cfg: ArchConfig, blk: Block, x: torch.Tensor):
-    """The FFN sublayer and its residual -> (x, MoE aux loss or None)."""
+def _ffn(cfg: ArchConfig, blk: Block, x: torch.Tensor, cells=()):
+    """The FFN sublayer and its residual -> (x, MoE aux loss or None).
+    `cells`: the devices of the model axis a MoE splits its experts'
+    d_ff over (a batch shard's, in training over a mesh)."""
     aux = None
     if cfg.d_ff > 0:
         h = layers.apply_norm(cfg, blk.norm2, x)
         if cfg.family == "moe":
-            out, aux = moe.moe_ffn(cfg, blk.moe, h)
+            out, aux = moe.moe_ffn(cfg, blk.moe, h, cells=cells)
         else:
             out = layers.mlp(blk.mlp, h, cfg.act)
         x = x + out
@@ -271,7 +279,7 @@ def _ffn(cfg: ArchConfig, blk: Block, x: torch.Tensor):
 
 
 def _block(cfg: ArchConfig, blk: Block, kind: str, x: torch.Tensor,
-           positions: torch.Tensor, window: int, rope=None):
+           positions: torch.Tensor, window: int, rope=None, cells=()):
     """One block over the full sequence -> (x, k, v, recurrent state, aux):
     norm1, the mix (attention, with Mamba for hybrid; or an mLSTM or
     sLSTM), the residual, the FFN. k and v are None for xLSTM blocks, the
@@ -287,18 +295,13 @@ def _block(cfg: ArchConfig, blk: Block, kind: str, x: torch.Tensor,
         mix, sst = ssm.mlstm(cfg, blk.mixer, h, return_state=True)
     else:
         mix, sst = ssm.slstm(cfg, blk.mixer, h, return_state=True)
-    x, aux = _ffn(cfg, blk, x + mix)
+    x, aux = _ffn(cfg, blk, x + mix, cells)
     return x, k, v, sst, aux
 
 
 # ---------------------------------------------------------------------------
 # Training: forward and the head losses
 # ---------------------------------------------------------------------------
-
-def _no_mesh(mesh, batch_axes) -> None:
-    if mesh is not None or batch_axes:
-        raise NotImplementedError(NOT_PORTED["mesh"])
-
 
 def _with_prefix(cfg: ArchConfig, x: torch.Tensor, prefix) -> torch.Tensor:
     """[prefix, x] along the sequence: the modality prefix (B, P, d_model)
@@ -315,7 +318,7 @@ def _with_prefix(cfg: ArchConfig, x: torch.Tensor, prefix) -> torch.Tensor:
 
 def forward(cfg: ArchConfig, params: "LMParams", tokens,
             prefix: Optional[torch.Tensor] = None, *, mesh=None,
-            batch_axes=(), remat: bool = True):
+            batch_axes=(), remat: bool = True, cells=()):
     """Embeds tokens (after the modality prefix, if any), runs the stack,
     returns (final-norm features (B, P + T, d), aux), with autograd. Every
     layer attends over the whole causal prefix, as the JAX package's
@@ -323,9 +326,17 @@ def forward(cfg: ArchConfig, params: "LMParams", tokens,
     kernel has no backward. remat: each block's activations are recomputed
     in the backward (one (B, T, d) input kept per block), as the JAX
     package's `jax.checkpoint` per block with no saving policy. aux is the
-    MoE router loss summed over the layers, 0 for the other families."""
-    check_ported(cfg)
-    _no_mesh(mesh, batch_axes)
+    MoE router loss summed over the layers, 0 for the other families.
+
+    With a mesh: each batch shard (`sharding.row_shards`) runs this
+    forward on its cell's device with a copy of the weights, its MoE
+    layers split over its row of the model axis (`cells`); the features
+    come back to the weights' device in shard order, and aux is the mean
+    of the shards' (the JAX MoE island's pmean)."""
+    check_decoder_only(cfg)
+    if mesh is not None:
+        return _forward_mesh(cfg, params, tokens, prefix, mesh, batch_axes,
+                             remat)
     # F.embedding, not indexing: on the card its backward sums the rows of
     # a repeated token in a fixed order, so two steps give the same bits.
     x = F.embedding(_tokens(tokens, params.embed.device), params.embed)
@@ -336,7 +347,7 @@ def forward(cfg: ArchConfig, params: "LMParams", tokens,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, blk in enumerate(params.blocks):
         fn = partial(_block_out, cfg, blk, block_kind(cfg, i),
-                     positions=positions, window=0, rope=rope)
+                     positions=positions, window=0, rope=rope, cells=cells)
         x, a = checkpoint(fn, x, use_reentrant=False,
                           preserve_rng_state=False) if remat else fn(x)
         if a is not None:
@@ -345,9 +356,30 @@ def forward(cfg: ArchConfig, params: "LMParams", tokens,
     return x, aux
 
 
-def _block_out(cfg, blk, kind, x, *, positions, window, rope):
-    out = _block(cfg, blk, kind, x, positions, window, rope)
+def _block_out(cfg, blk, kind, x, *, positions, window, rope, cells):
+    out = _block(cfg, blk, kind, x, positions, window, rope, cells)
     return out[0], out[4]
+
+
+def _forward_mesh(cfg, params, tokens, prefix, mesh, batch_axes, remat):
+    dev = params.embed.device
+    tokens = _tokens(tokens, dev)
+    shards = sharding.row_shards(mesh, tokens.shape[0], batch_axes)
+    if cfg.family == "moe" and len(shards[0].cells) == 1 and \
+            mesh.shape["model"] > 1:
+        # The JAX island would shard these tokens over `model` and still
+        # add the model cells' partial outputs: other tokens' rows.
+        raise ValueError(f"{cfg.name}: a MoE's batch shards cannot span the "
+                         f"model axis (batch axes {tuple(batch_axes)})")
+    feats, aux = [], None
+    for s, p in zip(shards, sharding.replicas(params, [s.device
+                                                       for s in shards])):
+        pre = None if prefix is None else _on(prefix, dev)[s.rows]
+        f, a = forward(cfg, p, tokens[s.rows], pre, remat=remat,
+                       cells=s.cells)
+        feats.append(f.to(dev))
+        aux = a.to(dev) if aux is None else aux + a.to(dev)
+    return torch.cat(feats), aux / len(shards)
 
 
 # Token-chunk size for the head losses: the (tokens, labels) logit block is
@@ -388,39 +420,130 @@ def _rows(feats, targets, valid):
     return f2, t2, v2
 
 
+def _label_block(z: torch.Tensor, t: torch.Tensor, offset: int):
+    """(z at each row's target where the target lies in this block of
+    labels [offset, offset + z.shape[1]), else 0; where it does)."""
+    local = t - offset
+    inside = (local >= 0) & (local < z.shape[1])
+    z_y = target_logit(z, local.clamp(0, z.shape[1] - 1))
+    return torch.where(inside, z_y, 0.0), inside
+
+
+def _ovr_block(f: torch.Tensor, W: torch.Tensor, t: torch.Tensor,
+               v: torch.Tensor, offset: int = 0) -> torch.Tensor:
+    """The OvR squared hinge of the rows f against the labels W (the
+    block [offset, offset + len(W)) of the vocabulary), summed with the
+    row weights v: every label a negative, the target's term swapped for
+    a positive one where the target lies in the block."""
+    z = f @ W.T                                         # (c, labels)
+    z_y, inside = _label_block(z, t, offset)
+    neg = torch.clamp(1.0 + z, min=0.0)
+    neg_sum = torch.sum(neg * neg, dim=-1)
+    neg_y = torch.clamp(1.0 + z_y, min=0.0)
+    pos_y = torch.clamp(1.0 - z_y, min=0.0)
+    per_tok = (neg_sum - torch.where(inside, neg_y * neg_y, 0.0)
+               + torch.where(inside, pos_y * pos_y, 0.0))
+    return torch.sum(per_tok * v)
+
+
+def _mesh_head_total(cells_fn, Wf, f2, t2, v2, mesh, batch_axes):
+    """The head's sum over the mesh (`sharding.head_cells`): cell (i, j)
+    holds row shard i's features and label shard j's weights (copies whose
+    gradients are summed in a fixed order); `cells_fn(fs, Ws, ts, vs,
+    offsets)` gives one row chunk's total on the row shard's first cell
+    from the per-cell lists. Chunks (`_chunked_rows` of a row shard, each
+    rematerialised in the backward) are added in order, then the row
+    shards on the first cell."""
+    rows, M, devs = sharding.head_cells(mesh, f2.shape[0], batch_axes)
+    edges = [Wf.shape[0] * j // M for j in range(M + 1)]
+    W_cells = [sharding.replicate(Wf[a:b], [d[j] for d in devs])
+               for j, (a, b) in enumerate(zip(edges, edges[1:]))]
+    first = Wf.device
+    total = None
+    for i, rs in enumerate(rows):
+        fs = sharding.replicate(f2[rs], devs[i])
+        ts = [t2[rs].to(d) for d in devs[i]]
+        vs = [v2[rs].to(d) for d in devs[i]]
+        Ws = [W_cells[j][i] for j in range(M)]
+        n = rs.stop - rs.start
+        c = _chunked_rows(n)
+
+        def chunk(*flat):
+            return cells_fn(*(list(flat[k * M:(k + 1) * M])
+                              for k in range(3)), Ws, edges[:-1])
+        part = None
+        for a in range(0, n, c):
+            flat = [x[a:a + c] for x in (*fs, *ts, *vs)]
+            r = chunk(*flat) if c == n else checkpoint(
+                chunk, *flat, use_reentrant=False, preserve_rng_state=False)
+            part = r if part is None else part + r
+        part = part.to(first)
+        total = part if total is None else total + part
+    return total
+
+
+def _ovr_cells(fs, ts, vs, Ws, offsets):
+    part = None
+    for f, t, v, W, off in zip(fs, ts, vs, Ws, offsets):
+        blk = _ovr_block(f, W, t, v, off).to(fs[0].device)
+        part = blk if part is None else part + blk
+    return part
+
+
 def ovr_loss_from_feats(cfg: ArchConfig, W: torch.Tensor,
                         feats: torch.Tensor, targets, valid=None, *,
                         mesh=None, batch_axes=()) -> torch.Tensor:
     """DiSMEC OvR squared-hinge loss over the padded vocabulary, token
     chunk by token chunk: C * sum of per-token losses / valid tokens +
-    ovr_reg * ||W||^2."""
-    _no_mesh(mesh, batch_axes)
+    ovr_reg * ||W||^2.
+
+    With a mesh, the paper's layer-1 parallelism: the rows go over the
+    batch axes minus `model`, the labels over `model`, and cell (i, j)
+    computes its independent (row shard x label shard) block of the hinge
+    sum; the blocks' partial sums are added on the first cell in a fixed
+    order (j within a row shard, then i)."""
     f2, t2, v2 = _rows(feats, targets, valid)
     Wf = W.float()
-
-    def chunk_loss(f_c, t_c, v_c):
-        z = f_c @ Wf.T                                  # (c, Vp)
-        z_y = target_logit(z, t_c)
-        neg = torch.clamp(1.0 + z, min=0.0)
-        neg_sum = torch.sum(neg * neg, dim=-1)          # every label negative
-        neg_y = torch.clamp(1.0 + z_y, min=0.0)
-        pos_y = torch.clamp(1.0 - z_y, min=0.0)
-        per_tok = neg_sum - neg_y * neg_y + pos_y * pos_y
-        return torch.sum(per_tok * v_c)
-
-    total = _chunked_sum(chunk_loss, f2, t2, v2)
+    if mesh is None:
+        total = _chunked_sum(lambda f, t, v: _ovr_block(f, Wf, t, v),
+                             f2, t2, v2)
+    else:
+        total = _mesh_head_total(_ovr_cells, Wf, f2, t2, v2, mesh,
+                                 batch_axes)
     denom = (torch.clamp(torch.sum(v2), min=1.0) if valid is not None
              else f2.shape[0])
     l2 = cfg.ovr_reg * torch.sum(Wf ** 2)
     return cfg.ovr_C * total / denom + l2
 
 
+def _softmax_cells(fs, ts, vs, Ws, offsets):
+    """One row chunk's summed cross-entropy over the label shards: each
+    cell's max, sum of exp and target logit, combined on the first cell
+    (the logsumexp's max and sum across the label shards)."""
+    d0 = fs[0].device
+    ms, ss, zys = [], [], []
+    for f, t, W, off in zip(fs, ts, Ws, offsets):
+        z = f @ W.T
+        m = z.amax(dim=-1).detach()
+        ms.append(m.to(d0))
+        ss.append(torch.exp(z - m[:, None]).sum(dim=-1).to(d0))
+        zys.append(_label_block(z, t, off)[0].to(d0))
+    m = torch.stack(ms).amax(dim=0)
+    s = ss[0] * torch.exp(ms[0] - m)
+    z_y = zys[0]
+    for j in range(1, len(ms)):
+        s = s + ss[j] * torch.exp(ms[j] - m)
+        z_y = z_y + zys[j]
+    return torch.sum((m + torch.log(s) - z_y) * vs[0])
+
+
 def softmax_loss_from_feats(W: torch.Tensor, feats: torch.Tensor, targets,
                             valid=None, *, mesh=None,
                             batch_axes=()) -> torch.Tensor:
     """The baseline softmax cross-entropy head, token-chunked like the OvR
-    head."""
-    _no_mesh(mesh, batch_axes)
+    head. With a mesh, cells as the OvR head's; the logsumexp needs each
+    row's max and sum of exp across the label shards, the collectives the
+    DiSMEC head does without."""
     f2, t2, v2 = _rows(feats, targets, valid)
     Wf = W.float()
 
@@ -429,7 +552,11 @@ def softmax_loss_from_feats(W: torch.Tensor, feats: torch.Tensor, targets,
         nll = torch.logsumexp(z, dim=-1) - target_logit(z, t_c)
         return torch.sum(nll * v_c)
 
-    total = _chunked_sum(chunk_nll, f2, t2, v2)
+    if mesh is None:
+        total = _chunked_sum(chunk_nll, f2, t2, v2)
+    else:
+        total = _mesh_head_total(_softmax_cells, Wf, f2, t2, v2, mesh,
+                                 batch_axes)
     denom = (torch.clamp(torch.sum(v2), min=1.0) if valid is not None
              else f2.shape[0])
     return total / denom
@@ -448,10 +575,12 @@ def train_loss(cfg: ArchConfig, params: "LMParams", batch: dict, *,
     W = head_weight(cfg, params)
     if cfg.head_type == "dismec":
         loss = ovr_loss_from_feats(cfg, W, feats, batch["targets"],
-                                   batch.get("valid"))
+                                   batch.get("valid"), mesh=mesh,
+                                   batch_axes=batch_axes)
     else:
         loss = softmax_loss_from_feats(W, feats, batch["targets"],
-                                       batch.get("valid"))
+                                       batch.get("valid"), mesh=mesh,
+                                       batch_axes=batch_axes)
     total = loss + cfg.router_aux_coef * aux
     return total, {"loss": loss, "aux": aux}
 
@@ -480,7 +609,7 @@ def init_cache(cfg: ArchConfig, B: int, seq_len: int, *, use_swa: bool,
     """Serving cache: "k", "v" (n_layers, B, T, KV, hd) and, for hybrid
     stacks, "ssm" (a MambaState stacked over layers); for xLSTM, "states":
     one float32 MLSTMState or SLSTMState per layer."""
-    check_ported(cfg)
+    check_decoder_only(cfg)
     L = cfg.n_layers
     if cfg.family == "ssm":
         return {"states": [_state_init(cfg, block_kind(cfg, i), B, device)
@@ -571,7 +700,7 @@ def decode_step(cfg: ArchConfig, params: LMParams, cache: dict, tokens,
     """ONE new token (B, 1) against the cache at position `pos` ->
     (top-k values, top-k ids int32, cache), the cache updated in place
     (xLSTM's per-layer states replaced in its list)."""
-    check_ported(cfg)
+    check_decoder_only(cfg)
     x = params.embed[_tokens(tokens, params.embed.device)]      # (B, 1, d)
     B = x.shape[0]
     pos = int(pos)
@@ -615,7 +744,7 @@ def prefill(cfg: ArchConfig, params: LMParams, tokens,
     takes the first P positions of the cache. Cache length == sequence
     length (bf16, as the JAX package stores it); xLSTM's cache holds each
     layer's state after the sequence."""
-    check_ported(cfg)
+    check_decoder_only(cfg)
     x = params.embed[_tokens(tokens, params.embed.device)]
     x = _with_prefix(cfg, x, prefix)
     B, T, _ = x.shape

@@ -35,10 +35,16 @@ def decays(params: Params) -> dict[str, bool]:
     block parameters over the layers, so a block's norm scales, biases and
     Mamba vectors (1-D here, (L, n) there) are decayed, and only the
     top-level 1-D leaves (`final_norm`) are not; xLSTM's blocks are a list
-    there, not stacked, so their 1-D leaves are not decayed either."""
-    from repro_torch.models.transformer import LMParams, uses_layer_scan
-    stacked = isinstance(params, LMParams) and uses_layer_scan(params.cfg)
-    return {n: p.ndim + (stacked and n.startswith("blocks.")) >= 2
+    there, not stacked, so their 1-D leaves are not decayed either. The
+    encoder-decoder stacks `enc_blocks` and `dec_blocks` each; `enc_norm`
+    and `final_norm` are not decayed."""
+    from repro_torch.convert import layer_stacks
+    from repro_torch.models.model import PARAM_TYPES
+    from repro_torch.models.transformer import uses_layer_scan
+    stacks = tuple(f"{k}." for k in layer_stacks(params.cfg)) \
+        if isinstance(params, PARAM_TYPES) and \
+        uses_layer_scan(params.cfg) else ()
+    return {n: p.ndim + n.startswith(stacks) >= 2
             for n, p in named(params).items()}
 
 

@@ -9,6 +9,13 @@ another (one micro-batch of activations alive at a time) and divided by
 and returns them, with the metrics as 0-d tensors on the model's device
 (the rate on the CPU). Batches are numpy arrays or tensors; the model's
 `train_loss` copies them to its device.
+
+Over a mesh (`mesh=`, `batch_axes=`: the port's grid of devices), the
+parameters live on the first cell. Each step's `train_loss` copies them
+out to the cells (`sharding.replicate`: a view where a cell is the first
+cell's device) and gathers each gradient back to the first cell, summing
+the cells' parts in a fixed order; AdamW runs once there. Two runs give
+the same bits.
 """
 
 from __future__ import annotations
@@ -35,29 +42,31 @@ def init_train_state(params) -> TrainState:
                       step=torch.zeros((), dtype=torch.int32))
 
 
-def _grads(model, params, batch, names):
+def _grads(model, params, batch, names, mesh=None, batch_axes=()):
     """(loss, metrics, gradients by name) of one (micro-)batch."""
     leaves = [named(params)[n] for n in names]
     for p in leaves:
         p.requires_grad_(True)
-    loss, metrics = model.train_loss(params, batch)
+    loss, metrics = model.train_loss(params, batch, mesh=mesh,
+                                     batch_axes=batch_axes)
     grads = torch.autograd.grad(loss, leaves)
     return loss.detach(), metrics, dict(zip(names, grads))
 
 
-def loss_and_grads(model, params, batch, accum: int = 1):
+def loss_and_grads(model, params, batch, accum: int = 1, *, mesh=None,
+                   batch_axes=()):
     """(loss, metrics, gradients by parameter name) of one step's batch.
     With accum > 1: the mean loss over the micro-batches `batch[k][i]`,
     their gradients summed in float32 and divided by accum, no metrics."""
     names = list(named(params))
     if accum == 1:
-        return _grads(model, params, batch, names)
+        return _grads(model, params, batch, names, mesh, batch_axes)
     g_acc = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
              for n, p in named(params).items()}
     loss = torch.zeros((), dtype=torch.float32, device=model.device)
     for i in range(accum):
         mb = {k: v[i] for k, v in batch.items()}
-        l, _, g = _grads(model, params, mb, names)
+        l, _, g = _grads(model, params, mb, names, mesh, batch_axes)
         for n in names:
             g_acc[n] += g[n].float()
         loss = loss + l
@@ -72,12 +81,13 @@ def make_train_step(model, *, lr_fn: Callable, mesh=None, batch_axes=(),
                     clip_norm: float = 1.0):
     """Returns train_step(params, opt, step, batch) -> (params, opt,
     metrics): {"loss", "lr", "grad_norm"} and, with accum == 1, the
-    model's other metrics ("aux")."""
-    from repro_torch.models.transformer import _no_mesh
-    _no_mesh(mesh, batch_axes)
+    model's other metrics ("aux"). With a mesh, `params` live on
+    `mesh.first`."""
 
     def train_step(params, opt, step, batch):
-        loss, metrics, grads = loss_and_grads(model, params, batch, accum)
+        loss, metrics, grads = loss_and_grads(model, params, batch, accum,
+                                              mesh=mesh,
+                                              batch_axes=batch_axes)
         lr = lr_fn(step)
         params, opt, om = adamw_update(params, grads, opt, lr,
                                        weight_decay=weight_decay,

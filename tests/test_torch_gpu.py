@@ -1654,3 +1654,84 @@ def test_new_families_on_the_card_match_the_cpu(cuda, arch):
     if cfg.swa_always:
         assert launches["banded_attention_cuda"] == cfg.n_layers
     np.testing.assert_allclose(cl, hl, rtol=1e-4)
+
+
+# --- the encoder-decoder and LM training over a mesh ------------------------
+
+def test_encdec_on_the_card_matches_the_cpu(cuda):
+    """seamless-m4t-medium's smoke config (fp32) on the card against the
+    same weights on the CPU: prefill's top-5 (random frames), the four
+    caches, 4 decode steps, kernel 9 once a prefill and once a step; then
+    `make_train_step` with accum = 2, the loss within 1e-4 relative."""
+    cfg, host, card, p0, batches = _lm_train_setup("seamless-m4t-medium",
+                                                   32, steps=1)
+    rng = np.random.default_rng(3)
+    frames = (0.05 * rng.normal(size=(2, cfg.n_prefix, cfg.d_model))
+              ).astype(np.float32)
+    b = {"tokens": rng.integers(2, cfg.vocab, size=(2, 40)),
+         "prefix": frames}
+    batches[0]["prefix"] = (0.05 * rng.normal(
+        size=(2, 2, cfg.n_prefix, cfg.d_model))).astype(np.float32)
+    out = {}
+    for dev, m, p in (("cpu", host, p0), ("cuda", card,
+                                          copy.deepcopy(p0).to(cuda))):
+        before = _kernel_launches()
+        v, i, cache = m.prefill(p, b)
+        cache = {k: torch.nn.functional.pad(t, (0, 0, 0, 0, 0, 4))
+                 if k in ("k", "v") else t for k, t in cache.items()}
+        steps = []
+        for s in range(4):
+            dv, di, cache = m.decode_step(p, cache, b["tokens"][:, s:s + 1],
+                                          40 + s)
+            steps.append(dv.cpu())
+        after = _kernel_launches()
+        _, lo = _run_steps(m, p, batches)
+        out[dev] = (v.cpu(), i.cpu(), {k: t.float().cpu()
+                                       for k, t in cache.items()}, steps,
+                    {k: after[k] - before[k] for k in after}, lo)
+    (hv, hi, hc, hs, _, hl), (cv, ci, cc, cs, launches, cl) = \
+        out["cpu"], out["cuda"]
+    assert torch.equal(ci, hi)
+    torch.testing.assert_close(cv, hv, rtol=1e-3, atol=1e-3)
+    for k in hc:
+        torch.testing.assert_close(cc[k], hc[k], rtol=2.0 ** -6, atol=1e-3)
+    for a, w in zip(cs, hs):
+        torch.testing.assert_close(a, w, rtol=1e-2, atol=1e-2)
+    assert launches["blocked_topk_cuda"] == 5
+    assert sum(launches.values()) == 5
+    np.testing.assert_allclose(cl, hl, rtol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "seamless-m4t-medium"])
+def test_lm_mesh_step_on_the_card(cuda, arch):
+    """`make_train_step` over a (2, 2) grid of cuda:0 cells, batch axes
+    ("data",): the loss within 1e-4 relative of the same step over a grid
+    of the CPU, the MoE's drops per shard equal, two card runs bit for
+    bit."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe
+    from repro_torch.optim import linear_warmup_cosine
+    from repro_torch.train.trainer import init_train_state, make_train_step
+    cfg, host, card, p0, batches = _lm_train_setup(arch, 32, steps=1)
+    b = batches[0]
+    if cfg.n_prefix:
+        b["prefix"] = (0.05 * np.random.default_rng(4).normal(
+            size=(2, 2, cfg.n_prefix, cfg.d_model))).astype(np.float32)
+
+    def run(dev, m, p):
+        mesh = make_host_mesh(2, 2, devices=[dev] * 4)
+        with torch.no_grad(), moe.count_dropped() as d:
+            m.train_loss(p, {k: v[0] for k, v in b.items()}, mesh=mesh,
+                         batch_axes=("data",))
+        step = make_train_step(m, lr_fn=linear_warmup_cosine(3e-4, 2, 8),
+                               mesh=mesh, batch_axes=("data",), accum=2)
+        st = init_train_state(p)
+        p, _, met = step(p, st.opt, st.step, b)
+        return (float(met["loss"]), [int(x) for _, x in d],
+                [t.detach().cpu() for t in p.parameters()])
+    hl, hd, _ = run("cpu", host, p0)
+    (cl, cd, cp), (cl2, _, cp2) = (
+        run("cuda:0", card, copy.deepcopy(p0).to(cuda)) for _ in range(2))
+    np.testing.assert_allclose(cl, hl, rtol=1e-4)
+    assert cd == hd
+    assert cl == cl2 and all(torch.equal(x, y) for x, y in zip(cp, cp2))

@@ -289,29 +289,47 @@ def test_serve_batch_matches_jax(lm):
         np.testing.assert_array_equal(a, np.asarray(b))
 
 
-@pytest.mark.parametrize("arch,item", [("seamless-m4t-medium", "8e")])
+@pytest.mark.parametrize("arch,item", [("seamless-m4t-medium", "8f")])
 def test_unported_families_raise(arch, item):
+    """Every family serves on one device (the encoder-decoder too, held to
+    the JAX package in test_torch_encdec.py); serving over a mesh names
+    the ROADMAP item that ports it."""
+    from repro_torch.launch.mesh import make_host_mesh
     cfg = get_config(arch, smoke=True)
+    m = build_model(cfg, device="cpu")
+    p = m.init(torch.Generator().manual_seed(0))
+    batch = {"tokens": np.ones((1, 4), np.int32),
+             "prefix": np.zeros((1, cfg.n_prefix, cfg.d_model), np.float32)}
+    _, _, cache = m.prefill(p, batch)
+    assert cache["mem_k"].shape[2] == cfg.n_prefix
+    mesh = make_host_mesh(1, 2, devices=["cpu"] * 2)
     with pytest.raises(NotImplementedError, match=f"Queue A item {item}"):
-        build_model(cfg, device="cpu")
+        m.prefill(p, batch, mesh=mesh, batch_axes=("data",))
     with pytest.raises(NotImplementedError, match=f"Queue A item {item}"):
-        transformer.init_cache(cfg, 1, 8, use_swa=False)
+        m.decode_step(p, cache, np.ones((1, 1), np.int32), 4, mesh=mesh)
 
 
 def test_train_loss_names_its_item():
-    """`train_loss` runs for a ported family (its values are held to the
-    JAX package's in test_torch_lm_train.py); the encoder-decoder names
-    the item that ports it."""
-    m = build_model(get_config("qwen1.5-0.5b", smoke=True), device="cpu")
-    p = m.init(torch.Generator().manual_seed(0))
-    toks = np.random.default_rng(0).integers(0, m.cfg.vocab, size=(2, 9))
-    loss, metrics = m.train_loss(p, {"tokens": toks[:, :-1],
-                                     "targets": toks[:, 1:]})
-    assert loss.shape == () and bool(torch.isfinite(loss))
-    assert set(metrics) == {"loss", "aux"}
-    with pytest.raises(NotImplementedError, match="Queue A item 8e"):
-        build_model(get_config("seamless-m4t-medium", smoke=True),
-                    device="cpu")
+    """`train_loss` runs for every family, the encoder-decoder included,
+    on one device and over a mesh (their values are held to the JAX
+    package's in test_torch_lm_train.py, test_torch_encdec.py and
+    test_torch_lm_mesh.py)."""
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh(2, 2, devices=["cpu"] * 4)
+    for arch in ("qwen1.5-0.5b", "seamless-m4t-medium"):
+        m = build_model(get_config(arch, smoke=True), device="cpu")
+        p = m.init(torch.Generator().manual_seed(0))
+        toks = np.random.default_rng(0).integers(0, m.cfg.vocab,
+                                                 size=(2, 9))
+        batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+        if m.cfg.n_prefix:
+            batch["prefix"] = np.full((2, m.cfg.n_prefix, m.cfg.d_model),
+                                      0.01, np.float32)
+        loss, metrics = m.train_loss(p, batch)
+        assert loss.shape == () and bool(torch.isfinite(loss))
+        assert set(metrics) == {"loss", "aux"}
+        on_mesh, _ = m.train_loss(p, batch, mesh=mesh, batch_axes=("data",))
+        np.testing.assert_allclose(float(on_mesh), float(loss), rtol=1e-5)
 
 
 def test_serve_cli_lm_mode_on_the_cpu():

@@ -263,15 +263,19 @@ def test_remat_changes_no_bit():
 
 
 def test_training_refuses_a_mesh_and_a_prefix():
-    """A mesh names the item that ports it; a prefix that is not
-    (B, P, d_model) is refused (test_torch_lm_prefix.py holds a right one
-    to the JAX package)."""
+    """A mesh trains (test_torch_lm_mesh.py holds it to the JAX package's
+    mesh path): a (1, 1) mesh gives the one-device loss, and batch axes
+    without a mesh are ignored, as in the JAX package. A prefix that is
+    not (B, P, d_model) is refused (test_torch_lm_prefix.py holds a right
+    one to the JAX package)."""
+    from repro_torch.launch.mesh import make_host_mesh
     _, _, m, p = _lm_pair("qwen1.5-0.5b", "dismec")
     batch = _lm_batch(m.cfg, 1, 8, seed=0)
-    with pytest.raises(NotImplementedError, match="Queue A item 8e"):
-        m.train_loss(p, batch, mesh=object())
-    with pytest.raises(NotImplementedError, match="Queue A item 8e"):
-        m.train_loss(p, batch, batch_axes=("data",))
+    want = float(m.train_loss(p, batch)[0])
+    mesh = make_host_mesh(1, 1, devices=["cpu"])
+    assert float(m.train_loss(p, batch, mesh=mesh,
+                              batch_axes=("data",))[0]) == want
+    assert float(m.train_loss(p, batch, batch_axes=("data",))[0]) == want
     with pytest.raises(ValueError, match="d_model"):
         m.train_loss(p, {**batch, "prefix": np.zeros((1, 2, 100))})
 

@@ -277,10 +277,13 @@ def test_train_cli_on_the_cpu(tmp_path):
     ("--arch", "xlstm-125m", "--smoke", "--mesh", "2x1"),
     ("--arch", "seamless-m4t-medium"),
     ("--arch", "internvl2-26b", "--smoke", "--mesh", "1x1")])
-def test_train_cli_names_item_8c(monkeypatch, args):
+def test_train_cli_names_item_8c(monkeypatch, capsys, args):
     """`--mesh` in LM mode, whatever the family, and the encoder-decoder
-    configs exit naming the ROADMAP item that ports them: Queue A item
-    8e, since item 8c ported the moe, ssm and prefix families."""
-    monkeypatch.setattr(sys, "argv", ["train", *args, "--device", "cpu"])
-    with pytest.raises(SystemExit, match="Queue A item 8e"):
-        launcher.main()
+    configs train (ROADMAP Queue A item 8e ported both): each case at its
+    smoke size, 2 steps on the CPU, the history and the summary line."""
+    extra = ["--steps", "2", "--seq-len", "16", "--batch", "2", "--device",
+             "cpu"] + ([] if "--smoke" in args else ["--smoke"])
+    monkeypatch.setattr(sys, "argv", ["train", *args, *extra])
+    launcher.main()
+    out = capsys.readouterr().out
+    assert out.count('{"loss"') == 2 and "# trained 2 steps" in out

@@ -174,7 +174,8 @@ def test_moe_ffn_matches_jax(monkeypatch, arch, n):
     """`moe_ffn` (router, dispatch, the shared expert and its sigmoid
     gate for qwen2, the aux loss) on layer 0's weights, n = 96 tokens
     (capacity 60) and n = 2 (one decode step of B = 2); the dropped
-    count equal to the reference's bookkeeping on JAX's router."""
+    count equal to the reference's bookkeeping on JAX's router; and the
+    same over a (1, 2) mesh, the experts split over the model axis."""
     jm, jp, m, p = _pair(arch)
     cfg = m.cfg
     x = np.random.default_rng(n).normal(size=(1, n, cfg.d_model)) \
@@ -193,9 +194,20 @@ def test_moe_ffn_matches_jax(monkeypatch, arch, n):
     np.testing.assert_allclose(out.numpy(), np.asarray(want), rtol=1e-5,
                                atol=1e-5)
     np.testing.assert_allclose(float(aux), float(jaux), rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="Queue A item 8e"):
-        moe.moe_ffn(m.cfg, p.blocks[0].moe, torch.from_numpy(x),
-                    mesh=object())
+    # Over a (1, 2) mesh of the CPU: B = 1, so the tokens stay whole (the
+    # JAX island replicates them) and the experts' d_ff is split over the
+    # two model cells: the same values and drops.
+    from repro_torch.launch.mesh import make_host_mesh
+    with moe.count_dropped() as mdrops:
+        mout, maux = moe.moe_ffn(cfg, p.blocks[0].moe, torch.from_numpy(x),
+                                 mesh=make_host_mesh(1, 2,
+                                                     devices=["cpu"] * 2),
+                                 batch_axes=("data",))
+    assert [(int(a), int(d)) for a, d in mdrops] == \
+        [(int(a), int(d)) for a, d in drops]
+    np.testing.assert_allclose(mout.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(float(maux), float(jaux), rtol=1e-6)
 
 
 def test_capacity_matches_jax():
