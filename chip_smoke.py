@@ -11,8 +11,9 @@ Serving uses 128 x 128 blocks at 5% block density, weights drawn from the
 seed:
 
   1. build   — all five CUDA sources with nvcc for sm_90a, one nvcc each,
-               all at once (register and shared-memory lines of
-               `-Xptxas -v` printed);
+               all at once, beside the making of phase 4's model
+               (register and shared-memory lines of `-Xptxas -v` printed
+               once phase 3 needs the kernels);
   2. setup   — the card's name and power limit; TF32 off for matmul and
                cuDNN, so every plain version runs in full fp32;
   3. kernels — each kernel against its plain PyTorch version at the
@@ -28,7 +29,10 @@ seed:
                (`gather_kernel` and `bsr_kernel`) timed apart at n = 1, 8,
                16, 32, 64, the same bits;
   4. serve   — the model packed label batch by label batch, saved with
-               `save_block_sparse`, then `CheckpointHandle.open(dir)
+               `save_block_sparse` on a thread while phase 3 runs (the
+               compressed write takes ~70 s of one core; before phase 19
+               it ran alone; phase 5's data is made beside the rest of
+               it), then `CheckpointHandle.open(dir)
                .engine()` on the default `bsr` backend serving ragged
                requests; both kernels' launch counts must be > 0 in that
                run, and the served ids must equal the plain path's ids on
@@ -68,7 +72,8 @@ Then training, on the port's synthetic power-law data at Wiki10-31K width
 
   5. train data    — `make_xmc_dataset` (the JAX package's generator,
                      copied) from the seed: 2,048 labels, beta = 0.9, 512
-                     held-out rows; X_train is 5.77 GB of dense fp32;
+                     held-out rows; X_train is 5.77 GB of dense fp32
+                     (made beside phase 4's save);
   6. train kernels — the hinge kernel (at W = 0 and at a random W) and the
                      HVP kernel (at a random V, with the hinge kernel's
                      mask) against their plain versions at (1,024, 14,146,
@@ -227,7 +232,13 @@ kernels (their counts set to 0 before the phase and read after):
                    repro_torch.launch.train --arch hymba-1.5b --smoke
                    --steps 10 --seq-len 128 --batch 8 --out DIR` exits 0
                    with its loss falling, and `restore_pytree(DIR)` equals
-                   the same training in this process bit for bit.
+                   the same training in this process bit for bit. This
+                   CLI and phase 18 (e)'s two start together at the start
+                   of the phase and run beside (a) and (b)'s untimed fp32
+                   pass (one after another, each in its phase, before
+                   phase 19); (b) waits for them to exit before its
+                   profile and steps. Their walls are to their exit, as
+                   the processes ran, sharing the host and the card.
 
 Then the moe, ssm and prefix families (ROADMAP A-8c), weights drawn
 from the seed:
@@ -248,7 +259,7 @@ from the seed:
                    a layer) and on its plain version, then kernel 10 alone
                    at (1, 8,192, 48, 8, 128, 4,096), timed as phase 13;
                    (d) xlstm-125m: prefill (2, 4,096), prefill against
-                   256 decode steps, 3 training steps at (2, 2,048);
+                   256 decode steps, 3 training steps at (2, 1,024);
                    (e) internvl2-26b at full width: prefill of a 256-patch
                    prefix and 1,792 tokens, bit for bit the prefill of the
                    2,048 tokens whose embeddings the prefix holds; two
@@ -275,13 +286,39 @@ Then the encoder-decoder and LM training over a mesh (ROADMAP A-8e):
                    for qwen1.5 with `--mesh 2x2 --device cuda:0`, each
                    checkpoint equal bit for bit to the same training here.
 
+Then LM serving over a mesh (ROADMAP A-8f), every cell cuda:0:
+
+ 19. mesh serve  — (a) the smoke configs of qwen1.5, hymba, qwen2-moe,
+                   xlstm and internvl2 (fp32) served on a (2, 2) grid of
+                   cuda:0 against the port's (2, 2) grid of the CPU:
+                   `prefill(mesh=)`, 8 `decode_step(mesh=)`s from its
+                   cache and the MoE's drops by shard and layer, to phase
+                   17a's bounds, twice on the card bit for bit; (b)
+                   hymba-1.5b whole with phase 13's weights (bf16):
+                   prefill (2, 4,096) with `use_swa` on the (2, 2) grid,
+                   kernel 10 once in each windowed layer of each row
+                   shard (2 x 29) and kernel 9 once a label shard and
+                   once for the merge; each row shard's caches bit for
+                   bit its row prefilled alone on one device, the top-5
+                   ids against that on decisive rows; then 64 decode steps
+                   from the mesh cache, each shard's caches again bit for
+                   bit its row decoded alone, ms a step beside one
+                   device's on the whole batch; (c) qwen2-moe-a2.7b whole, in
+                   phase 17b while its weights are there: prefill (2,
+                   4,096) on a (2, 1) grid, each row shard's drops per
+                   layer equal to its row prefilled alone, the top-5
+                   against each row's own prefill, and `generate(mesh=)`
+                   of 8 tokens beside one device's. mixtral-8x22b at full
+                   depth over several cards is unverified (one card).
+
 The lines before the last are the kernels' JSON summary (all ten
 kernels; `launches_mesh` for kernels 1, 2 and 9 counts phases 10b and
 10c, `launches_baselines` for kernel 9 phase 12b's predictions), the
 training, server, sweep, mesh, LM (phase 16 under "train"), baselines,
 LM families (phase 17; kernels 9 and 10 also count its launches
 under `launches_families`) and encoder-decoder and mesh (phase 18;
-kernel 9's `launches_encdec_mesh`) JSON summaries and the
+kernel 9's `launches_encdec_mesh`) and LM serving over a mesh (phase 19;
+kernels 9 and 10's `launches_mesh_serve`) JSON summaries and the
 card's name and power limit from nvidia-smi; the last line is `{"ok":
 true, "device": {...}}`.
 Any failure exits non-zero before it. Without a CUDA card, or outside a
@@ -296,6 +333,7 @@ fails: it exits non-zero if a fault passes every check.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import dataclasses
 import json
@@ -519,8 +557,8 @@ LM_TRAIN_TOL = dict(loss=1e-4, grad=1e-5, adam=1e-6, bf16_loss=1e-2,
 # on kernel 10 and on its plain version, held as phase 14, then kernel 10
 # alone at mixtral's heads. (d) xlstm-125m whole: prefill at (2, 4,096),
 # prefill against 256 decode steps (1,024 before phase 18, cut for it; a
-# multiple of the mLSTM's 256-row chunk), 3 training steps (4 before phase
-# 18). (e) internvl2-26b
+# multiple of the mLSTM's 256-row chunk), 3 training steps at T = 1,024
+# (4 before phase 18, at 2,048 before phase 19). (e) internvl2-26b
 # at full width: prefill of a 256-patch prefix and 1,792 tokens, equal bit
 # for bit to the prefill of the 2,048 tokens whose embeddings the prefix
 # holds; two training steps with a prefix at 4 layers.
@@ -537,7 +575,7 @@ FAM_MIXTRAL, FAM_MIXTRAL_LAYERS = "mixtral-8x22b", 2
 FAM_MIXTRAL_PREFILL = (1, 8192)                 # two windows of 4,096
 FAM_XLSTM = "xlstm-125m"
 FAM_XLSTM_PREFILL, FAM_XLSTM_DECODE = (2, 4096), (2, 256)  # 1,024 before 18
-FAM_XLSTM_TRAIN = dict(accum=2, micro=1, T=2048, steps=3, falling=True)
+FAM_XLSTM_TRAIN = dict(accum=2, micro=1, T=1024, steps=3, falling=True)
 FAM_VLM, FAM_VLM_TOKENS = "internvl2-26b", 1792
 FAM_VLM_TRAIN = dict(layers=4, accum=2, micro=1, T=768, steps=2)
 
@@ -584,6 +622,33 @@ ED_MESH_TOL = dict(loss=1e-5, grad=1e-5)
 ED_MOE_MESH = dict(arch="qwen2-moe-a2.7b", layers=2, mesh=(2, 1), B=2,
                    T=4096)
 ED_CLI = dict(steps=10, seq_len=64, batch=4)
+# Phase 19: LM serving over a mesh (ROADMAP A-8f), every cell cuda:0, batch
+# axes ("data",) as the JAX LM launcher's. (a) The smoke configs (fp32) at
+# MS_SMOKE on the MS_GRID grid of cuda:0 against the port's grid of the
+# CPU: `prefill(mesh=)`, MS_SMOKE["decode"] `decode_step(mesh=)`s from its
+# MeshCache (the cache exactly T long, so decode wraps to slot 0 as on one
+# device), the MoE's drops by shard and layer; to FAM_SMOKE_TOL's values,
+# decode and cache bounds and ids on decisive rows; twice on the card bit
+# for bit. (b) hymba-1.5b whole with phase 13's weights (bf16): prefill
+# MS_HYMBA with use_swa on the MS_GRID grid, kernel 10 once in each
+# windowed layer of each row shard and kernel 9 once a label shard and
+# once for the merge; each row shard's caches bit for bit its row
+# prefilled alone on one device, the top-5 ids against that on decisive
+# rows; then MS_DECODE decode steps from the mesh cache (each shard's k/v
+# padded by MS_DECODE slots) against its row decoded alone on one device
+# from its own cache: the caches bit for bit, ids on decisive rows; ms a
+# step beside one device's on the whole batch. (c) In phase
+# 17b, with qwen2-moe-a2.7b's 24 layers: prefill MS_MOE on its grid, each
+# row shard's dropped count in each layer equal to its row prefilled
+# alone, the top-5 ids against each row's own prefill on decisive rows,
+# then `generate(mesh=)` of MS_MOE["generate"] tokens from a prompt of
+# MS_MOE["prompt"] beside one device's.
+MS_GRID, MS_AXES = (2, 2), ("data",)
+MS_SMOKE_ARCHS = ("qwen1.5-0.5b", "hymba-1.5b", "qwen2-moe-a2.7b",
+                  "xlstm-125m", "internvl2-26b")
+MS_SMOKE = dict(B=4, T=64, decode=8)
+MS_HYMBA, MS_DECODE = (2, 4096), 64
+MS_MOE = dict(mesh=(2, 1), B=2, T=4096, prompt=8, generate=8)
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
@@ -605,6 +670,16 @@ def phase(name: str):
     yield
     print(f"== {name}: done in {time.perf_counter() - t0:.1f} s",
           flush=True)
+
+
+def in_background(fn, name: str) -> concurrent.futures.Future:
+    """fn() on a thread of its own; the future's `result()` waits for it
+    and raises what it raised."""
+    pool = concurrent.futures.ThreadPoolExecutor(1, thread_name_prefix=name)
+    try:
+        return pool.submit(fn)
+    finally:
+        pool.shutdown(wait=False)
 
 
 def bound(n_bytes: float, n_ops: float,
@@ -3571,25 +3646,29 @@ def flops_per_step(cfg, n_params: int, *, sequences: int, T: int) -> float:
             cfg.n_heads * cfg.head_dim * pairs * sequences)
 
 
-def lm_train_full(seed: int) -> dict:
-    """Phase 16 (b): hymba-1.5b at full width in bf16 (LM_TRAIN_FULL)."""
+def lm_train_full(seed: int, settle=None) -> dict:
+    """Phase 16 (b): hymba-1.5b at full width in bf16 (LM_TRAIN_FULL);
+    `settle`: as `bf16_training`'s."""
     from repro_torch.configs import get_config
     cfg = get_config(LM_ARCH)
     L = cfg.n_layers
     return bf16_training(cfg, seed, LM_TRAIN_FULL, groups={
         "embed": "embed", "head": "head",
         **{f"block {b}": f"blocks.{b}" for b in (0, L // 2 - 1, L - 1)}},
-        last=f"block {L - 1}", profile=True)
+        last=f"block {L - 1}", profile=True, settle=settle)
 
 
 def bf16_training(cfg, seed: int, sh: dict, *, groups: dict, last: str,
-                  profile: bool = False) -> dict:
+                  profile: bool = False, settle=None) -> dict:
     """cfg at full width in bf16, `sh`'s (accum, micro, T) and steps of
     TokenPipeline batches (with `train_prefix` for a config that has a
     prefix): the first batch's gradients against an fp32
     copy's (the loss, and the cosine of the `groups` of parameters, the
     head's and `last`'s held), then the steps; `profile`: that bf16
-    fwd+bwd under `torch.profiler`, and the share of the bf16 peak."""
+    fwd+bwd under `torch.profiler`, and the share of the bf16 peak.
+    `settle()`, where given, returns once other work on the host and the
+    card has ended: it is called after the fp32 pass, before anything
+    that is timed."""
     import copy
 
     from repro_torch.models.model import build_model as build_lm
@@ -3609,6 +3688,8 @@ def bf16_training(cfg, seed: int, sh: dict, *, groups: dict, last: str,
     p32 = copy.deepcopy(params).float()
     l32, _, g32 = loss_and_grads(model, p32, batches[0], sh["accum"])
     del p32
+    if settle is not None:
+        settle()
 
     def first():
         return loss_and_grads(model, params, batches[0], sh["accum"])
@@ -3717,87 +3798,142 @@ def jax_layout_keys(params) -> dict:
                                                           device="meta")))
 
 
-def lm_train_cli(build_dir: Path, arch: str = LM_ARCH,
-                 mesh: tuple | None = None, c: dict = LM_TRAIN_CLI) -> dict:
-    """Phase 16 (c) (18e): the training CLI on the card at LM_TRAIN_CLI's
-    size (`--mesh DxM --device cuda:0`: the grid on the one card), its
-    loss falling; then the same training in this process (the CLI's seed 0
-    and defaults, its prefix batches, its mesh and batch axes):
-    `restore_pytree` of its checkpoint gives those weights bit for bit,
-    and its index has every key of the JAX layout. `c`: the CLI's steps,
-    seq_len and batch."""
+def start_train_cli(build_dir: Path, arch: str = LM_ARCH,
+                    mesh: tuple | None = None,
+                    c: dict = LM_TRAIN_CLI) -> dict:
+    """Starts the training CLI of phase 16 (c) (18e) on the card in a
+    process of its own, at `c`'s steps, seq_len and batch (`--mesh DxM
+    --device cuda:0`: the grid on the one card), writing into a new
+    directory under `build_dir`; `lm_train_cli` waits for it and checks
+    it."""
+    out = tempfile.mkdtemp(dir=build_dir)
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           arch, "--smoke", "--steps", str(c["steps"]), "--seq-len",
+           str(c["seq_len"]), "--batch", str(c["batch"])]
+    if mesh:
+        cmd += ["--mesh", f"{mesh[0]}x{mesh[1]}", "--device", "cuda:0"]
+    cmd += ["--out", out]
+    h = dict(arch=arch, mesh=mesh, c=c, cmd=cmd, out=out)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=dict(os.environ,
+                                                    PYTHONPATH=str(SRC)),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+    def wait():
+        try:
+            h["stdout"], h["stderr"] = proc.communicate(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            h["rc"] = proc.returncode
+            h["wall"] = time.perf_counter() - t0
+    h["thread"] = threading.Thread(target=wait, name=f"cli {arch}")
+    h["thread"].start()
+    return h
+
+
+def lm_train_cli(h: dict) -> dict:
+    """Phase 16 (c) (18e): the training CLI started by `start_train_cli`
+    exits 0 with its loss falling; then the same training in this process
+    (the CLI's seed 0 and defaults, its prefix batches, its mesh and batch
+    axes): `restore_pytree` of its checkpoint gives those weights bit for
+    bit, and its index has every key of the JAX layout."""
+    import shutil
+    h["thread"].join()
+    try:
+        return _check_train_cli(h)
+    finally:
+        shutil.rmtree(h["out"], ignore_errors=True)
+
+
+def _check_train_cli(h: dict) -> dict:
     from repro_torch.checkpoint.io import restore_pytree
     from repro_torch.configs import get_config
     from repro_torch.data.lm import make_lm_batch_iterator
     from repro_torch.models.model import build_model as build_lm
     from repro_torch.train.trainer import train_loop
-    with tempfile.TemporaryDirectory(dir=build_dir) as out:
-        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-               arch, "--smoke", "--steps", str(c["steps"]), "--seq-len",
-               str(c["seq_len"]), "--batch", str(c["batch"])]
-        if mesh:
-            cmd += ["--mesh", f"{mesh[0]}x{mesh[1]}", "--device", "cuda:0"]
-        cmd += ["--out", out]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, cwd=ROOT, env=dict(os.environ,
-                                                      PYTHONPATH=str(SRC)),
-                              capture_output=True, text=True, timeout=600)
-        wall = time.perf_counter() - t0
-        _need(proc.returncode == 0, f"the training CLI exited "
-              f"{proc.returncode}:\n{proc.stdout}\n{proc.stderr}")
-        summary = next(line for line in proc.stdout.splitlines()
-                       if line.startswith("# trained"))
-        first, last = (float(x) for x in re.search(
-            r"loss (\S+) -> (\S+)$", summary).groups())
-        _need(last < first, f"the CLI's loss did not fall: {summary}")
-        cfg = get_config(arch, smoke=True)
-        model = build_lm(cfg)
-        params = model.init(torch.Generator(device="cuda").manual_seed(0))
-        prefix = np.ones((c["batch"], cfg.n_prefix, cfg.d_model),
-                         np.float32) * 0.01
-        batches = ({**b, "prefix": prefix} if cfg.n_prefix else b
-                   for b in make_lm_batch_iterator(cfg.vocab, c["seq_len"],
-                                                   c["batch"]))
-        params, _ = train_loop(model, params, batches, steps=c["steps"],
-                               mesh=grid(mesh) if mesh else None,
-                               batch_axes=ED_AXES if mesh else ())
-        restored = restore_pytree(params, out)
-        same = all(torch.equal(a, b) for a, b in
-                   zip(restored.parameters(), params.parameters()))
-        with open(os.path.join(out, "index.json")) as f:
-            entries = json.load(f)["entries"]
-        want = jax_layout_keys(params)
-        missing = sorted(k for k, shape in want.items()
-                         if entries.get(k, {}).get("shape") != shape)
-    print(f"   `{' '.join(cmd[2:-2])}`: exit 0 in {wall:.1f} s; {summary}; "
-          f"restored == trained in this process bit for bit: {same}; "
-          f"{len(want)} JAX-layout keys, missing or misshapen: {missing}",
-          flush=True)
+    arch, mesh, c, cmd, out = (h[k] for k in ("arch", "mesh", "c", "cmd",
+                                                "out"))
+    _need(h["rc"] == 0, f"the training CLI exited {h['rc']}:\n"
+          f"{h.get('stdout')}\n{h.get('stderr')}")
+    summary = next(line for line in h["stdout"].splitlines()
+                   if line.startswith("# trained"))
+    first, last = (float(x) for x in re.search(
+        r"loss (\S+) -> (\S+)$", summary).groups())
+    _need(last < first, f"the CLI's loss did not fall: {summary}")
+    cfg = get_config(arch, smoke=True)
+    model = build_lm(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    prefix = np.ones((c["batch"], cfg.n_prefix, cfg.d_model),
+                     np.float32) * 0.01
+    batches = ({**b, "prefix": prefix} if cfg.n_prefix else b
+               for b in make_lm_batch_iterator(cfg.vocab, c["seq_len"],
+                                               c["batch"]))
+    params, _ = train_loop(model, params, batches, steps=c["steps"],
+                           mesh=grid(mesh) if mesh else None,
+                           batch_axes=ED_AXES if mesh else ())
+    restored = restore_pytree(params, out)
+    same = all(torch.equal(a, b) for a, b in
+               zip(restored.parameters(), params.parameters()))
+    with open(os.path.join(out, "index.json")) as f:
+        entries = json.load(f)["entries"]
+    want = jax_layout_keys(params)
+    missing = sorted(k for k, shape in want.items()
+                     if entries.get(k, {}).get("shape") != shape)
+    print(f"   `{' '.join(cmd[2:-2])}`: exit 0 in {h['wall']:.1f} s (its "
+          f"process, beside other work); {summary}; restored == trained in "
+          f"this process bit for bit: {same}; {len(want)} JAX-layout keys, "
+          f"missing or misshapen: {missing}", flush=True)
     _need(same, "the CLI's checkpoint is not the weights this process "
           "trained with the same seed and batches")
     _need(not missing, f"index.json lacks JAX-layout keys: {missing}")
-    return dict(cmd=cmd[2:-2], wall_s=wall, summary=summary,
+    return dict(cmd=cmd[2:-2], wall_s=h["wall"], summary=summary,
                 loss_first=first, loss_last=last, bit_for_bit=same,
                 keys=len(want))
 
 
-def lm_train(seed: int, build_dir: Path) -> dict:
+def start_train_clis(build_dir: Path) -> dict:
+    """Phase 16 (c)'s and 18 (e)'s training CLIs, started together."""
+    return {"lm": start_train_cli(build_dir),
+            "seamless": start_train_cli(build_dir, ED_ARCH, c=ED_CLI),
+            "mesh": start_train_cli(build_dir, "qwen1.5-0.5b", ED_MESH,
+                                    c=ED_CLI)}
+
+
+def lm_train(seed: int, build_dir: Path, clis: dict | None = None) -> dict:
     """Phase 16: (a), (b) and (c), with every kernel's launch count set to
-    0 just before and read just after: training runs none of them."""
+    0 just before and read just after: training runs none of them. `clis`
+    (`start_train_clis`): the CLIs, started before the phase; without
+    them (c) starts its own."""
+    if clis is None:
+        clis = {"lm": start_train_cli(build_dir)}
     counters = kernel_counters()
     for fn in counters.values():
         fn.launches = 0
     out, walls = {}, {}
+
+    def settle():
+        # (b)'s profile and steps are timed with the card and the host to
+        # themselves: the CLIs run beside (a) and (b)'s fp32 pass only.
+        t0 = time.perf_counter()
+        for h in clis.values():
+            h["thread"].join()
+        walls["cli_wait"] = time.perf_counter() - t0
+        print(f"   waited {walls['cli_wait']:.1f} s for the training CLIs "
+              f"before (b)'s timed work", flush=True)
     for part, run in (("smoke", lambda: lm_train_smoke(seed)),
-                      ("full", lambda: lm_train_full(seed)),
-                      ("cli", lambda: lm_train_cli(build_dir))):
+                      ("full", lambda: lm_train_full(seed, settle)),
+                      ("cli", lambda: lm_train_cli(clis["lm"]))):
         t0 = time.perf_counter()
         out[part] = run()
         walls[part] = time.perf_counter() - t0
     out["launches"] = {k: fn.launches for k, fn in counters.items()}
     out["wall_s"] = walls
     print("   (a), (b), (c) took " + ", ".join(
-        f"{v:.1f}" for v in walls.values()) + " s", flush=True)
+        f"{walls[k]:.1f}" for k in ("smoke", "full", "cli")) +
+        f" s ((b) with its {walls['cli_wait']:.1f} s wait)", flush=True)
     _need(not any(out["launches"].values()),
           f"LM training launched a kernel: {out['launches']}")
     print(f"   kernel launches in the phase: {out['launches']}", flush=True)
@@ -3870,7 +4006,9 @@ def caches_equal(a: dict, b: dict) -> bool:
         return all(torch.equal(u, w) for x, y in zip(a["states"],
                                                      b["states"])
                    for u, w in zip(x, y))
-    return all(torch.equal(a[k], b[k]) for k in a)
+    return all(all(torch.equal(x, y) for x, y in zip(a[k], b[k]))
+               if isinstance(a[k], tuple) else torch.equal(a[k], b[k])
+               for k in a)
 
 
 def continued(cache: dict, cfg, n: int) -> dict:
@@ -4106,6 +4244,14 @@ def moe_full(seed: int, rng, launches: dict) -> dict:
           flush=True)
     out["decode"] = dict(B=B, T=T, wall_s=dwall, ms_per_step=1e3 * dwall / T,
                          top5=ids, cache_rel_err=errs, layer0_exact=exact)
+    # Phase 19 (c), while these weights are here (its own generator, so
+    # this phase's draws stay as they were).
+    t0 = time.perf_counter()
+    ms_launches: dict = {}
+    res = ms_moe(model, params, np.random.default_rng([seed, 19, 3]),
+                 ms_launches)
+    out["mesh_serve"] = dict(result=res, launches=ms_launches,
+                             wall_s=time.perf_counter() - t0)
     with counted(launches, "qwen2-moe serve_batch"):
         out["serve"] = lm_serve(model, params, rng)
     del params
@@ -4629,10 +4775,15 @@ def ed_mesh_full(seed: int, launches: dict) -> dict:
     return out
 
 
-def encdec_mesh(seed: int, build_dir: Path) -> dict:
+def encdec_mesh(seed: int, build_dir: Path,
+                clis: dict | None = None) -> dict:
     """Phase 18: (a)-(e), with every kernel's launch count set to 0 just
     before and read just after: kernel 9 only (seamless's and the MoE
-    routers' top-k), as the parts' counts say."""
+    routers' top-k), as the parts' counts say. `clis`
+    (`start_train_clis`): (e)'s CLIs, started before; without them (e)
+    starts its own."""
+    if clis is None:
+        clis = start_train_clis(build_dir)
     counters = kernel_counters()
     for fn in counters.values():
         fn.launches = 0
@@ -4646,10 +4797,8 @@ def encdec_mesh(seed: int, build_dir: Path) -> dict:
             ("seamless", lambda: ed_full(seed, rng, launches)),
             ("train", lambda: ed_train(seed, launches)),
             ("mesh", lambda: ed_mesh_full(seed, launches)),
-            ("cli", lambda: dict(
-                seamless=lm_train_cli(build_dir, ED_ARCH, c=ED_CLI),
-                mesh=lm_train_cli(build_dir, "qwen1.5-0.5b", ED_MESH,
-                                  c=ED_CLI)))):
+            ("cli", lambda: dict(seamless=lm_train_cli(clis["seamless"]),
+                                 mesh=lm_train_cli(clis["mesh"])))):
         t0 = time.perf_counter()
         out[part] = run()
         walls[part] = time.perf_counter() - t0
@@ -4666,6 +4815,298 @@ def encdec_mesh(seed: int, build_dir: Path) -> dict:
           f"phase 18 launched a kernel off its path: {others}, {launches}")
     _need(launches["seamless train"]["blocked_topk"] == 0,
           "seamless training launched the top-k kernel")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 19: LM serving over a mesh (ROADMAP A-8f)
+# ---------------------------------------------------------------------------
+
+def ms_smoke_one(arch: str, seed: int) -> dict:
+    """Phase 19 (a) for one smoke config: the MS_GRID grid of cuda:0
+    against the port's grid of the CPU, and twice on the card."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe, sharding
+    from repro_torch.models.model import build_model as build_lm
+    cfg = get_config(arch, smoke=True)
+    models = {"cpu": build_lm(cfg, device="cpu"), "cuda": build_lm(cfg)}
+    p0 = models["cpu"].init(torch.Generator().manual_seed(seed))
+    rng = np.random.default_rng([seed, 19])
+    B, T = MS_SMOKE["B"], MS_SMOKE["T"]
+    batch = {"tokens": rng.integers(2, cfg.vocab, size=(B, T))}
+    if cfg.n_prefix:
+        batch["prefix"] = (0.05 * rng.normal(
+            size=(B, cfg.n_prefix, cfg.d_model))).astype(np.float32)
+    dec = rng.integers(2, cfg.vocab, size=(B, MS_SMOKE["decode"]))
+    T_all = T + cfg.n_prefix
+    launches: dict = {}
+
+    def run(dev, tag):
+        m, mesh = models[dev], grid(MS_GRID, "cpu" if dev == "cpu" else
+                                    "cuda:0")
+        p = copy.deepcopy(p0).to(dev)
+        kw = dict(mesh=mesh, batch_axes=MS_AXES, use_swa=cfg.swa_always,
+                  top_k=6)
+        with counted(launches, tag), moe.count_dropped() as drops:
+            v, i, cache = m.prefill(p, batch, **kw)
+            pre = sharding.gather_cache(cache, "cpu")
+            steps = []
+            for t in range(MS_SMOKE["decode"]):
+                dv, di, cache = m.decode_step(p, cache, dec[:, t:t + 1],
+                                              T_all + t, **kw)
+                steps.append((dv.cpu(), di.cpu()))
+        n_pre = len(sharding.row_shards(mesh, B, MS_AXES)) * cfg.n_layers \
+            if cfg.family == "moe" else 0
+        return dict(v=v.cpu(), i=i.cpu(), cache=pre, steps=steps,
+                    end=sharding.gather_cache(cache, "cpu"),
+                    drops=[int(d) for _, d in drops[:n_pre]])
+    b, a, again = run("cpu", "cpu"), run("cuda", "cuda"), \
+        run("cuda", "cuda again")
+    bits = (torch.equal(a["v"], again["v"]) and
+            torch.equal(a["i"], again["i"]) and
+            caches_equal(a["cache"], again["cache"]) and
+            caches_equal(a["end"], again["end"]) and
+            a["drops"] == again["drops"] and
+            all(torch.equal(x[0], y[0]) and torch.equal(x[1], y[1])
+                for x, y in zip(a["steps"], again["steps"])))
+    ids = decisive_ids(a["v"], a["i"], b["v"], b["i"])
+    val_err = float((a["v"] - b["v"]).abs().max())
+    dec_err = max(float((x[0] - y[0]).abs().max())
+                  for x, y in zip(a["steps"], b["steps"]))
+    for (av, ai), (bv, bi) in zip(a["steps"], b["steps"]):
+        decisive_ids(av, ai, bv, bi)
+    rel = {"prefill": cache_rel(a["cache"], b["cache"]),
+           "decode": cache_rel(a["end"], b["end"])}
+    worst = max(max(r.values()) for r in rel.values())
+    row = dict(arch=cfg.name, B=B, T=T_all, mesh=MS_GRID, prefill_ids=ids,
+               prefill_val_err=val_err, decode_val_err=dec_err,
+               cache_rel=rel, drops=a["drops"], cpu_drops=b["drops"],
+               bit_for_bit=bits, launches=launches["cuda"])
+    print(f"   {cfg.name} on {MS_GRID} cuda:0 cells (B, T) = ({B}, {T_all}):"
+          f" top-5 {a['i'][0, :5].tolist()}, values {val_err:.2e} from the "
+          f"CPU grid's, decode {dec_err:.2e}; caches/states {worst:.2e}; "
+          f"drops by shard and layer {a['drops']} (CPU {b['drops']}); bit "
+          f"for bit {bits}; launches {launches['cuda']}", flush=True)
+    tol = FAM_SMOKE_TOL
+    _need(val_err <= tol["values"] and dec_err <= tol["decode"] and
+          worst <= tol["cache"] and a["drops"] == b["drops"] and bits,
+          f"phase 19a {cfg.name}: card grid vs CPU grid beyond {tol}: {row}")
+    _need(launches["cuda"]["blocked_topk"] > 0,
+          f"{cfg.name}: no blocked top-k launched")
+    return row
+
+
+def pad_cache(cache: dict, n: int) -> dict:
+    """A copy of a full-length k/v cache with n more (zero) slots, so
+    decode continues past the prefill without wrapping to slot 0."""
+    return {k: torch.nn.functional.pad(t, (0, 0, 0, 0, 0, n))
+            if k in ("k", "v") else type(t)(*(x.clone() for x in t))
+            for k, t in cache.items()}
+
+
+def ms_hymba(model, params, rng, launches: dict) -> dict:
+    """Phase 19 (b): hymba-1.5b whole on the MS_GRID grid of cuda:0."""
+    from repro_torch.models import sharding
+    from repro_torch.models.transformer import layer_windows_static
+    cfg = model.cfg
+    B, T = MS_HYMBA
+    mesh = grid(MS_GRID)
+    M = mesh.shape["model"]
+    windowed = sum(1 for w in layer_windows_static(cfg, use_swa=True)
+                   if 0 < w < T)
+    toks = torch.from_numpy(rng.integers(2, cfg.vocab, size=(B, T))).cuda()
+    dec = torch.from_numpy(rng.integers(2, cfg.vocab,
+                                        size=(B, MS_DECODE))).cuda()
+    kw = dict(mesh=mesh, batch_axes=MS_AXES, use_swa=True, top_k=6)
+    model.prefill(params, {"tokens": toks[:, :64]}, **kw)    # the placement
+    torch.cuda.synchronize()
+    with counted(launches, "hymba mesh prefill"):
+        t0 = time.perf_counter()
+        v, i, mc = model.prefill(params, {"tokens": toks}, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    n = launches["hymba mesh prefill"]
+    shards = sharding.row_shards(mesh, B, MS_AXES)
+    _need(n["banded_attention"] == len(shards) * windowed and
+          n["blocked_topk"] == M + 1,
+          f"the mesh prefill launched {n}: expected kernel 10 "
+          f"{len(shards)} x {windowed} times and kernel 9 {M + 1}")
+    # Each row shard against its rows alone on one device: the same
+    # operations at the same shapes, so its caches are equal bit for bit
+    # (the head's product runs on all the rows at once).
+    alone = [model.prefill(params, {"tokens": toks[s.rows]}, use_swa=True,
+                           top_k=6) for s in shards]
+    exact = all(caches_equal(c, a[2]) for c, a in zip(mc.shards, alone))
+    _need(exact, "a row shard's caches differ from its rows prefilled "
+          "alone on one device")
+    top = [decisive_ids(v[s.rows], i[s.rows], a[0], a[1])
+           for s, a in zip(shards, alone)]
+    print(f"   prefill ({B}, {T:,}) on {MS_GRID} cuda:0 cells: {wall:.3f} s"
+          f" ({B * T / wall:,.0f} tokens/s); launches {n}; each row shard's "
+          f"caches bit for bit its rows alone: {exact}; top-5 against its "
+          f"rows alone: decisive rows {sum(t['decisive'] for t in top)} of "
+          f"{B}, max value diff {max(t['max_val_diff'] for t in top):.2e}",
+          flush=True)
+    mc = sharding.MeshCache(mc.rows, [pad_cache(c, MS_DECODE)
+                                      for c in mc.shards])
+    caches = [pad_cache(a[2], MS_DECODE) for a in alone]
+    del alone
+    torch.cuda.synchronize()
+    with counted(launches, "hymba mesh decode"):
+        t0 = time.perf_counter()
+        steps = []
+        for t in range(MS_DECODE):
+            dv, di, mc = model.decode_step(params, mc, dec[:, t:t + 1],
+                                           T + t, **kw)
+            steps.append((dv, di))
+        torch.cuda.synchronize()
+        mesh_wall = time.perf_counter() - t0
+    _need(launches["hymba mesh decode"] == {
+        "blocked_topk": MS_DECODE * (M + 1), "banded_attention": 0},
+        f"{MS_DECODE} mesh decode steps launched "
+        f"{launches['hymba mesh decode']}")
+    dtop = []                       # every step of every row shard
+    for s, c in zip(shards, caches):
+        for t, (sv, si) in enumerate(steps):
+            av, ai, c = model.decode_step(params, c, dec[s.rows, t:t + 1],
+                                          T + t, use_swa=True, top_k=6)
+            dtop.append(decisive_ids(sv[s.rows], si[s.rows], av, ai))
+    dexact = all(caches_equal(c, a) for c, a in zip(mc.shards, caches))
+    _need(dexact, "a row shard's caches after the decode steps differ "
+          "from its rows decoded alone on one device")
+    del caches
+    # One device on the whole batch, for the time a step.
+    _, _, c1 = model.prefill(params, {"tokens": toks}, use_swa=True)
+    c1 = pad_cache(c1, MS_DECODE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(MS_DECODE):
+        ov, oi, c1 = model.decode_step(params, c1, dec[:, t:t + 1], T + t,
+                                       use_swa=True, top_k=6)
+    torch.cuda.synchronize()
+    one_wall = time.perf_counter() - t0
+    agree = int((oi[:, :5].sort(dim=1).values.cpu() ==
+                 di[:, :5].sort(dim=1).values.cpu()).all(dim=1).sum())
+    del mc, c1
+    torch.cuda.empty_cache()
+    print(f"   {MS_DECODE} decode steps from the mesh cache: "
+          f"{1e3 * mesh_wall / MS_DECODE:.2f} ms a step (one device on "
+          f"the whole batch {1e3 * one_wall / MS_DECODE:.2f}); each shard's "
+          f"caches bit for bit its rows decoded alone: {dexact}; top-5 "
+          f"against the rows alone: decisive rows "
+          f"{sum(t['decisive'] for t in dtop)} of {B * MS_DECODE} (every "
+          f"step); at the last step against the whole batch on one device:"
+          f" {agree} of {B} rows the same five", flush=True)
+    return dict(arch=cfg.name, mesh=MS_GRID, B=B, T=T,
+                prefill=dict(wall_s=wall, tokens_per_s=B * T / wall,
+                             launches=n, shards_exact=exact, top5=top),
+                decode=dict(steps=MS_DECODE,
+                            ms_per_step=1e3 * mesh_wall / MS_DECODE,
+                            one_device_ms_per_step=1e3 * one_wall /
+                            MS_DECODE, shards_exact=dexact,
+                            top5_decisive=sum(t["decisive"] for t in dtop),
+                            top5_rows=len(dtop), one_device_agree=agree))
+
+
+def ms_moe(model, params, rng, launches: dict) -> dict:
+    """Phase 19 (c), run in phase 17b: qwen2-moe-a2.7b whole on MS_MOE's
+    grid of cuda:0."""
+    from repro_torch.models import moe, sharding
+    from repro_torch.serve.engine import generate
+    cfg = model.cfg
+    mm = MS_MOE
+    mesh = grid(mm["mesh"])
+    toks = torch.from_numpy(rng.integers(2, cfg.vocab,
+                                         size=(mm["B"], mm["T"]))).cuda()
+    kw = dict(mesh=mesh, batch_axes=MS_AXES)
+    shards = sharding.row_shards(mesh, mm["B"], MS_AXES)
+    torch.cuda.synchronize()
+    with counted(launches, "qwen2-moe mesh prefill"), \
+            moe.count_dropped() as d:
+        t0 = time.perf_counter()
+        v, i, mc = model.prefill(params, {"tokens": toks}, top_k=6, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    on_mesh = np.array([int(x) for _, x in d]).reshape(len(shards),
+                                                       cfg.n_layers)
+    n = launches["qwen2-moe mesh prefill"]
+    _need(n["blocked_topk"] == len(shards) * cfg.n_layers +
+          mesh.shape["model"] + 1,
+          f"the mesh prefill launched kernel 9 {n} times")
+    del mc
+    alone, top = [], []
+    for s in shards:
+        with moe.count_dropped() as d:
+            va, ia, _ = model.prefill(params, {"tokens": toks[s.rows]},
+                                      top_k=6)
+        alone.append([int(x) for _, x in d])
+        top.append(decisive_ids(v[s.rows], i[s.rows], va, ia))
+    _need(on_mesh.tolist() == alone, f"drops by shard and layer "
+          f"{on_mesh.tolist()} against each row alone {alone}")
+    prompt = rng.integers(2, cfg.vocab, size=(mm["B"], mm["prompt"]))
+    with counted(launches, "qwen2-moe mesh generate"):
+        t0 = time.perf_counter()
+        g = generate(model, params, prompt, steps=mm["generate"], **kw)
+        gwall = time.perf_counter() - t0
+    g1 = generate(model, params, prompt, steps=mm["generate"])
+    steps = mm["prompt"] + mm["generate"] - 1
+    _need(g.shape == (mm["B"], mm["generate"]) and 0 <= g.min() and
+          g.max() < cfg.padded_vocab() and
+          launches["qwen2-moe mesh generate"]["blocked_topk"] ==
+          steps * (len(shards) * cfg.n_layers + mesh.shape["model"] + 1),
+          f"generate(mesh=) gave {g.tolist()}, launches "
+          f"{launches['qwen2-moe mesh generate']}")
+    agree = float((g == g1).mean())
+    n_tok = mm["B"] * mm["T"]
+    print(f"   mesh serving on {mm['mesh']} cuda:0 cells: prefill ({mm['B']},"
+          f" {mm['T']:,}) {wall:.3f} s ({n_tok / wall:,.0f} tokens/s), "
+          f"dropped by shard and layer {on_mesh.tolist()} of "
+          f"{n_tok // len(shards) * cfg.moe_top_k:,} assignments = each row "
+          f"alone; top-5 against each row alone: decisive "
+          f"{[t['decisive'] for t in top]} of {[t['rows'] for t in top]}; "
+          f"generate(mesh=) {mm['generate']} tokens in {gwall:.2f} s, "
+          f"{agree:.3f} of them one device's; req[0] -> {g[0].tolist()}",
+          flush=True)
+    return dict(mesh=mm["mesh"], B=mm["B"], T=mm["T"], wall_s=wall,
+                tokens_per_s=n_tok / wall, dropped=on_mesh.tolist(),
+                alone=alone, top5=top, generate=dict(
+                    steps=mm["generate"], wall_s=gwall, ids=g.tolist(),
+                    one_device_agree=agree))
+
+
+def mesh_serving(seed: int, model, params, moe_part: dict) -> dict:
+    """Phase 19: (a) and (b), with every kernel's launch count set to 0
+    just before and read just after (kernels 9 and 10 by part), and (c)
+    from phase 17b (`moe_part`: its result, launches and wall)."""
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    rng = np.random.default_rng([seed, 19])
+    launches: dict = {}
+    out, walls = {}, {}
+    for part, run in (
+            ("smoke", lambda: [ms_smoke_one(a, seed)
+                               for a in MS_SMOKE_ARCHS]),
+            ("hymba", lambda: ms_hymba(model, params, rng, launches))):
+        t0 = time.perf_counter()
+        out[part] = run()
+        walls[part] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    others = {k: fn.launches for k, fn in counters.items()
+              if k not in ("blocked_topk", "banded_attention")}
+    out["qwen2_moe"] = moe_part["result"]
+    launches.update(moe_part["launches"])
+    launches.update({f"smoke {r['arch']}": r["launches"]
+                     for r in out["smoke"]})
+    out["launches"] = launches
+    out["wall_s"] = {**walls, "qwen2_moe": moe_part["wall_s"]}
+    print("   (a), (b) took " + ", ".join(f"{v:.1f}" for v in walls.values())
+          + f" s ((c) {moe_part['wall_s']:.1f} s in phase 17b); kernel "
+          f"launches by part {launches}; kernels 1-8 {others}", flush=True)
+    _need(not any(others.values()),
+          f"phase 19 launched a kernel off its path: {others}")
     return out
 
 
@@ -4722,12 +5163,17 @@ def main() -> None:
     from repro_torch.kernels import _build
     from repro_torch.xmc_api import XMCSpec
 
-    with phase("build"):
-        _build.build()
-        for name, log in sorted(_build.BUILD_LOGS.items()):
-            for line in log.splitlines():
-                if "Used" in line or "spill" in line or "entry" in line:
-                    print(f"   {name}: {line.strip()}")
+    # The nvcc processes run beside the model's making (host numpy): the
+    # kernels are first needed in phase 3.
+    nvcc = in_background(_build.build, "nvcc")
+
+    def built():
+        with phase("build: the kernels (nvcc beside the model's making)"):
+            nvcc.result()
+            for name, log in sorted(_build.BUILD_LOGS.items()):
+                for line in log.splitlines():
+                    if "Used" in line or "spill" in line or "entry" in line:
+                        print(f"   {name}: {line.strip()}")
 
     with phase("setup"):
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -4746,6 +5192,7 @@ def main() -> None:
     build_dir = ROOT / "build"
     build_dir.mkdir(exist_ok=True)
     if args.planted_faults:
+        built()
         planted_faults(args.seed, build_dir, smi)
         return
     rng = np.random.default_rng(args.seed)
@@ -4757,15 +5204,23 @@ def main() -> None:
             t0 = time.perf_counter()
             model = build_model(rng)
             t_gen = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            save_block_sparse(model, ckpt, meta={
-                "n_labels": N_LABELS, "n_features": N_FEATURES,
-                "seed": args.seed, "xmc_spec": XMCSpec().to_dict()})
-            t_save = time.perf_counter() - t0
             print(f"   {model.n_blocks} blocks ({model.density:.4f} of the "
                   f"grid), {4 * model.blocks.numel() / 1e6:.1f} MB fp32; "
                   f"padded shape {model.shape}; made and packed in "
-                  f"{t_gen:.1f} s, saved in {t_save:.1f} s")
+                  f"{t_gen:.1f} s; saving on a thread beside phase 3")
+            # The compressed write keeps one core busy for ~70 s and reads
+            # the model only: it runs beside phase 3, which does not read
+            # the checkpoint (its kernel and library times are the same
+            # alone: `tools/chip_smoke_parts.py phase3-beside-save`).
+
+            def save():
+                t = time.perf_counter()
+                save_block_sparse(model, ckpt, meta={
+                    "n_labels": N_LABELS, "n_features": N_FEATURES,
+                    "seed": args.seed, "xmc_spec": XMCSpec().to_dict()})
+                return time.perf_counter() - t
+            saver = in_background(save, "save_block_sparse")
+        built()
 
         with phase("kernels vs plain versions"):
             flush = torch.empty(64 * 2**20, device="cuda")   # 256 MB
@@ -4787,6 +5242,16 @@ def main() -> None:
             print(f"   after timing: clocks.sm, power.draw, temperature: "
                   f"{smi_run}")
 
+        # Phases 5-10b's training data (host numpy) is made beside the
+        # rest of the save; both end before phase 4's timed requests.
+        data_job = in_background(lambda: train_data(args.seed), "train data")
+        with phase("model saved; train data: Wiki10-31K width, beside it"):
+            t0 = time.perf_counter()
+            save_s = saver.result()
+            print(f"   saved in {save_s:.1f} s, "
+                  f"{time.perf_counter() - t0:.1f} s of it after phase 3",
+                  flush=True)
+            data = data_job.result()
         with phase("serve: CheckpointHandle.open(dir).engine(), bsr"):
             requests = [tfidf_rows(rng, n, perm) for n in REQUEST_ROWS]
             requests[ZERO_REQUEST][:] = 0.0
@@ -4817,8 +5282,6 @@ def main() -> None:
         del model, X
 
         from repro_torch.kernels.hinge.ops import aligned_rows
-        with phase("train data: Wiki10-31K width"):
-            data = train_data(args.seed)
 
         with phase("train kernels vs plain versions "
                    "(1,024, 14,146, 101,938)"):
@@ -4910,13 +5373,15 @@ def main() -> None:
         del cut
     with phase("lm serve: serve_batch, ragged prompts"):
         lm_srv = lm_serve(lm, lm_params, lm_rng)
-    del lm_params
-    torch.cuda.empty_cache()
+    torch.cuda.empty_cache()              # lm_params stay for phase 19 (b)
     with phase(f"lm CLI: launch.serve --arch {LM_ARCH}"):
         lm_cli_out = lm_cli()
+    # Phase 16 (c)'s and 18 (e)'s training CLIs run beside phase 16 (a) and
+    # (b)'s fp32 pass.
+    clis = start_train_clis(build_dir)
     with phase(f"lm train: smoke configs card vs CPU; {LM_ARCH} at full "
                f"width, T = {LM_TRAIN_FULL['T']:,}; launch.train --arch"):
-        lm_tr = lm_train(args.seed, build_dir)
+        lm_tr = lm_train(args.seed, build_dir, clis)
     with phase("lm families: smoke configs card vs CPU; qwen2-moe-a2.7b, "
                "mixtral-8x22b (2 layers), xlstm-125m, internvl2-26b at full "
                "width"):
@@ -4924,7 +5389,14 @@ def main() -> None:
     with phase(f"encoder-decoder and the LM mesh: smoke configs card vs "
                f"CPU; {ED_ARCH} at full width; training on a {ED_MESH} "
                f"grid"):
-        ed = encdec_mesh(args.seed, build_dir)
+        ed = encdec_mesh(args.seed, build_dir, clis)
+    with phase(f"LM serving over a mesh: smoke configs on a {MS_GRID} grid "
+               f"of cuda:0 vs the CPU's; {LM_ARCH} whole on {MS_GRID}; "
+               f"qwen2-moe-a2.7b (in phase 17b) on {MS_MOE['mesh']}"):
+        ms = mesh_serving(args.seed, lm, lm_params,
+                          fam["qwen2_moe"]["mesh_serve"])
+    del lm_params
+    torch.cuda.empty_cache()
 
     head = next(r for r in bsr["sweep"] if r["n"] == HEADLINE_N)
     kernels = [
@@ -4956,7 +5428,9 @@ def main() -> None:
              launches_families={k: v["blocked_topk"]
                                 for k, v in fam["launches"].items()},
              launches_encdec_mesh={k: v["blocked_topk"]
-                                   for k, v in ed["launches"].items()}),
+                                   for k, v in ed["launches"].items()},
+             launches_mesh_serve={k: v["blocked_topk"]
+                                  for k, v in ms["launches"].items()}),
     ]
     at = "(L, N, D) = ({}, {}, {})".format(*train_k["shape"])
     for name, key, src, replaces, err_key in (
@@ -5026,6 +5500,8 @@ def main() -> None:
         "TMA tiles; fp32: FFMA", redesigned=True, hgmma=banded["hgmma"],
         sweep=banded["rows"], launches_families={
             k: v["banded_attention"] for k, v in fam["launches"].items()},
+        launches_mesh_serve={k: v["banded_attention"]
+                             for k, v in ms["launches"].items()},
         mixtral=dict(shape=fam["mixtral"]["kernel"]["shape"],
                      **fam["mixtral"]["kernel"]["rows"][0])))
     print(json.dumps({"kernels": kernels, "serve": {
@@ -5044,6 +5520,7 @@ def main() -> None:
     print(json.dumps({"baselines": base}))
     print(json.dumps({"lm_families": fam}))
     print(json.dumps({"encdec_mesh": ed}))
+    print(json.dumps({"mesh_serve": ms}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,4 +9,10 @@ Hessian-vector-product kernels written in CUDA C++ (`csrc/`, built by
 `kernels/_build.py`). Entry points run on the card unless the caller
 passes `device="cpu"`; on the CPU every kernel wrapper runs its plain
 PyTorch version instead.
+
+Two JAX modules have no counterpart here: `launch/hlo_cost.py`, a cost
+model of XLA's optimised HLO that corrects its while-loop trip counts
+(the port has no HLO, and its Python loops run each operation as often
+as it runs: `launch/dryrun.py` counts FLOPs over those calls on fake
+tensors), and `compat.py`, which shims jax versions.
 """

@@ -14,8 +14,11 @@ tests' `--xla_force_host_platform_device_count=8`: eight `cpu` entries run
 a (2, 4) mesh in one process, and every cell `cuda:0` runs the whole mesh
 logic on one card.
 
-`make_production_mesh` (the TPU v5e-256 topology) is not here: it goes
-with the JAX package's other TPU tools (ROADMAP Queue A item 8d).
+`make_production_mesh` gives the JAX package's production grid, (16, 16)
+over ("data", "model") or (2, 16, 16) over ("pod", "data", "model"), as
+axis names and sizes with no device behind a cell: the dry run
+(`launch/dryrun.py`) reads per-device shapes off it through
+`models/sharding.py`, whose spec functions handle `pod`.
 """
 
 from __future__ import annotations
@@ -55,6 +58,35 @@ class Mesh:
     def first(self) -> torch.device:
         """The device of cell (0, 0): where results are gathered."""
         return self.devices[0][0]
+
+
+@dataclasses.dataclass(frozen=True)
+class AbstractMesh:
+    """Axis names and sizes with no device behind the cells: what the spec
+    functions of `models/sharding.py` read (`shape`), for a grid larger
+    than the machine."""
+    axis_names: tuple[str, ...]
+    sizes: tuple[int, ...]
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return dict(zip(self.axis_names, self.sizes))
+
+    @property
+    def n_cells(self) -> int:
+        n = 1
+        for s in self.sizes:
+            n *= s
+        return n
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
+    """The JAX package's production grid (a TPU v5e-256 pod, or two):
+    (16, 16) over ("data", "model"), or (2, 16, 16) over ("pod", "data",
+    "model")."""
+    if multi_pod:
+        return AbstractMesh(("pod", "data", "model"), (2, 16, 16))
+    return AbstractMesh(AXES, (16, 16))
 
 
 def _check_device(dev: torch.device) -> torch.device:

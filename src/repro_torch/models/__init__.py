@@ -2,5 +2,4 @@
 sLSTM, Mamba), the MoE FFN, the KV cache, the decoder-only stack
 (`transformer`), the encoder-decoder (`encdec`), the partition specs and
 mesh placement (`sharding`) and `build_model`. Every family serves and
-trains, on one device or over a mesh; see `transformer.NOT_PORTED` for
-the rest."""
+trains, on one device or over a mesh."""

@@ -5,8 +5,10 @@ returns a Model with uniform signatures, so the launcher and the serving
 engine treat the architectures alike:
 
   init(generator)                              -> params
-  prefill(params, batch, *, use_swa, top_k=5)  -> (topk_vals, topk_idx, cache)
-  decode_step(params, cache, tokens, pos, ...) -> (vals, idx, cache)
+  prefill(params, batch, *, mesh, batch_axes, use_swa, top_k=5)
+                                               -> (topk_vals, topk_idx, cache)
+  decode_step(params, cache, tokens, pos, *, mesh, batch_axes, ...)
+                                               -> (vals, idx, cache)
   init_cache(B, seq_len, *, use_swa, t_enc)    -> cache dict
   train_loss(params, batch, *, mesh, batch_axes) -> (loss, {"loss", "aux"})
 
@@ -14,9 +16,11 @@ Everything runs on `device` (the card unless the caller passes "cpu").
 The decoder-only families (dense, hybrid, moe, ssm, and vlm, whose patch
 embeddings go in as `batch["prefix"]`) are `transformer`'s, their params an
 `LMParams`; the encoder-decoder (seamless) is `encdec`'s, its params an
-`EncDecParams`, its frames `batch["prefix"]`. `train_loss` takes a mesh
-(`launch/mesh.py`) and the batch axes; `prefill` and `decode_step` with a
-mesh raise NotImplementedError naming their ROADMAP item.
+`EncDecParams`, its frames `batch["prefix"]`. `train_loss`, `prefill`
+and `decode_step` take a mesh (`launch/mesh.py`) and the batch axes; the
+encoder-decoder's `prefill` and `decode_step` drop them, as the JAX
+package's `build_model` does, so it serves over a mesh exactly as on one
+device.
 """
 
 from __future__ import annotations
@@ -50,11 +54,6 @@ class Model:
     init_cache: Callable
 
 
-def _no_mesh_serving(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(transformer.NOT_PORTED["mesh_serving"])
-
-
 def build_model(cfg: ArchConfig, device=None) -> Model:
     device = resolve_device(device)
     enc = cfg.is_encoder_decoder
@@ -72,21 +71,21 @@ def build_model(cfg: ArchConfig, device=None) -> Model:
 
     def prefill_fn(params, batch, *, mesh=None, batch_axes=(),
                    use_swa: bool = False, top_k: int = 5):
-        _no_mesh_serving(mesh)
         if enc:
             return encdec.prefill(cfg, params, batch["tokens"],
                                   batch["prefix"], top_k=top_k)
         return transformer.prefill(cfg, params, batch["tokens"],
-                                   prefix=batch.get("prefix"),
-                                   use_swa=use_swa, top_k=top_k)
+                                   prefix=batch.get("prefix"), mesh=mesh,
+                                   batch_axes=batch_axes, use_swa=use_swa,
+                                   top_k=top_k)
 
     def decode_fn(params, cache, tokens, pos, *, mesh=None, batch_axes=(),
                   use_swa: bool = False, top_k: int = 5):
-        _no_mesh_serving(mesh)
         if enc:
             return encdec.decode_step(cfg, params, cache, tokens, pos,
                                       top_k=top_k)
         return transformer.decode_step(cfg, params, cache, tokens, pos,
+                                       mesh=mesh, batch_axes=batch_axes,
                                        use_swa=use_swa, top_k=top_k)
 
     def init_cache(B: int, seq_len: int, *, use_swa: bool = False,

@@ -147,6 +147,12 @@ def route(probs: torch.Tensor, top_k: int):
     return vals / torch.clamp(vals.sum(dim=-1, keepdim=True), min=1e-9), idx
 
 
+def _counts(ids: torch.Tensor, E: int) -> torch.Tensor:
+    """How often each of the E expert ids occurs in `ids` (int64, (E,))."""
+    return torch.zeros(E, dtype=torch.long, device=ids.device).scatter_add_(
+        0, ids, torch.ones_like(ids))
+
+
 def _dispatch(xf: torch.Tensor, gate_vals: torch.Tensor,
               gate_idx: torch.Tensor, capacity: int, E: int):
     """Sort-based dispatch of the tokens xf (n, d), gate_vals and gate_idx
@@ -162,7 +168,9 @@ def _dispatch(xf: torch.Tensor, gate_vals: torch.Tensor,
     w_s = gate_vals.reshape(-1)[order]
 
     # Position of each routed token within its expert's capacity buffer.
-    counts = torch.bincount(e_s, minlength=E)
+    # A scatter into E zeros, not `bincount`: its shape is static, so the
+    # dispatch also runs on fake tensors (the dry run).
+    counts = _counts(e_s, E)
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.arange(n * k, device=dev) - starts[e_s]
     keep = pos < capacity
@@ -203,28 +211,52 @@ def _combine(buf: torch.Tensor, plan, w1: torch.Tensor, w3: torch.Tensor,
     return out
 
 
+class PlacedExperts(tuple):
+    """One MoE layer's experts split over the cells of a model axis, each
+    cell's slice already on its device (`split_experts`): serving over a
+    mesh places them once and passes them as the layer's `cells`."""
+
+
+def split_experts(p: MoE, cells: Sequence) -> PlacedExperts:
+    """Each model cell's slice of the experts' d_ff (and of the shared
+    expert's) on the cell's device, in cell order: (device, w1, w3, w2,
+    shared (w1, w3, w2) or None) a cell. On the weights' own device a
+    slice is a view."""
+    m = len(cells)
+    shared = [None] * m
+    if hasattr(p, "shared"):
+        sh = p.shared
+        shared = [(sh.w1[:, sl].to(dev), sh.w3[:, sl].to(dev),
+                   sh.w2[sl].to(dev))
+                  for dev, sl in zip(cells, _f_slices(sh.w1.shape[1], m))]
+    return PlacedExperts(
+        (dev, p.w1[:, :, sl].to(dev), p.w3[:, :, sl].to(dev),
+         p.w2[:, sl].to(dev), s)
+        for dev, sl, s in zip(cells, _f_slices(p.w1.shape[2], m), shared))
+
+
 def _dispatch_combine(xf: torch.Tensor, gate_vals: torch.Tensor,
                       gate_idx: torch.Tensor, capacity: int,
                       w1: torch.Tensor, w3: torch.Tensor,
-                      w2: torch.Tensor, cells: Sequence = ()):
+                      w2: torch.Tensor, placed: Sequence = ()):
     """Sort-based dispatch -> batched expert FFN -> weighted combine.
     xf (n, d) tokens; gate_vals, gate_idx (n, k) from `route`; w1/w3
     (E, d, f), w2 (E, f, d) -> (out (n, d), dropped assignments, 0-d).
-    `cells`: the devices of a model axis. The experts' d_ff is then split
-    over them: each cell runs and combines its slice, and the partial
-    outputs are added on xf's device in the order of the cells."""
+    `placed`: the experts' d_ff split over the cells of a model axis
+    (`split_experts`); each cell then runs and combines its slice, and the
+    partial outputs are added on xf's device in the order of the cells."""
     buf, plan, dropped = _dispatch(xf, gate_vals, gate_idx, capacity,
                                    w1.shape[0])
-    if len(cells) <= 1:
+    if not placed:
         return _combine(buf, plan, w1, w3, w2, xf.dtype), dropped
     dst, w_s, at = plan
+    devs = [c[0] for c in placed]
     out = None
-    for dev, b, w, sl in zip(cells, sharding.replicate(buf, cells),
-                             sharding.replicate(w_s, cells),
-                             _f_slices(w1.shape[2], len(cells))):
-        part = _combine(b, (dst.to(dev), w, at.to(dev)),
-                        w1[:, :, sl].to(dev), w3[:, :, sl].to(dev),
-                        w2[:, sl].to(dev), xf.dtype).to(xf.device)
+    for (dev, c1, c3, c2, _), b, w in zip(placed,
+                                          sharding.replicate(buf, devs),
+                                          sharding.replicate(w_s, devs)):
+        part = _combine(b, (dst.to(dev), w, at.to(dev)), c1, c3, c2,
+                        xf.dtype).to(xf.device)
         out = part if out is None else out + part
     return out, dropped
 
@@ -236,20 +268,20 @@ def _f_slices(f: int, m: int) -> list:
 
 
 def _shared_expert(p: SharedExpert, xf: torch.Tensor,
-                   cells: Sequence = ()) -> torch.Tensor:
-    """The gated shared expert; over `cells` (a model axis) its d_ff is
-    split as the routed experts' is, the partial products added in the
-    order of the cells before the gate."""
-    if len(cells) <= 1:
+                   placed: Sequence = ()) -> torch.Tensor:
+    """The gated shared expert; over the cells of `placed`
+    (`split_experts`) its d_ff is split as the routed experts' is, the
+    partial products added in the order of the cells before the gate."""
+    if not placed:
         h = F.silu(matmul(xf, p.w1)) * matmul(xf, p.w3)
         y = matmul(h, p.w2)
     else:
+        devs = [c[0] for c in placed]
         y = None
-        for dev, x, sl in zip(cells, sharding.replicate(xf, cells),
-                              _f_slices(p.w1.shape[1], len(cells))):
-            h = F.silu(matmul(x, p.w1[:, sl].to(dev))) * \
-                matmul(x, p.w3[:, sl].to(dev))
-            part = matmul(h, p.w2[sl].to(dev)).to(xf.device)
+        for (*_, (w1, w3, w2)), x in zip(placed,
+                                         sharding.replicate(xf, devs)):
+            h = F.silu(matmul(x, w1)) * matmul(x, w3)
+            part = matmul(h, w2).to(xf.device)
             y = part if y is None else y + part
     gate = torch.sigmoid(matmul(xf, p.gate).float()).to(y.dtype)
     return y * gate
@@ -258,23 +290,27 @@ def _shared_expert(p: SharedExpert, xf: torch.Tensor,
 def moe_ffn_local(cfg: ArchConfig, p: MoE, xf: torch.Tensor,
                   cells: Sequence = ()):
     """MoE FFN on the tokens xf (n, d) -> (out (n, d), aux loss). `cells`:
-    the devices of the model axis the experts' d_ff is split over (none:
-    all of it here)."""
+    the devices of the model axis the experts' d_ff is split over, or
+    their slices already placed there (`PlacedExperts`); none, or one
+    device: all of it here."""
     E, k = cfg.n_experts, cfg.moe_top_k
+    placed = (() if len(cells) <= 1 else cells
+              if isinstance(cells, PlacedExperts) else
+              split_experts(p, cells))
     n = xf.shape[0]
     logits = matmul(xf, p.router.to(xf.dtype)).float()
     probs = torch.softmax(logits, dim=-1)
     gate_vals, gate_idx = route(probs, k)
     out, dropped = _dispatch_combine(xf, gate_vals, gate_idx,
                                      capacity(cfg, n), p.w1, p.w3, p.w2,
-                                     cells)
+                                     placed)
     if _DROPS is not None:
         _DROPS.append((n * k, dropped.detach()))
     if cfg.n_shared_experts:
-        out = out + _shared_expert(p.shared, xf, cells)
+        out = out + _shared_expert(p.shared, xf, placed)
     # Switch's load-balance loss: E * sum_e (token fraction)_e * (mass)_e,
     # the token's top-1 its first top-k id (the first maximum).
-    f_e = torch.bincount(gate_idx[:, 0], minlength=E).float() / n
+    f_e = _counts(gate_idx[:, 0], E).float() / n
     p_e = torch.mean(probs, dim=0)
     return out, E * torch.sum(f_e * p_e)
 

@@ -35,6 +35,19 @@ The port's mesh is a grid of devices driven from one process
                   tensors from `replicate`);
   head_cells    — the (row shard, label shard) cells of the head losses.
 
+Serving over a mesh (`prefill` and `decode_step` with `mesh=`) has no
+gradients to gather, and a decode step cannot afford to copy the weights,
+so it places them once per (params, mesh) and reuses them:
+
+  serving_placement — the parameters on each cell's device (the tensors
+                  themselves on their own device), each MoE layer's
+                  experts split over a row of the model axis, and the head
+                  (or tied embedding) in float32 label shards over `model`
+                  (`prediction.shard_rows`);
+  MeshCache     — each row shard's serving cache (the one-device layout
+                  of its rows) on its cell; `split_cache` makes one from a
+                  one-device cache, `gather_cache` the reverse.
+
 A device may repeat in the grid: then a copy is a view, and the sums keep
 their fixed order.
 """
@@ -43,11 +56,13 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import weakref
 from typing import Optional, Sequence
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import prediction
 
 FSDP, TP = "data", "model"
 
@@ -162,7 +177,16 @@ def param_pspecs(cfg: ArchConfig, params, mesh_shape: dict):
 def cache_pspecs(cache, mesh_shape: dict, global_batch: int):
     """KV caches (L, B, T, KV, hd): batch over (pod, data), T over model;
     B = 1: T over every axis it divides. Recurrent states (L, B, ...):
-    batch over data where it divides."""
+    batch over data where it divides.
+
+    These are the JAX package's specs (the dry run's per-device bytes). The
+    port's serving over a mesh (`MeshCache`) splits the batch as they do
+    but keeps each row shard's cache length whole on that shard's cell:
+    the port replicates the backbone on each row shard's cell, so the
+    weights, not the cache, set a card's memory; and a length split would
+    add a softmax merged across cards, in an order the JAX reference does
+    not pin down. Splitting the length over cards is the next step once
+    several cards exist (ROADMAP)."""
     del global_batch                      # the JAX function ignores it too
 
     def n_of(axes) -> int:
@@ -304,3 +328,143 @@ def head_cells(mesh, n_rows: int, batch_axes: Sequence[str]):
     n = n_rows // nr
     return ([slice(i * n, (i + 1) * n) for i in range(nr)], M,
             [list(mesh.devices[i]) for i in range(nr)])
+
+
+# ---------------------------------------------------------------------------
+# Placing serving on the port's mesh
+# ---------------------------------------------------------------------------
+
+def place(module: torch.nn.Module, device) -> torch.nn.Module:
+    """The parameter module on `device`: the module itself where it lies
+    there, else a copy of its structure holding copies of its tensors
+    (no gradient)."""
+    device = torch.device(device)
+    tensors = list(module.parameters())
+    if all(t.device == device for t in tensors):
+        return module
+    memo = {id(t): torch.nn.Parameter(t.detach().to(device),
+                                      requires_grad=False) for t in tensors}
+    if hasattr(module, "cfg"):
+        memo[id(module.cfg)] = module.cfg
+    return copy.deepcopy(module, memo)
+
+
+class ServingPlacement:
+    """What serving over one mesh reads of one parameter module, placed
+    on the cells' devices once (`serving_placement`):
+
+      params(device)   — the parameters on a device (`place`);
+      experts(cells)   — per layer, a MoE layer's experts split over the
+                         devices `cells` of a row of the model axis
+                         (`moe.split_experts`), () for other layers;
+      head             — the head (or the tied embedding) in float32,
+                         split into label shards over `model`
+                         (`prediction.shard_rows`), shard j on cell
+                         (0, j): what `predict_topk_sharded` reads.
+
+    Each piece is made once (the head here, the rest at its first use) and
+    kept; on a device that holds the weights already, it is the tensor
+    itself (a view), not a copy."""
+
+    def __init__(self, params, mesh, W: torch.Tensor):
+        # A weak reference: the placements are kept in a dict weakly keyed
+        # by the parameters.
+        self._source = weakref.ref(params)
+        self._params: dict = {}
+        self._experts: dict = {}
+        self.versions = _versions(params)
+        self.head = prediction.shard_rows(W.float(), mesh)
+
+    def params(self, device) -> torch.nn.Module:
+        device = torch.device(device)
+        if device in self._params:
+            return self._params[device]
+        p = place(self._source(), device)
+        if p is not self._source():
+            self._params[device] = p
+        return p
+
+    def experts(self, cells: tuple) -> list:
+        from repro_torch.models import moe
+        if cells not in self._experts:
+            p = self.params(cells[0])
+            self._experts[cells] = [
+                moe.split_experts(blk.moe, cells) if hasattr(blk, "moe")
+                else () for blk in p.blocks]
+        return self._experts[cells]
+
+
+def _versions(params) -> Optional[tuple]:
+    """Each parameter's version counter (None for inference tensors, which
+    keep none)."""
+    try:
+        return tuple(t._version for t in params.parameters())
+    except RuntimeError:
+        return None
+
+
+_PLACEMENTS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def serving_placement(params, mesh, W: torch.Tensor) -> ServingPlacement:
+    """The serving placement of `params` on `mesh` (W: its head weight),
+    made once per (params, mesh) and reused by every later call; made
+    anew if a parameter was changed in place since (a training step)."""
+    by_mesh = _PLACEMENTS.setdefault(params, {})
+    placed = by_mesh.get(mesh)
+    if placed is None or placed.versions != _versions(params):
+        placed = by_mesh[mesh] = ServingPlacement(params, mesh, W)
+    return placed
+
+
+@dataclasses.dataclass
+class MeshCache:
+    """A serving cache over a mesh: `shards[i]` is row shard i's cache in
+    the one-device layout of its rows `rows[i]`, on that shard's cell."""
+    rows: tuple
+    shards: list
+
+
+def _map_cache(cache: dict, fn) -> dict:
+    """fn(tensor, batch dim) over a one-device cache: k/v (and the stacked
+    Mamba state) (L, B, ...), xLSTM's per-layer states (B, ...)."""
+    out = {}
+    for key, val in cache.items():
+        if key == "states":
+            out[key] = [type(st)(*(fn(t, 0) for t in st)) for st in val]
+        elif isinstance(val, tuple):
+            out[key] = type(val)(*(fn(t, 1) for t in val))
+        else:
+            out[key] = fn(val, 1)
+    return out
+
+
+def split_cache(cache: dict, shards: Sequence[RowShard]) -> MeshCache:
+    """A one-device cache as a MeshCache over the row shards: each shard's
+    rows on its cell (a view where the cache lies there already)."""
+    return MeshCache(tuple(s.rows for s in shards), [
+        _map_cache(cache, lambda t, dim, s=s:
+                   t.narrow(dim, s.rows.start,
+                            s.rows.stop - s.rows.start).to(s.device))
+        for s in shards])
+
+
+def gather_cache(cache: MeshCache, device) -> dict:
+    """A MeshCache in the one-device layout on `device`: the row shards'
+    caches joined along the batch in row order."""
+    shards = cache.shards
+
+    def cat(get, dim):
+        return torch.cat([get(c).to(device) for c in shards], dim=dim)
+    out = {}
+    for key, val in shards[0].items():
+        if key == "states":
+            out[key] = [type(st)(*(cat(lambda c: c[key][n][f], 0)
+                                   for f in range(len(st))))
+                        for n, st in enumerate(val)]
+        elif isinstance(val, tuple):
+            out[key] = type(val)(*(cat(lambda c: c[key][f], 1)
+                                   for f in range(len(val))))
+        else:
+            out[key] = cat(lambda c: c[key], 1)
+    return out

@@ -39,9 +39,15 @@ its cell's device with a copy of the weights (`sharding.row_shards`,
 `sharding.replicas`), the MoE layers dispatch each shard's tokens at the
 shard's capacity with the experts' d_ff split over the model axis, and the
 head losses run one (row shard x label shard) block per cell, their
-partial sums added in a fixed order on the first cell. Serving over a mesh
-is not ported (`NOT_PORTED`). `prefill` and `decode_step` run under
-`torch.inference_mode`.
+partial sums added in a fixed order on the first cell.
+
+Serving over a mesh (`prefill` and `decode_step` with `mesh=`): each row
+shard runs the one-device body on its cell with the weights placed there
+once per (params, mesh) (`sharding.serving_placement`), its MoE layers
+as in training, its cache on its cell (`sharding.MeshCache`); the head's
+label shards each take a top-k and one more top-k merges them
+(`prediction.predict_topk_sharded`, as XMC serving's). `prefill`
+and `decode_step` run under `torch.inference_mode`.
 """
 
 from __future__ import annotations
@@ -56,17 +62,11 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import prediction
 from repro_torch.core.head import init_head, target_logit
 from repro_torch.kernels.topk import ops as topk_ops
 from repro_torch.models import layers, moe, sharding, ssm
 from repro_torch.models.layers import matmul, param
-
-#: What the port does not run yet, by the ROADMAP item that ports it.
-NOT_PORTED = {
-    "mesh_serving": "LM serving over a mesh (prefill and decode_step with "
-                    "mesh=) is not ported yet: ROADMAP Queue A item 8f",
-}
-
 
 def check_decoder_only(cfg: ArchConfig) -> None:
     """This module's stacks are decoder-only; an encoder-decoder config
@@ -364,13 +364,7 @@ def _block_out(cfg, blk, kind, x, *, positions, window, rope, cells):
 def _forward_mesh(cfg, params, tokens, prefix, mesh, batch_axes, remat):
     dev = params.embed.device
     tokens = _tokens(tokens, dev)
-    shards = sharding.row_shards(mesh, tokens.shape[0], batch_axes)
-    if cfg.family == "moe" and len(shards[0].cells) == 1 and \
-            mesh.shape["model"] > 1:
-        # The JAX island would shard these tokens over `model` and still
-        # add the model cells' partial outputs: other tokens' rows.
-        raise ValueError(f"{cfg.name}: a MoE's batch shards cannot span the "
-                         f"model axis (batch axes {tuple(batch_axes)})")
+    shards = _mesh_shards(cfg, mesh, tokens.shape[0], batch_axes)
     feats, aux = [], None
     for s, p in zip(shards, sharding.replicas(params, [s.device
                                                        for s in shards])):
@@ -658,7 +652,7 @@ def _attention_decode_dyn(cfg: ArchConfig, p: layers.Attention,
 
 def _decode_block(cfg: ArchConfig, blk: Block, kind: str, x: torch.Tensor,
                   positions: torch.Tensor, window: int, kc, vc, sst,
-                  pos: int, valid=None, rope=None):
+                  pos: int, valid=None, rope=None, cells=()):
     """One decode block: x (B, 1, d) -> (x, recurrent state); kc and vc
     (None for xLSTM blocks) are updated in place."""
     h = layers.apply_norm(cfg, blk.norm1, x)
@@ -672,7 +666,7 @@ def _decode_block(cfg: ArchConfig, blk: Block, kind: str, x: torch.Tensor,
     if kind == "hybrid":
         m, sst = ssm.mamba_decode(cfg, blk.mamba, h, sst, cfg.d_model)
         mix = 0.5 * (mix + m)
-    return _ffn(cfg, blk, x + mix)[0], sst
+    return _ffn(cfg, blk, x + mix, cells)[0], sst
 
 
 def _on(a, device) -> torch.Tensor:
@@ -694,27 +688,37 @@ def _top_k(cfg: ArchConfig, params: LMParams, x: torch.Tensor, k: int):
     return topk_ops.topk(logits, k)
 
 
-@torch.inference_mode()
-def decode_step(cfg: ArchConfig, params: LMParams, cache: dict, tokens,
-                pos: int, *, use_swa: bool = False, top_k: int = 5):
-    """ONE new token (B, 1) against the cache at position `pos` ->
-    (top-k values, top-k ids int32, cache), the cache updated in place
-    (xLSTM's per-layer states replaced in its list)."""
-    check_decoder_only(cfg)
+def _mesh_shards(cfg: ArchConfig, mesh, B: int, batch_axes) -> list:
+    """The backbone's row shards of a B-row batch on the mesh (training
+    and serving alike)."""
+    shards = sharding.row_shards(mesh, B, batch_axes)
+    if cfg.family == "moe" and len(shards[0].cells) == 1 and \
+            mesh.shape["model"] > 1:
+        # The JAX island would shard these tokens over `model` and still
+        # add the model cells' partial outputs: other tokens' rows.
+        raise ValueError(f"{cfg.name}: a MoE's batch shards cannot span the "
+                         f"model axis (batch axes {tuple(batch_axes)})")
+    return shards
+
+
+def _decode_body(cfg: ArchConfig, params: LMParams, cache: dict, tokens,
+                 pos: int, use_swa: bool, cells=None) -> torch.Tensor:
+    """One token (B, 1) through the stack against `cache` (updated in
+    place; xLSTM's states replaced in its list) -> the final-norm features
+    (B, d). `cells`: per layer, what a MoE layer splits its experts over
+    (none: one device)."""
     x = params.embed[_tokens(tokens, params.embed.device)]      # (B, 1, d)
     B = x.shape[0]
-    pos = int(pos)
     positions = torch.full((B, 1), pos, dtype=torch.long, device=x.device)
     wins = layer_windows(cfg, use_swa=use_swa)
+    cells = cells or [()] * cfg.n_layers
     if cfg.family == "ssm":
         states = cache["states"]
         for i, blk in enumerate(params.blocks):
             x, states[i] = _decode_block(cfg, blk, block_kind(cfg, i), x,
                                          positions, wins[i], None, None,
-                                         states[i], pos)
-        x = layers.apply_norm(cfg, params.final_norm, x)
-        vals, idx = _top_k(cfg, params, x[:, 0], top_k)
-        return vals, idx, cache
+                                         states[i], pos, cells=cells[i])
+        return layers.apply_norm(cfg, params.final_norm, x)[:, 0]
     T_max = cache["k"].shape[2]
     valid = {w: _decode_valid(T_max, pos, w, x.device) for w in set(wins)}
     rope = layers.rope_tables(cfg, positions)
@@ -725,26 +729,54 @@ def decode_step(cfg: ArchConfig, params: LMParams, cache: dict, tokens,
             sst = ssm.MambaState(cache["ssm"].h[i], cache["ssm"].conv[i])
         x, sst = _decode_block(cfg, blk, kind, x, positions, wins[i],
                                cache["k"][i], cache["v"][i], sst, pos,
-                               valid[wins[i]], rope)
+                               valid[wins[i]], rope, cells[i])
         if kind == "hybrid":
             cache["ssm"].h[i].copy_(sst.h)
             cache["ssm"].conv[i].copy_(sst.conv)
-    x = layers.apply_norm(cfg, params.final_norm, x)
-    vals, idx = _top_k(cfg, params, x[:, 0], top_k)
-    return vals, idx, cache
+    return layers.apply_norm(cfg, params.final_norm, x)[:, 0]
 
 
 @torch.inference_mode()
-def prefill(cfg: ArchConfig, params: LMParams, tokens,
-            prefix: Optional[torch.Tensor] = None, *, use_swa: bool = False,
-            top_k: int = 5):
-    """Full-sequence forward that fills the serving cache -> (top-k
-    values, top-k ids int32, cache) at the last position (k = 5, as the
-    JAX package fixes it). A prefix (B, P, d) goes before the tokens and
-    takes the first P positions of the cache. Cache length == sequence
-    length (bf16, as the JAX package stores it); xLSTM's cache holds each
-    layer's state after the sequence."""
+def decode_step(cfg: ArchConfig, params: LMParams, cache, tokens,
+                pos: int, *, mesh=None, batch_axes=(), use_swa: bool = False,
+                top_k: int = 5):
+    """ONE new token (B, 1) against the cache at position `pos` ->
+    (top-k values, top-k ids int32, cache), the cache updated in place
+    (xLSTM's per-layer states replaced in its list).
+
+    With a mesh, as `prefill`'s: each row shard's token against its own
+    cache (a `sharding.MeshCache`, as `prefill(mesh=)` returns it; a
+    one-device cache is split over the row shards first, once), the
+    top-k merged over the label shards; the MeshCache is returned."""
     check_decoder_only(cfg)
+    pos = int(pos)
+    if mesh is None:
+        x = _decode_body(cfg, params, cache, tokens, pos, use_swa)
+        vals, idx = _top_k(cfg, params, x, top_k)
+        return vals, idx, cache
+    placed = sharding.serving_placement(params, mesh,
+                                        head_weight(cfg, params))
+    tokens = _tokens(tokens, params.embed.device)
+    shards = _mesh_shards(cfg, mesh, tokens.shape[0], batch_axes)
+    if not isinstance(cache, sharding.MeshCache):
+        cache = sharding.split_cache(cache, shards)
+    if cache.rows != tuple(s.rows for s in shards):
+        raise ValueError(f"a cache of row shards {cache.rows} for a step "
+                         f"of row shards {[s.rows for s in shards]}")
+    feats = [_decode_body(cfg, placed.params(s.device), c,
+                          tokens[s.rows].to(s.device), pos, use_swa,
+                          placed.experts(s.cells))
+             for s, c in zip(shards, cache.shards)]
+    vals, idx = _mesh_top_k(mesh, placed, feats, top_k)
+    return vals, idx, cache
+
+
+def _prefill_body(cfg: ArchConfig, params: LMParams, tokens, prefix,
+                  use_swa: bool, cells=None):
+    """The full-sequence forward that fills a new serving cache -> (the
+    final-norm features of the last position (B, d), cache). `cells`: per
+    layer, what a MoE layer splits its experts over (none: one
+    device)."""
     x = params.embed[_tokens(tokens, params.embed.device)]
     x = _with_prefix(cfg, x, prefix)
     B, T, _ = x.shape
@@ -753,10 +785,11 @@ def prefill(cfg: ArchConfig, params: LMParams, tokens,
     t_eff = decode_cache_len(cfg, T, use_swa=use_swa)
     cache = init_cache(cfg, B, t_eff, use_swa=use_swa, device=x.device)
     rope = layers.rope_tables(cfg, positions)
+    cells = cells or [()] * cfg.n_layers
     states = []
     for i, blk in enumerate(params.blocks):
         x, k, v, sst, _ = _block(cfg, blk, block_kind(cfg, i), x,
-                                 positions, wins[i], rope)
+                                 positions, wins[i], rope, cells[i])
         if cfg.family == "ssm":
             cache["states"][i] = sst
             continue
@@ -767,6 +800,61 @@ def prefill(cfg: ArchConfig, params: LMParams, tokens,
     if states:
         cache["ssm"] = ssm.MambaState(*(torch.stack(a) for a in
                                         zip(*states)))
-    x = layers.apply_norm(cfg, params.final_norm, x)
-    vals, idx = _top_k(cfg, params, x[:, -1], top_k)
-    return vals, idx, cache
+    return layers.apply_norm(cfg, params.final_norm, x)[:, -1], cache
+
+
+@torch.inference_mode()
+def prefill(cfg: ArchConfig, params: LMParams, tokens,
+            prefix: Optional[torch.Tensor] = None, *, mesh=None,
+            batch_axes=(), use_swa: bool = False, top_k: int = 5):
+    """Full-sequence forward that fills the serving cache -> (top-k
+    values, top-k ids int32, cache) at the last position (k = 5, as the
+    JAX package fixes it). A prefix (B, P, d) goes before the tokens and
+    takes the first P positions of the cache. Cache length == sequence
+    length (bf16, as the JAX package stores it); xLSTM's cache holds each
+    layer's state after the sequence.
+
+    With a mesh: each row shard (`sharding.row_shards` of the batch axes)
+    runs this forward on its cell with the weights placed there once
+    (`sharding.serving_placement`), its MoE layers at the shard's own
+    capacity with the experts' d_ff split over the shard's cells (as
+    training's `forward(mesh=)`; mLSTM, sLSTM and Mamba as on one
+    device, as JAX serving passes them no mesh). The head is split into
+    label shards over `model`: each label shard's cell takes the top-k of
+    its logits for every row, and the candidates, gathered on the first
+    cell in shard order, are merged by one more top-k, so a tie goes to
+    the lowest global id, as `lax.top_k` of the full logits gives it. The
+    cache is a `sharding.MeshCache` (each row shard's on its cell), which
+    `decode_step(mesh=)` continues; values and ids lie on the mesh's
+    first cell."""
+    check_decoder_only(cfg)
+    if mesh is None:
+        x, cache = _prefill_body(cfg, params, tokens, prefix, use_swa)
+        vals, idx = _top_k(cfg, params, x, top_k)
+        return vals, idx, cache
+    placed = sharding.serving_placement(params, mesh,
+                                        head_weight(cfg, params))
+    dev = params.embed.device
+    tokens = _tokens(tokens, dev)
+    shards = _mesh_shards(cfg, mesh, tokens.shape[0], batch_axes)
+    feats, caches = [], []
+    for s in shards:
+        pre = None if prefix is None else _on(prefix, dev)[s.rows]
+        f, c = _prefill_body(cfg, placed.params(s.device),
+                             tokens[s.rows].to(s.device), pre, use_swa,
+                             placed.experts(s.cells))
+        feats.append(f)
+        caches.append(c)
+    vals, idx = _mesh_top_k(mesh, placed, feats, top_k)
+    return vals, idx, sharding.MeshCache(tuple(s.rows for s in shards),
+                                         caches)
+
+
+def _mesh_top_k(mesh, placed, feats: list, k: int):
+    """The top-k of the head's logits over the label shards
+    (`predict_topk_sharded` on the placed head): every row shard's
+    features, in row order and float32 as `_top_k`'s, go to each label
+    shard's cell for its top-k, and the candidates are merged on the
+    first cell, a tie going to the lowest global id."""
+    x = torch.cat([f.to(mesh.first) for f in feats]).float()
+    return prediction.predict_topk_sharded(x, placed.head, k, mesh)

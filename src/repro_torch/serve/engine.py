@@ -17,11 +17,14 @@ from repro_torch.serve.batching import left_pad_tokens
 
 
 def generate(model, params, prompt_tokens, *, steps: int, prefix=None,
-             use_swa: bool = False) -> np.ndarray:
+             use_swa: bool = False, mesh=None,
+             batch_axes=()) -> np.ndarray:
     """Greedy continuation of `prompt_tokens` (B, T0) for `steps` tokens ->
     (B, steps) int32. The prompt goes in by teacher-forced decode steps,
     as in the JAX package (right for every cache kind; the bulk path is
-    `model.prefill`). The chosen ids stay on the device until the end."""
+    `model.prefill`). The chosen ids stay on the device until the end.
+    With a mesh, every step is `decode_step(mesh=, batch_axes=)`: the
+    cache is split over the row shards at the first step."""
     if prefix is not None:
         raise NotImplementedError("generate() with prefix: use "
                                   "model.prefill")
@@ -31,11 +34,14 @@ def generate(model, params, prompt_tokens, *, steps: int, prefix=None,
     pos = 0
     for t in range(T0):
         _, idx, cache = model.decode_step(params, cache, prompt[:, t:t + 1],
-                                          pos, use_swa=use_swa)
+                                          pos, mesh=mesh,
+                                          batch_axes=batch_axes,
+                                          use_swa=use_swa)
         pos += 1
     out = [idx[:, :1]]
     for _ in range(steps - 1):
         _, idx, cache = model.decode_step(params, cache, out[-1], pos,
+                                          mesh=mesh, batch_axes=batch_axes,
                                           use_swa=use_swa)
         pos += 1
         out.append(idx[:, :1])

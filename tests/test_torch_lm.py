@@ -291,22 +291,47 @@ def test_serve_batch_matches_jax(lm):
 
 @pytest.mark.parametrize("arch,item", [("seamless-m4t-medium", "8f")])
 def test_unported_families_raise(arch, item):
-    """Every family serves on one device (the encoder-decoder too, held to
-    the JAX package in test_torch_encdec.py); serving over a mesh names
-    the ROADMAP item that ports it."""
+    """Every family serves on one device and over a mesh (ROADMAP item
+    8f). The encoder-decoder's `prefill` and `decode_step` drop the mesh,
+    as the JAX package's `build_model` does: over a mesh it serves bit for
+    bit as on one device, in the port and in the JAX package."""
+    from repro.compat import AxisType, make_mesh
     from repro_torch.launch.mesh import make_host_mesh
+    del item
     cfg = get_config(arch, smoke=True)
     m = build_model(cfg, device="cpu")
     p = m.init(torch.Generator().manual_seed(0))
-    batch = {"tokens": np.ones((1, 4), np.int32),
-             "prefix": np.zeros((1, cfg.n_prefix, cfg.d_model), np.float32)}
-    _, _, cache = m.prefill(p, batch)
-    assert cache["mem_k"].shape[2] == cfg.n_prefix
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, cfg.vocab, size=(2, 6)),
+             "prefix": (0.05 * rng.normal(
+                 size=(2, cfg.n_prefix, cfg.d_model))).astype(np.float32)}
+    tok = rng.integers(0, cfg.vocab, size=(2, 1))
     mesh = make_host_mesh(1, 2, devices=["cpu"] * 2)
-    with pytest.raises(NotImplementedError, match=f"Queue A item {item}"):
-        m.prefill(p, batch, mesh=mesh, batch_axes=("data",))
-    with pytest.raises(NotImplementedError, match=f"Queue A item {item}"):
-        m.decode_step(p, cache, np.ones((1, 1), np.int32), 4, mesh=mesh)
+    runs = []
+    for kw in ({}, {"mesh": mesh, "batch_axes": ("data",)}):
+        v, i, cache = m.prefill(p, batch, **kw)
+        assert cache["mem_k"].shape[2] == cfg.n_prefix
+        dv, di, cache = m.decode_step(p, cache, tok, 6, **kw)
+        runs.append((v, i, dv, di, cache))
+    for a, b in zip(*runs):
+        if isinstance(a, dict):
+            assert all(torch.equal(a[k], b[k]) for k in a)
+        else:
+            assert torch.equal(a, b)
+    jm = jax_build(jax_config(arch, smoke=True))
+    jp = jm.init(jax.random.PRNGKey(0))
+    jmesh = make_mesh((1, 1), ("data", "model"),
+                      axis_types=(AxisType.Auto, AxisType.Auto))
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    jruns = []
+    for kw in ({}, {"mesh": jmesh, "batch_axes": ("data",)}):
+        v, i, cache = jm.prefill(jp, jb, **kw)
+        dv, di, cache = jm.decode_step(jp, cache, jnp.asarray(tok),
+                                       jnp.int32(6), **kw)
+        jruns.append([np.asarray(x) for x in (v, i, dv, di)] +
+                     [np.asarray(cache[k], np.float32) for k in sorted(cache)])
+    for a, b in zip(*jruns):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_train_loss_names_its_item():
