@@ -35,6 +35,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.device import resolve_device, to_device, to_numpy
 
 try:
@@ -423,33 +424,36 @@ class BlockSparseWriter:
         see `core.pruning.to_block_sparse(row_block_offset=...)`) and
         release this batch's lease (if any) in the same manifest commit."""
         from repro_torch.core.pruning import quantize_blocks
-        blocks = to_numpy(part.blocks)
-        blocks_int8, block_scales = quantize_blocks(blocks)
-        fname = f"shard-{batch:05d}.npz"
-        path = os.path.join(self.directory, fname)
-        # tmp + rename: a shard re-solved by a second worker (expired
-        # lease) must replace the file atomically, never interleave with a
-        # concurrent reader. The tmp name keeps the .npz suffix so
-        # np.savez does not append another one.
-        tmp = path + ".tmp.npz"
-        np.savez_compressed(
-            tmp,
-            blocks=blocks,
-            blocks_int8=blocks_int8,
-            block_scales=block_scales,
-            block_rows=to_numpy(part.block_rows),
-            block_cols=to_numpy(part.block_cols),
-            row_ptr=to_numpy(part.row_ptr))
-        os.replace(tmp, path)
-        with self._locked():
-            self.manifest["shards"][str(int(batch))] = {
-                "file": fname, "row_start": int(row_start),
-                "n_rows": int(n_rows), "padded_rows": int(part.shape[0]),
-                "n_blocks": int(blocks.shape[0]),
-                "nnz": int(np.count_nonzero(blocks)),
-                "int8": True,
-            }
-            self.manifest["leases"].pop(str(int(batch)), None)
+        with obs.span("ckpt.write", batch=batch):
+            with obs.span("ckpt.quantize", batch=batch):
+                blocks = to_numpy(part.blocks)
+                blocks_int8, block_scales = quantize_blocks(blocks)
+            fname = f"shard-{batch:05d}.npz"
+            path = os.path.join(self.directory, fname)
+            # tmp + rename: a shard re-solved by a second worker (expired
+            # lease) must replace the file atomically, never interleave with a
+            # concurrent reader. The tmp name keeps the .npz suffix so
+            # np.savez does not append another one.
+            tmp = path + ".tmp.npz"
+            with obs.span("ckpt.savez", batch=batch):
+                np.savez_compressed(
+                    tmp,
+                    blocks=blocks,
+                    blocks_int8=blocks_int8,
+                    block_scales=block_scales,
+                    block_rows=to_numpy(part.block_rows),
+                    block_cols=to_numpy(part.block_cols),
+                    row_ptr=to_numpy(part.row_ptr))
+                os.replace(tmp, path)
+            with obs.span("ckpt.commit", batch=batch), self._locked():
+                self.manifest["shards"][str(int(batch))] = {
+                    "file": fname, "row_start": int(row_start),
+                    "n_rows": int(n_rows), "padded_rows": int(part.shape[0]),
+                    "n_blocks": int(blocks.shape[0]),
+                    "nnz": int(np.count_nonzero(blocks)),
+                    "int8": True,
+                }
+                self.manifest["leases"].pop(str(int(batch)), None)
 
     def read_batch_dense(self, batch: int) -> np.ndarray:
         """Densify one already-written shard back to its (n_rows, D) weight

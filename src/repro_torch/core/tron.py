@@ -26,6 +26,8 @@ and one per Newton iteration ("some label still live"). At the trainer's
 shape one Hessian product is about 88 ms of fp32 work on an H100, so
 reading one bool costs far less than running masked iterations past the
 point where every label is done. Nothing else is read back inside a solve.
+While a profiler records, each Newton iteration is a `tron.newton` span
+(`repro_torch.obs`).
 """
 
 from __future__ import annotations
@@ -33,6 +35,8 @@ from __future__ import annotations
 from typing import Callable, NamedTuple, Optional
 
 import torch
+
+from repro_torch import obs
 
 # Liblinear's trust-region constants.
 ETA0, ETA1, ETA2 = 1e-4, 0.25, 0.75
@@ -153,43 +157,44 @@ def tron_solve(obj_grad_fn: Callable, hvp_fn: Callable, W0: torch.Tensor,
     n_newton, n_cg = zeros, zeros.clone()
     k = 0
     while k < max_newton and bool(live.any()):    # one bool per iteration
-        cg_tol = torch.clamp(torch.sqrt(gnorm / (gref + 1e-38)),
-                             max=0.1) * gnorm
-        act_now = act
-        d, cg_iters = _steihaug_cg(lambda V: hvp_fn(V, act_now), g, delta,
-                                   cg_tol, max_cg, live)
+        with obs.span("tron.newton"):
+            cg_tol = torch.clamp(torch.sqrt(gnorm / (gref + 1e-38)),
+                                 max=0.1) * gnorm
+            act_now = act
+            d, cg_iters = _steihaug_cg(lambda V: hvp_fn(V, act_now), g, delta,
+                                       cg_tol, max_cg, live)
 
-        W_try = W + d
-        f_try, g_try, act_try = obj_grad_fn(W_try)
+            W_try = W + d
+            f_try, g_try, act_try = obj_grad_fn(W_try)
 
-        # Quadratic-model decrease -(<g,d> + 0.5 <d, H d>), H at W (cached).
-        Hd = hvp_fn(d, act)
-        pred = -(_rowdot(g, d) + 0.5 * _rowdot(d, Hd))
-        actual = f - f_try
-        rho = actual / torch.where(pred != 0.0, pred, 1.0)
+            # Quadratic-model decrease -(<g,d> + 0.5 <d, H d>), H at W, cached
+            Hd = hvp_fn(d, act)
+            pred = -(_rowdot(g, d) + 0.5 * _rowdot(d, Hd))
+            actual = f - f_try
+            rho = actual / torch.where(pred != 0.0, pred, 1.0)
 
-        accept = (rho > ETA0) & live
-        dnorm = torch.linalg.vector_norm(d, dim=-1)
+            accept = (rho > ETA0) & live
+            dnorm = torch.linalg.vector_norm(d, dim=-1)
 
-        # Trust-radius update (liblinear schedule).
-        delta_new = torch.where(
-            rho < ETA0, SIGMA1 * torch.minimum(dnorm, delta),
-            torch.where(
-                rho < ETA1, torch.maximum(SIGMA1 * delta, SIGMA2 * dnorm),
-                torch.where(rho < ETA2, delta,
-                            torch.maximum(delta, SIGMA3 * dnorm))))
-        delta = torch.where(live, delta_new, delta)
+            # Trust-radius update (liblinear schedule).
+            delta_new = torch.where(
+                rho < ETA0, SIGMA1 * torch.minimum(dnorm, delta),
+                torch.where(
+                    rho < ETA1, torch.maximum(SIGMA1 * delta, SIGMA2 * dnorm),
+                    torch.where(rho < ETA2, delta,
+                                torch.maximum(delta, SIGMA3 * dnorm))))
+            delta = torch.where(live, delta_new, delta)
 
-        W = torch.where(accept[:, None], W_try, W)
-        act = _select_aux(accept, act_try, act)
-        f = torch.where(accept, f_try, f)
-        g = torch.where(accept[:, None], g_try, g)
-        gnorm = torch.linalg.vector_norm(g, dim=-1)
-        # A label that entered this iteration live did one more Newton
-        # step; labels done earlier are masked no-ops and do not count.
-        n_newton = n_newton + live.to(torch.int32)
-        n_cg = n_cg + cg_iters
-        live = live & (gnorm > tol)
+            W = torch.where(accept[:, None], W_try, W)
+            act = _select_aux(accept, act_try, act)
+            f = torch.where(accept, f_try, f)
+            g = torch.where(accept[:, None], g_try, g)
+            gnorm = torch.linalg.vector_norm(g, dim=-1)
+            # A label that entered this iteration live did one more Newton
+            # step; labels done earlier are masked no-ops and do not count.
+            n_newton = n_newton + live.to(torch.int32)
+            n_cg = n_cg + cg_iters
+            live = live & (gnorm > tol)
         k += 1
     return TronResult(W=W, f=f, gnorm=gnorm, n_newton=n_newton, n_cg=n_cg,
                       converged=~live)

@@ -14,9 +14,9 @@ set of fixed shapes:
   * `LatencyStats`      — per-request latency percentiles (p50/p90/p99) over
                           enqueue -> completion spans.
 
-A copy of the JAX package's module of the same name;
-`repro_torch.serve.xmc.XMCEngine` and `repro_torch.serve.engine` are
-loops around it.
+A copy of the JAX package's module of the same name, without its legacy
+aggregate `LatencyStats.record`; `repro_torch.serve.xmc.XMCEngine` and
+`repro_torch.serve.engine` are loops around it.
 """
 
 from __future__ import annotations
@@ -228,11 +228,9 @@ class MicroBatchQueue:
 class LatencyStats:
     """Wall-clock per-request latency accounting for the serving engines.
 
-    The primitive is `record_span(enqueue_ts, done_ts)` — one sample per
-    request, measured from its own enqueue to its own completion, so queue
-    wait is part of the number and percentiles are real order statistics.
-    `record(seconds, n_requests)` remains as the legacy aggregate API (one
-    pre-measured duration stamped onto n requests) as a thin wrapper.
+    One sample per request, `record_span(enqueue_ts, done_ts)`, measured
+    from its own enqueue to its own completion, so queue wait is part of
+    the number and percentiles are real order statistics.
     """
 
     def __init__(self):
@@ -241,10 +239,6 @@ class LatencyStats:
     def record_span(self, start: float, end: float) -> None:
         """One request's latency as its (enqueue, completion) timestamps."""
         self._ms.append((end - start) * 1e3)
-
-    def record(self, seconds: float, n_requests: int = 1):
-        for _ in range(n_requests):
-            self.record_span(0.0, seconds)
 
     @property
     def count(self) -> int:

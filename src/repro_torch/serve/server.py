@@ -61,6 +61,13 @@ or device error in either thread stops the server: nothing is retried or
 served another way, every accepted request still unanswered fails with
 it (`XMCFuture.result()` raises), and `stop()` raises it.
 
+While a profiler records, both threads record spans (`repro_torch.obs`):
+the dispatcher's wait for requests, and each batch's pack, copy, launch
+and hand-off; the completion thread's wait on the event, copy back and
+resolve, under the same `batch` id. `counters` also count the real rows
+dispatched (`rows`) and the rows sent with their bucket's padding
+(`padded_rows`).
+
 Spec plumbing: `ServeSpec.max_batch_delay_ms` / `max_queue` configure the
 server a checkpoint wants; `CheckpointHandle.server()` (repro_torch.xmc_api)
 builds one, and `launch/serve.py --server` runs a multi-model process from
@@ -80,6 +87,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.serve.batching import LatencyStats
 from repro_torch.serve.xmc import XMCEngine, XMCResult
 
@@ -193,8 +201,11 @@ class XMCServer:
         self.queue = engine.queue
         self.latency = LatencyStats()        # arrival -> completion
         self.queue_wait = LatencyStats()     # arrival -> device dispatch
+        # rows: real rows dispatched; padded_rows: rows sent to the device,
+        # each batch padded to its bucket.
         self.counters = {"accepted": 0, "rejected": 0, "completed": 0,
-                         "batches": 0, "swaps": 0}
+                         "batches": 0, "swaps": 0, "rows": 0,
+                         "padded_rows": 0}
         self.previous_engine: Optional[XMCEngine] = None  # rollback target
         self.last_swap: Optional[dict] = None   # timing of the latest swap
         self.error: Optional[BaseException] = None   # a worker's fault
@@ -373,23 +384,31 @@ class XMCServer:
         and hand it to the completion side. Returns False when nothing was
         launchable."""
         delay_s = self.max_batch_delay_ms / 1e3
-        with self._cv:
-            mb = self.queue.next_batch(max_delay_s=delay_s, force=force)
-            engine = self.engine     # captured with the batch: a concurrent
-            # swap() must not tear one micro-batch across two models
-        if mb is None:
-            return False
-        engine.ensure_warm(mb.bucket)
-        device = engine.backend.device
-        xb = torch.from_numpy(mb.x).to(device)   # pageable copy, synchronous
-        t_dispatch = time.monotonic()
-        scores, labels = engine.backend.topk(xb)        # kernels enqueued
-        event = None
-        if device.type == "cuda":
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(device))
-        self.counters["batches"] += 1
-        self._inflight.put((mb, scores, labels, event, t_dispatch))
+        batch = self.counters["batches"]       # this batch's id in spans
+        with obs.span("serve.batch", batch=batch):
+            with obs.span("serve.pack", batch=batch), self._cv:
+                mb = self.queue.next_batch(max_delay_s=delay_s, force=force)
+                engine = self.engine  # captured with the batch: a concurrent
+                # swap() must not tear one micro-batch across two models
+            if mb is None:
+                return False
+            engine.ensure_warm(mb.bucket)
+            device = engine.backend.device
+            with obs.span("serve.h2d", batch=batch, bytes=mb.x.nbytes):
+                xb = torch.from_numpy(mb.x).to(device)  # pageable, synchronous
+            t_dispatch = time.monotonic()
+            with obs.span("serve.launch", batch=batch):
+                scores, labels = engine.backend.topk(xb)  # kernels enqueued
+                event = None
+                if device.type == "cuda":
+                    event = torch.cuda.Event()
+                    event.record(torch.cuda.current_stream(device))
+            self.counters["batches"] += 1
+            self.counters["rows"] += sum(mb.row_counts)
+            self.counters["padded_rows"] += mb.bucket
+            with obs.span("serve.handoff", batch=batch):
+                self._inflight.put((mb, scores, labels, event, t_dispatch,
+                                    batch))
         return True
 
     def _fail(self, error: BaseException) -> None:
@@ -410,7 +429,7 @@ class XMCServer:
         cap = self.queue.buckets[-1]
         try:
             while True:
-                with self._cv:
+                with obs.span("serve.wait_requests"), self._cv:
                     while True:
                         if self._stopping:
                             break
@@ -432,11 +451,21 @@ class XMCServer:
         finally:
             self._inflight.put(_STOP)
 
-    def _complete_batch(self, mb, scores, labels, event,
-                        t_dispatch: float) -> None:
-        if event is not None:
-            event.synchronize()        # this batch only, not batch b+1
-        scores, labels = scores.cpu().numpy(), labels.cpu().numpy()
+    def _complete_batch(self, mb, scores, labels, event, t_dispatch: float,
+                        batch: int) -> None:
+        with obs.span("serve.complete", batch=batch):
+            with obs.span("serve.wait_device", batch=batch):
+                if event is not None:
+                    event.synchronize()    # this batch only, not batch b+1
+            with obs.span("serve.d2h", batch=batch):
+                scores, labels = scores.cpu().numpy(), labels.cpu().numpy()
+            with obs.span("serve.resolve", batch=batch):
+                self._resolve(mb, scores, labels, t_dispatch)
+
+    def _resolve(self, mb, scores: np.ndarray, labels: np.ndarray,
+                 t_dispatch: float) -> None:
+        """Hand each request its rows of one completed batch; resolve the
+        requests whose last piece this was."""
         t_done = time.monotonic()
         resolved = []
         with self._cv:

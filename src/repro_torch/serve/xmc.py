@@ -47,8 +47,10 @@ through `RelabelBackend`, which maps ids back.
 Requests go through `serve.batching.MicroBatchQueue` (size-bucketed padding
 of ragged streams); each bucket is run once at warm-up, and per-request
 latency percentiles are kept (enqueue -> completion). `XMCEngine.step()`
-drains the queue synchronously; `XMCEngine.server()` wraps the engine in
-the async request path (`serve/server.py`).
+drains the queue synchronously, each micro-batch's pack, copy, launch and
+copy back a span (`repro_torch.obs`) while a profiler records;
+`XMCEngine.server()` wraps the engine in the async request path
+(`serve/server.py`).
 """
 
 from __future__ import annotations
@@ -56,12 +58,14 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import inspect
+import itertools
 import time
 from typing import Iterable, Protocol, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.prediction import predict_topk, predict_topk_sharded
 from repro_torch.core.pruning import (BlockSparseModel, Int8BlockSparseModel,
                                       quantize_block_sparse, to_block_sparse)
@@ -682,11 +686,19 @@ class XMCEngine:
         out: dict[int, list[tuple[np.ndarray, np.ndarray]]] = {}
         arrival_by_rid: dict[int, float] = {}
         done_by_rid: dict[int, float] = {}
-        for mb in self.queue.drain():
+        batches = self.queue.drain()
+        for b in itertools.count():
+            with obs.span("serve.pack", batch=b):
+                mb = next(batches, None)
+            if mb is None:
+                break
             self.ensure_warm(mb.bucket)
-            x = torch.from_numpy(mb.x).to(self.backend.device)
-            scores, labels = self.backend.topk(x)
-            scores, labels = scores.cpu().numpy(), labels.cpu().numpy()
+            with obs.span("serve.h2d", batch=b, bytes=mb.x.nbytes):
+                x = torch.from_numpy(mb.x).to(self.backend.device)
+            with obs.span("serve.launch", batch=b):
+                scores, labels = self.backend.topk(x)
+            with obs.span("serve.d2h", batch=b):
+                scores, labels = scores.cpu().numpy(), labels.cpu().numpy()
             t_done = time.monotonic()
             for rid, arrival in zip(mb.request_ids, mb.arrivals):
                 arrival_by_rid[rid] = arrival

@@ -56,6 +56,7 @@ from typing import Callable, Iterable, Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.checkpoint.io import (BSR_ARRAYS, BlockSparseWriter,
                                        has_block_sparse_checkpoint,
                                        label_range_reader,
@@ -143,6 +144,7 @@ class XMCTrainJob:
         """This job as (SolverSpec, ScheduleSpec)."""
         return SolverSpec.from_config(self.cfg), ScheduleSpec.from_job(self)
 
+    @obs.spanned("train.run")
     def run(self, X, Y, out_dir: Optional[str] = None, *,
             resume: bool = True, materialize: Optional[bool] = None,
             max_batches: Optional[int] = None, meta: Optional[dict] = None,
@@ -173,6 +175,9 @@ class XMCTrainJob:
                        batch claiming over the shared manifest.
         label_order  : pack-time label permutation (trains Y[:, order]),
                        recorded in the manifest.
+
+        While a profiler records, the call records a `train.run` span and
+        its children (`repro_torch.obs`).
         """
         if self.mesh is not None:
             home = self.mesh.first
@@ -182,7 +187,9 @@ class XMCTrainJob:
                                  f"the mesh's devices ({home})")
             device = home if device is None else device
         device = resolve_device(device)
-        X_host = to_numpy(X)
+        with obs.span("train.x_to_host") as sp:
+            X_host = to_numpy(X)
+            sp.set(bytes=X_host.nbytes)
         Yn = to_numpy(Y)
         if label_order is not None:
             label_order = np.asarray(label_order, np.int64).reshape(-1)
@@ -261,9 +268,9 @@ class XMCTrainJob:
         # it, or a failed batch's heartbeated lease would wedge everyone.
         failed: list[BaseException] = []
 
-        def dispatch(b: int, start: int, stop: int):
-            """Solve one batch on the device and copy its rows to the host
-            (on the main thread, before the next batch starts)."""
+        def inputs(start: int, stop: int):
+            """A batch's sign rows (and a warm start's rows), dealt to the
+            shards and padded to the solve's shape, on the device."""
             rows = stop - start
             signs = (2.0 * Yn[:, start:stop].T - 1.0).astype(np.float32)
             perm = None
@@ -282,8 +289,20 @@ class XMCTrainJob:
             if rows < lb_solve:                           # shape-constant pad
                 signs = np.concatenate(
                     [signs, -np.ones((lb_solve - rows, N), np.float32)])
-            W_dev = solver(torch.from_numpy(signs).to(device), W0)
-            W_b = W_dev[:rows].cpu().numpy()
+            return torch.from_numpy(signs).to(device), W0, perm
+
+        def dispatch(b: int, start: int, stop: int):
+            """Solve one batch on the device and copy its rows to the host
+            (on the main thread, before the next batch starts)."""
+            rows = stop - start
+            with obs.span("train.batch", batch=b):
+                with obs.span("train.signs", batch=b) as sp:
+                    S, W0, perm = inputs(start, stop)
+                    sp.set(bytes=S.nbytes)
+                with obs.span("train.solve", batch=b):
+                    W_dev = solver(S, W0)
+                with obs.span("train.rows_d2h", batch=b, bytes=rows * D * 4):
+                    W_b = W_dev[:rows].cpu().numpy()
             if perm is not None:
                 W_b = W_b[np.argsort(perm)]               # undo the dealing
             return b, start, rows, W_b
@@ -291,20 +310,22 @@ class XMCTrainJob:
         def drain(item) -> None:
             """BSR pack + shard write of one solved batch (steps 8-10)."""
             b, start, rows, W_b = item
-            if writer is not None:
-                part = to_block_sparse(W_b, self.block_shape,
-                                       row_block_offset=start // bl,
-                                       sentinel_if_empty=False,
-                                       device="cpu")
-                # The manifest commit also releases this batch's lease.
-                writer.write_batch(b, part, row_start=start, n_rows=rows)
-            with held_lock:
-                held.discard(b)
-            if materialize:
-                host_blocks[b] = W_b
-            solved.append(b)
-            if on_batch is not None:
-                on_batch(b, len(batches))
+            with obs.span("train.drain", batch=b):
+                if writer is not None:
+                    with obs.span("train.pack", batch=b):
+                        part = to_block_sparse(W_b, self.block_shape,
+                                               row_block_offset=start // bl,
+                                               sentinel_if_empty=False,
+                                               device="cpu")
+                    # The manifest commit also releases this batch's lease.
+                    writer.write_batch(b, part, row_start=start, n_rows=rows)
+                with held_lock:
+                    held.discard(b)
+                if materialize:
+                    host_blocks[b] = W_b
+                solved.append(b)
+                if on_batch is not None:
+                    on_batch(b, len(batches))
 
         def leased_batches() -> Iterable[tuple[int, int, int]]:
             """Claim the next unleased (or expired) batch right before
@@ -395,7 +416,8 @@ class XMCTrainJob:
                 t.start()
                 try:
                     while True:
-                        slots.acquire()
+                        with obs.span("train.slot_wait"):
+                            slots.acquire()
                         if failed:
                             slots.release()
                             break
@@ -429,9 +451,12 @@ class XMCTrainJob:
             manifest = writer.finalize() if (writer and complete) else None
         model = None
         if materialize and complete:
-            W = np.concatenate([host_blocks[b] for b in range(len(batches))])
-            model = DiSMECModel(W=torch.from_numpy(W).to(device),
-                                delta=self.cfg.delta, n_labels=L)
+            with obs.span("train.materialize") as sp:
+                W = np.concatenate([host_blocks[b]
+                                    for b in range(len(batches))])
+                sp.set(bytes=W.nbytes)
+                model = DiSMECModel(W=torch.from_numpy(W).to(device),
+                                    delta=self.cfg.delta, n_labels=L)
         return XMCTrainResult(model=model, out_dir=out_dir,
                               n_batches=len(batches), solved=solved,
                               skipped=skipped, complete=complete,
